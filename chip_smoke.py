@@ -8,26 +8,50 @@ non-zero:
 
 1. device: requires CUDA; prints the card's name, the device count and
    ``nvidia-smi --query-gpu=name,power.limit``.
-2. build: compiles every kernel of the serving path from the repo's CUDA
-   sources with nvcc (sm_90a) and prints the build time and ptxas report.
-3. kernel vs plain: each kernel at the serving path's shapes, bf16 and f32,
-   contiguous and as the strided NCHW view, against its plain PyTorch
-   version, with a tolerance relative to the output's scale; negative
-   controls show that the same check rejects a result that is 5% off or
-   zero. Then kernel and plain times (CUDA events, after a warm-up).
-4. reference: the serving slice at a small size with dropout off, in f32,
+2. build: compiles every kernel (B1 and B3 share one source) from the
+   repo's CUDA sources with nvcc (sm_90a), one nvcc per source, all at once,
+   and prints the build times and ptxas reports.
+3. kernel vs plain: B1 at the shapes of the serving, train and fit paths,
+   B3 and B2 at theirs, bf16 and f32, contiguous and as a strided view,
+   against their plain PyTorch versions, with a tolerance relative to the
+   output's scale; negative controls show that the same check rejects a
+   result that is 5% off or zero; B3's backward against the plain
+   composition's. Then kernel and plain times (CUDA events, after a
+   warm-up), GB/s and the share of the byte bound, at the serving and the
+   batch-64 train shapes, with B1's forward time per request and per step.
+4. op path: B2 and B3 through their public ops (``fused_leaky_relu``,
+   ``linear_attention_core``, forward and backward) at their path shapes,
+   with the launch counts read around it; no model of the JAX package calls
+   either op.
+5. reference: the serving slice at a small size with dropout off, in f32,
    on the GPU (kernels) against the CPU (plain versions); a negative control
    shows that the check rejects a slice whose linear attention is dropped.
-5. slice: the SST-width workload (60x60, C=1, h=7, k=25, dim-64 UNets with
+6. train reference: one stage-2 loss (l2 > 0, fixed t, dropout off, f32)
+   and every forecaster gradient, GPU against CPU; a negative control shows
+   that the check rejects a loss whose gradient skips the interpolator's
+   second call.
+7. slice: the SST-width workload (60x60, C=1, h=7, k=25, dim-64 UNets with
    mults (1,2,4), 20 members x batch 6, bf16) built through
    ``interface.build_experiment`` with seeded random weights, answering
    requests through ``serving.build_predict_fn``; checks shapes, finite
    values, live dropout (member spread > 0, seeds differ, a seed repeats),
    the kernel launch count per request, and prints latency, frames/s, peak
    memory and the ensemble metrics.
+8. train: the SST-width train steps at batch 64 through
+   ``interface.build_trainer``: stage 1 in f32, then stage 2 (the stage-1
+   model as its interpolator) in f32, in bf16 mixed precision and in f32
+   with remat; per variant a warm-up step, 20 timed steps and 9 more on one
+   fixed batch. Checks finite losses that fall, and the B1 launches of each
+   variant (per step and in all); prints steps/s, examples/s, peak memory
+   and B1's share of the step.
+9. fit: ``interface.run_experiment`` at a small size, stage 1 then stage 2,
+   two epochs each; both best val/crps must be finite, and each stage's B1
+   launches must be what its steps and validations imply.
 
-The line before the last is the kernel summary as JSON; the last line is
-``{"ok": true, "device": {...}}``.
+Each path (slice, train, fit) sets the launch counts to 0 before it runs and
+reads them after. The line before the last is the kernel summary as JSON
+(B1's top-level launches and times are the train path's; ``by_path`` has
+each path's count); the last line is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --profile
 
@@ -45,6 +69,14 @@ import time
 
 SEED = 0
 N_REQUESTS = 3  # timed requests, after one warm-up request
+# the least time of a kernel's work: bytes over the H100's HBM rate, f32
+# operations over its CUDA-core f32 rate (the kernels compute in f32 off the
+# tensor cores); NVIDIA's data sheet, SXM part
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+# r of _within: f32 on both sides, sums in another order; bf16 outputs may
+# also round one ulp (<= 2**-7 of the largest output) apart
+REL_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
 
 
 def _sync():
@@ -77,10 +109,46 @@ def phase_build():
     from dyffusion_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.load_library("linear_attention")
-    log = _build.build_log["linear_attention"]
-    print(f"[build] linear_attention: nvcc {log['seconds']:.2f} s, load total {time.perf_counter() - t0:.2f} s")
-    print(f"[build] ptxas: {log['ptxas']}")
+    names = ("linear_attention", "fused_act")
+    _build.load_libraries(names)
+    for name in names:
+        log = _build.build_log[name]
+        print(f"[build] {name}: nvcc {log['seconds']:.2f} s")
+        print(f"[build] ptxas: {log['ptxas']}")
+    print(f"[build] all kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+
+
+def _bound(n_bytes, flops):
+    """(least ms, what bounds it) for work moving ``n_bytes`` and doing
+    ``flops`` f32 operations."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _check_vs_plain(label, got, want, r, negative_controls=False):
+    """Hold ``got`` to r x max|want|, print, raise on a miss; optionally show
+    that the same check rejects a result 5% off and zeros. Returns the max
+    abs error."""
+    import torch
+
+    ok, e, limit = _within(got, want, r)
+    scale = limit / r
+    print(f"[kernel] {label}: max_abs_err={e:.3e}, max|plain|={scale:.3e}, rel={e / scale if scale else 0:.2e} (limit {r})")
+    if not ok:
+        raise AssertionError(f"{label}: the kernel disagrees with its plain version: max_abs_err={e}, limit {limit}")
+    if negative_controls:
+        for name, wrong in (("x1.05", want * 1.05), ("zeros", torch.zeros_like(want))):
+            if _within(wrong, want, r)[0]:
+                raise AssertionError(f"{label}: the kernel check accepts a wrong result ({name})")
+        print(f"[kernel] {label}: the check rejects x1.05 and zeros")
+    return e
+
+
+def _time_pair(kernel, plain, iters=20):
+    """(kernel ms, plain ms) per call, timed in the order plain, kernel,
+    kernel, plain, ``iters`` calls each."""
+    p1, k1, k2, p2 = (_time_ms(f, iters) for f in (plain, kernel, kernel, plain))
+    return (k1 + k2) / 2, (p1 + p2) / 2
 
 
 def _qkv(B, N, dtype, strided, gen):
@@ -119,9 +187,26 @@ def _within(got, want, r):
     return bool(torch.isfinite(got).all()) and err <= limit, err, limit
 
 
+# B1 calls per train step at each N (3600, 900, 225), by dtype, of each
+# [train] variant: two calls (down and up path) per Unet forward at each N.
+# Stage 2 runs two interpolator and two forecaster forwards; remat recomputes
+# the two forecaster forwards; in bf16 only the first forecaster forward runs
+# in bf16 (the interpolator's weights are f32, and the l2 pass takes its f32
+# output, so those calls promote to f32)
+TRAIN_CALLS = {
+    "stage 1, f32": {"float32": 2},
+    "stage 2, f32": {"float32": 8},
+    "stage 2, bf16 train_dtype": {"bfloat16": 2, "float32": 6},
+    "stage 2, f32, remat": {"float32": 12},
+}
+
+
 def phase_kernel():
-    """Kernel vs plain at the path's shapes; returns (max_abs_err, ms, plain_ms)
-    where the times are per launch, weighted by one request's call mix."""
+    """B1 vs plain at the shapes of the serving, train and fit paths; times
+    at the serving and train shapes. Returns the max abs error, per-launch
+    times over one request's call mix ("serve") and over the [train] phase's
+    call mix ("train"), and the B1 forward time per step of each [train]
+    variant ("train_step")."""
     import torch
 
     from dyffusion_tpu_torch.ops import linear_attention as la
@@ -129,53 +214,187 @@ def phase_kernel():
     heads, d = 4, 32
     scale = d**-0.5
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    # r of _within: f32 on both sides, the sums over up to 3600 tokens taken
-    # in another order (mean-zero v cancels, so the result is ~50x smaller
-    # than its terms); bf16 outputs may also round one ulp (<= 2**-7 of the
-    # largest output) apart
-    rel_tol = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+    serve = ((120, 3600), (240, 900), (240, 225), (240, 3600), (120, 900), (120, 225))
+    train = ((64, 3600), (64, 900), (64, 225))  # batch 64, both stages
+    fit = ((4, 576), (24, 144))  # [fit]: a train batch at 24x24; an interpolator eval call at 12x12
+    controls = ((120, 3600), (240, 900), (64, 3600))
     max_err = 0.0
-    for B, N in ((120, 3600), (240, 900), (240, 225), (240, 3600), (120, 900), (120, 225), (3, 7)):
+    for B, N in serve + train + fit + ((3, 7),):
         for dtype in (torch.bfloat16, torch.float32):
             for strided in (False, True):
                 qkv = _qkv(B, N, dtype, strided, gen)
                 got = la.linear_attention_qkv(qkv, heads, d, scale)
                 _sync()
                 want = la.linear_attention_qkv_plain(qkv, heads, d, scale)
-                _sync()
-                r = rel_tol[dtype]
-                ok, e, limit = _within(got, want, r)
-                print(f"[kernel] B={B} N={N} {str(dtype)[6:]} {'nchw-view' if strided else 'contiguous'}: "
-                      f"max_abs_err={e:.3e}, max|plain|={limit / r:.3e}, rel={e * r / limit:.2e} (limit {r})")
-                if not ok:
-                    raise AssertionError(f"linear_attention_qkv kernel disagrees with plain at B={B} N={N} {dtype} "
-                                         f"strided={strided}: max_abs_err={e}, limit {limit}")
+                dt = str(dtype)[6:]
+                label = f"B1 B={B} N={N} {dt} {'nchw-view' if strided else 'contiguous'}"
+                e = _check_vs_plain(label, got, want, REL_TOL[dt], negative_controls=(B, N) in controls and not strided)
                 max_err = max(max_err, e)
-                if (B, N) in ((120, 3600), (240, 900)) and not strided:
-                    # negative controls: the check must reject a result 5% off or zero
-                    for label, wrong in (("x1.05", want * 1.05), ("zeros", torch.zeros_like(want))):
-                        if _within(wrong, want, r)[0]:
-                            raise AssertionError(f"the kernel check accepts a wrong result ({label}) at B={B} N={N}")
-                    print(f"[kernel] B={B} N={N} {str(dtype)[6:]}: the check rejects x1.05 and zeros")
-    # times at the serving path's shapes, bf16, NCHW view (as the Unet calls it)
-    calls = {120: 64, 240: 62}  # per request: 32 forecaster / 31 interpolator forwards x 2 calls per level
-    total_k = total_p = 0.0
+
+    def timed(B, N, dtype):  # NCHW view, as the Unet calls it
+        qkv = _qkv(B, N, dtype, True, gen)
+        ms_k, ms_p = _time_pair(lambda: la.linear_attention_qkv(qkv, heads, d, scale),
+                                lambda: la.linear_attention_qkv_plain(qkv, heads, d, scale))
+        n_bytes = B * N * (384 + 128) * qkv.element_size()  # read q, k, v once, write out once
+        bound_ms, bound_by = _bound(n_bytes, 4 * B * heads * N * d * d)  # context + out products
+        print(f"[kernel-time] B={B} N={N} {str(dtype)[6:]} nchw-view: kernel {ms_k:.4f} ms "
+              f"({n_bytes / ms_k / 1e6:.0f} GB/s), plain {ms_p:.4f} ms, plain/kernel {ms_p / ms_k:.2f}x, "
+              f"bound {bound_ms:.4f} ms ({bound_by}), share of bound {bound_ms / ms_k:.3f}")
+        if bound_by != "bytes":
+            raise AssertionError(f"B1 at B={B} N={N} {dtype} is bound by {bound_by}; the summary assumes bytes")
+        return ms_k, ms_p, bound_ms
+
+    # the serving path: bf16, per request 32 forecaster / 31 interpolator
+    # forwards x 2 calls per level
+    calls = {120: 64, 240: 62}
+    total = [0.0, 0.0, 0.0]
     for B in (120, 240):
         for N in (3600, 900, 225):
-            qkv = _qkv(B, N, torch.bfloat16, True, gen)
-            ms_p = _time_ms(lambda: la.linear_attention_qkv_plain(qkv, heads, d, scale))
-            ms_k = _time_ms(lambda: la.linear_attention_qkv(qkv, heads, d, scale))
-            ms_k2 = _time_ms(lambda: la.linear_attention_qkv(qkv, heads, d, scale))
-            ms_p2 = _time_ms(lambda: la.linear_attention_qkv_plain(qkv, heads, d, scale))
-            ms_k, ms_p = (ms_k + ms_k2) / 2, (ms_p + ms_p2) / 2
-            gbytes = B * N * (384 + 128) * 2 / 1e9
-            print(f"[kernel-time] B={B} N={N} bf16 nchw-view: kernel {ms_k:.4f} ms ({gbytes / ms_k * 1e3:.0f} GB/s), "
-                  f"plain {ms_p:.4f} ms, plain/kernel {ms_p / ms_k:.2f}x")
-            total_k += calls[B] * ms_k
-            total_p += calls[B] * ms_p
+            for i, t in enumerate(timed(B, N, torch.bfloat16)):
+                total[i] += calls[B] * t
     n_calls = sum(calls.values()) * 3
-    print(f"[kernel-time] per request ({n_calls} calls): kernel {total_k:.2f} ms, plain {total_p:.2f} ms")
-    return max_err, total_k / n_calls, total_p / n_calls
+    print(f"[kernel-time] per request ({n_calls} calls): kernel {total[0]:.2f} ms, plain {total[1]:.2f} ms, "
+          f"bound {total[2]:.2f} ms (share {total[2] / total[0]:.3f})")
+    result = {"max_abs_err": max_err, "serve": dict(zip(("ms", "plain_ms", "bound_ms"), (t / n_calls for t in total)))}
+    # the train path: batch 64, f32 and bf16
+    times = {(dt, N): timed(64, N, getattr(torch, dt)) for dt in ("float32", "bfloat16") for N in (3600, 900, 225)}
+    result["train_step"], total, n_calls = {}, [0.0, 0.0, 0.0], 0
+    for label, mix in TRAIN_CALLS.items():  # each variant runs the same number of steps
+        step = [sum(n * times[(dt, N)][i] for dt, n in mix.items() for N in (3600, 900, 225)) for i in range(3)]
+        result["train_step"][label] = step[0]
+        n_calls += 3 * sum(mix.values())
+        total = [a + b for a, b in zip(total, step)]
+        print(f"[kernel-time] B1 forward per train step, {label} ({3 * sum(mix.values())} calls at B=64): "
+              f"kernel {step[0]:.3f} ms, plain {step[1]:.3f} ms, bound {step[2]:.3f} ms (share {step[2] / step[0]:.3f})")
+    result["train"] = dict(zip(("ms", "plain_ms", "bound_ms"), (t / n_calls for t in total)))
+    return result
+
+
+def phase_kernel_core():
+    """B3, the linear-attention core on (BH, d, N), against its plain version
+    at the shapes of B1's path as heads = 1 (BH = B x 4), plus an odd N;
+    its backward against the plain composition's. Returns the summary."""
+    import torch
+
+    from dyffusion_tpu_torch.ops import linear_attention as la
+
+    d = 32
+    scale = d**-0.5
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    path = ((480, 3600), (960, 900), (960, 225))
+
+    def inputs(BH, N, dtype, strided):
+        if strided:  # (BH, d, N) views of (BH, N, d) tensors: channels on the stride-1 axis
+            return [torch.randn((BH, N, d), generator=gen, device="cuda").to(dtype).transpose(1, 2) for _ in range(3)]
+        return [torch.randn((BH, d, N), generator=gen, device="cuda").to(dtype) for _ in range(3)]
+
+    max_err = 0.0
+    for BH, N in path + ((5, 7),):
+        for dtype in (torch.bfloat16, torch.float32):
+            for strided in (False, True):
+                q, k, v = inputs(BH, N, dtype, strided)
+                got = la.linear_attention_core(q, k, v, scale)
+                _sync()
+                want = la.linear_attention_core_plain(q, k, v, scale)
+                dt = str(dtype)[6:]
+                label = f"B3 BH={BH} N={N} {dt} {'strided' if strided else 'contiguous'}"
+                e = _check_vs_plain(label, got, want, REL_TOL[dt], negative_controls=(BH, N) in path[:2] and not strided)
+                max_err = max(max_err, e)
+    # backward: the kernel's autograd against the plain composition's
+    q, k, v = (t.requires_grad_(True) for t in inputs(960, 900, torch.float32, False))
+    g = torch.randn(q.shape, generator=gen, device="cuda")
+    torch.autograd.backward(la.linear_attention_core(q, k, v, scale), g)
+    xs = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    torch.autograd.backward(la.linear_attention_core_plain(*xs, scale), g)
+    for name, a, b in zip("qkv", (q, k, v), xs):
+        _check_vs_plain(f"B3 backward d{name} BH=960 N=900 float32", a.grad, b.grad, REL_TOL["float32"])
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for BH, N in path:
+        q, k, v = inputs(BH, N, torch.bfloat16, False)
+        ms_k, ms_p = _time_pair(lambda: la.linear_attention_core(q, k, v, scale),
+                                lambda: la.linear_attention_core_plain(q, k, v, scale))
+        n_bytes = 4 * BH * d * N * 2  # read q, k, v, write out, bf16
+        bound_ms, bound_by = _bound(n_bytes, 4 * BH * N * d * d)
+        print(f"[kernel-time] B3 BH={BH} N={N} bf16: kernel {ms_k:.4f} ms ({n_bytes / ms_k / 1e6:.0f} GB/s), "
+              f"plain {ms_p:.4f} ms, plain/kernel {ms_p / ms_k:.2f}x, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"share of bound {bound_ms / ms_k:.3f}")
+        for key, val in (("ms", ms_k), ("plain_ms", ms_p), ("bound_ms", bound_ms)):
+            total[key] += val / len(path)
+    return {"max_abs_err": max_err, **total, "bound_by": "bytes"}
+
+
+def phase_kernel_act():
+    """B2, fused bias + LeakyReLU * sqrt(2) over dim 1, against its plain
+    version at the forecaster's activation shapes and an odd shape, NCHW and
+    channels-last. Returns the summary."""
+    import torch
+
+    from dyffusion_tpu_torch.ops import fused_act as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    path = ((120, 64, 60, 60), (120, 128, 30, 30), (120, 256, 15, 15))
+    max_err = 0.0
+    for shape in path + ((3, 5, 7, 3),):
+        bias = torch.randn((shape[1],), generator=gen, device="cuda")
+        for dtype in (torch.bfloat16, torch.float32):
+            for strided in (False, True):
+                x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                if strided:
+                    x = x.contiguous(memory_format=torch.channels_last)
+                got = fa.fused_leaky_relu(x, bias)
+                _sync()
+                want = fa.fused_leaky_relu_plain(x, bias)
+                dt = str(dtype)[6:]
+                label = f"B2 {shape} {dt} {'channels-last' if strided else 'contiguous'}"
+                e = _check_vs_plain(label, got, want, REL_TOL[dt], negative_controls=shape == path[0] and not strided)
+                max_err = max(max_err, e)
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for shape in path:
+        x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        bias = torch.randn((shape[1],), generator=gen, device="cuda")
+        # 200 calls a window: one call is ~0.05 ms, and windows of 20 calls
+        # read 0.043 and 0.069 ms in two runs on the same kind of card
+        ms_k, ms_p = _time_pair(lambda: fa.fused_leaky_relu(x, bias), lambda: fa.fused_leaky_relu_plain(x, bias),
+                                iters=200)
+        n_bytes = 2 * x.numel() * 2  # read x, write out, bf16
+        bound_ms, bound_by = _bound(n_bytes, 4 * x.numel())
+        print(f"[kernel-time] B2 {shape} bf16: kernel {ms_k:.4f} ms ({n_bytes / ms_k / 1e6:.0f} GB/s), "
+              f"plain {ms_p:.4f} ms, plain/kernel {ms_p / ms_k:.2f}x, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"share of bound {bound_ms / ms_k:.3f}")
+        for key, val in (("ms", ms_k), ("plain_ms", ms_p), ("bound_ms", bound_ms)):
+            total[key] += val / len(path)
+    return {"max_abs_err": max_err, **total, "bound_by": "bytes"}
+
+
+def phase_op_path():
+    """B2 and B3 through their public ops at their path shapes, as a user
+    calls them (B3 forward and backward); returns their launch counts."""
+    import torch
+
+    from dyffusion_tpu_torch.ops import fused_act as fa
+    from dyffusion_tpu_torch.ops import linear_attention as la
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    fa.reset_launches()
+    la.reset_launches()
+    for shape in ((120, 64, 60, 60), (120, 128, 30, 30), (120, 256, 15, 15)):
+        x = torch.randn(shape, generator=gen, device="cuda").bfloat16().requires_grad_(True)
+        bias = torch.zeros(shape[1], device="cuda", requires_grad=True)
+        out = fa.fused_leaky_relu(x, bias)
+        out.float().sum().backward()
+        assert torch.isfinite(out).all() and bias.grad is not None and x.grad.shape == x.shape
+    for BH, N in ((480, 3600), (960, 900), (960, 225)):
+        q, k, v = (torch.randn((BH, 32, N), generator=gen, device="cuda").bfloat16().requires_grad_(True)
+                   for _ in range(3))
+        out = la.linear_attention_core(q, k, v, 32**-0.5)
+        out.float().sum().backward()
+        assert torch.isfinite(out).all() and q.grad.shape == q.shape
+    _sync()
+    counts = {"fused_leaky_relu": fa.launches, "linear_attention_core": la.core_launches}
+    print(f"[op-path] launches: {counts} (B1 {la.launches})")
+    if counts != {"fused_leaky_relu": 3, "linear_attention_core": 3}:
+        raise AssertionError(f"the op path did not launch each kernel once per call: {counts}")
+    return counts
 
 
 def _build_slice(extra, device):
@@ -187,8 +406,8 @@ def _build_slice(extra, device):
     c1, c2 = get_config("synthetic_interpolation", extra), get_config("synthetic_dyffusion", extra)
     dm = get_datamodule(c1)
     dm.setup()
-    _, interpolator, _, _ = build_experiment(c1, dm, device=device)
-    exp, _, eval_fns, _ = build_experiment(c2, dm, interpolator=interpolator, device=device)
+    _, interpolator, _, _, _ = build_experiment(c1, dm, device=device)
+    exp, _, _, eval_fns, _ = build_experiment(c2, dm, interpolator=interpolator, device=device)
     return exp, eval_fns, dm
 
 
@@ -232,6 +451,217 @@ def phase_reference():
         raise AssertionError(f"GPU slice disagrees with the CPU plain path: {err} > {limit}")
     if ok_dropped:
         raise AssertionError("the reference check accepts a slice without its linear attention")
+
+
+def _grads_within(got, want, r):
+    """(ok, worst error over its limit): every gradient within ``r`` of the
+    larger of its own largest |value| and 0.1 of the model's largest (some
+    gradients vanish mathematically, a conv bias feeding a GroupNorm, and
+    are float noise)."""
+    import torch
+
+    top = max(float(w.abs().max()) for w in want.values())
+    worst = 0.0
+    for k, w in want.items():
+        if not bool(torch.isfinite(got[k]).all()):
+            return False, float("inf")
+        limit = r * max(float(w.abs().max()), 0.1 * top)
+        worst = max(worst, float((got[k] - w).abs().max()) / limit)
+    return worst <= 1.0, worst
+
+
+def phase_train_reference():
+    """One stage-2 loss, f32, dropout off, fixed t over every branch (t = 0,
+    the middle, N-1), l2 > 0: loss and every forecaster gradient on the GPU
+    (B1 kernel forward) against the CPU (plain versions). Tolerance 1e-3 of
+    each gradient's scale: both sides f32 with TF32 off, sums and convs in
+    another order. The negative control cuts the gradient through the
+    interpolator's second call (a no_grad there), which drops half of the
+    l2 term's gradient: the check must reject it."""
+    import numpy as np
+    import torch
+
+    from dyffusion_tpu_torch.config import get_config
+    from dyffusion_tpu_torch.experiments import stack_window
+    from dyffusion_tpu_torch.interface import build_experiment, get_datamodule
+    from dyffusion_tpu_torch.ops import linear_attention as la
+
+    extra = [
+        "datamodule.spatial=(24,24)", "datamodule.channels=1", "datamodule.horizon=3",
+        "datamodule.n_traj=5", "datamodule.n_time=8", "datamodule.batch_size=4",
+        "model.dim=16", "model.dim_mults=(1,2)", "diffusion.additional_interpolation_steps=2",
+    ]
+    c1, c2 = get_config("synthetic_interpolation", extra), get_config("synthetic_dyffusion", extra)
+    dm = get_datamodule(c1)
+    dm.setup()
+    batch = next(dm.train_batches(rng=np.random.default_rng(SEED)))
+    results = {}
+    for device, cut in (("cpu", False), ("cuda", False), ("cuda", True)):
+        _, ip, _, _, _ = build_experiment(c1, dm, device=device)
+        exp, fc, _, _, engine = build_experiment(c2, dm, interpolator=ip, device=device)
+        dyn = exp.to_device(batch["dynamics"])
+        n = engine.num_timesteps
+        t = torch.tensor([0, 1, n // 2, n - 1], device=device)
+        if cut:
+            q_sample, calls = engine.q_sample, []
+
+            def q_sample_second_without_grad(*a, **kw):
+                calls.append(None)
+                if len(calls) % 2 == 0:
+                    with torch.no_grad():
+                        return q_sample(*a, **kw)
+                return q_sample(*a, **kw)
+
+            engine.q_sample = q_sample_second_without_grad
+        la.reset_launches()
+        loss, aux = engine.p_losses(None, None, None, dyn[:, -1].permute(0, 3, 1, 2), stack_window(dyn, 1), t)
+        loss.backward()
+        assert float(aux["loss_forward2"].detach()) > 0, "the l2 term is off"
+        results[(device, cut)] = (float(loss.detach()), {k: v.grad.cpu() for k, v in fc.named_parameters()}, la.launches)
+    (l_cpu, g_cpu, _), (l_gpu, g_gpu, n_b1), (_, g_cut, _) = (
+        results[("cpu", False)], results[("cuda", False)], results[("cuda", True)])
+    r = 1e-3
+    ok, worst = _grads_within(g_gpu, g_cpu, r)
+    ok_cut, worst_cut = _grads_within(g_cut, g_cpu, r)
+    print(f"[train-ref] stage-2 loss f32: GPU {l_gpu:.7f} vs CPU {l_cpu:.7f} (rel {abs(l_gpu - l_cpu) / abs(l_cpu):.2e}); "
+          f"{len(g_cpu)} gradients: worst error {worst * r:.2e} of its scale (limit {r}); "
+          f"second interpolator call cut: {worst_cut * r:.2e}; B1 launches {n_b1}")
+    if abs(l_gpu - l_cpu) > 1e-4 * abs(l_cpu) or not ok:
+        raise AssertionError("the GPU train step disagrees with the CPU plain path")
+    if ok_cut:
+        raise AssertionError("the gradient check accepts a loss that skips the interpolator's second call")
+    if n_b1 == 0:
+        raise AssertionError("the GPU loss did not run the B1 kernel")
+
+
+def phase_train(card, b1_step_ms):
+    """SST-width train steps at batch 64 (the reference SST train batch) on
+    one fixed batch of synthetic train data, through interface.build_trainer:
+    stage 1 f32; stage 2 (the stage-1 model as its interpolator) f32, bf16
+    mixed precision, f32 with remat. The B1 launch count is set to 0 before
+    each variant and must read its launches per step times its steps.
+    ``b1_step_ms``: phase 3's B1 forward time per step of each variant.
+    Returns the B1 launches of the four variants."""
+    import numpy as np
+    import torch
+
+    from dyffusion_tpu_torch.config import get_config
+    from dyffusion_tpu_torch.interface import build_trainer, get_datamodule
+    from dyffusion_tpu_torch.models.modules import LinearAttention
+    from dyffusion_tpu_torch.ops import linear_attention as la
+    from dyffusion_tpu_torch.utils.workloads import sst_overrides, time_train_steps
+
+    batch_size, n_timed, n_more = 64, 20, 9
+    n_steps = 1 + n_timed + n_more
+    extra = sst_overrides(["datamodule.n_traj=5", "datamodule.n_time=13", f"datamodule.batch_size={batch_size}"])
+    c1 = get_config("synthetic_interpolation", extra)
+    dm = get_datamodule(c1)
+    dm.setup()
+    tensors = dm.split("train").tensors
+    idx = np.arange(batch_size) % len(dm.split("train"))  # one batch of train rows, as bench.py indexes it
+    batch = {k: v[idx] for k, v in tensors.items()}
+    variants = (
+        ("stage 1, f32", "synthetic_interpolation", []),
+        ("stage 2, f32", "synthetic_dyffusion", []),
+        ("stage 2, bf16 train_dtype", "synthetic_dyffusion", ["module.train_dtype=bfloat16"]),
+        ("stage 2, f32, remat", "synthetic_dyffusion", ["model.remat=true"]),
+    )
+    interpolator, launches = None, 0
+    for label, preset, more in variants:
+        trainer = build_trainer(get_config(preset, extra + more), dm, interpolator=interpolator)
+        model = trainer.experiment.model
+        n_attn = sum(isinstance(m, LinearAttention) for m in model.modules())
+        # B1 per step: one Unet forward in stage 1; two forecaster and two
+        # interpolator forwards in stage 2; remat recomputes the two
+        # forecaster forwards in the backward
+        expected = n_attn if preset.endswith("interpolation") else n_attn * (4 + 2 * model.remat)
+        if expected != 3 * sum(TRAIN_CALLS[label].values()):
+            raise AssertionError(f"{label}: {expected} B1 launches per step, but phase 3 timed the mix {TRAIN_CALLS[label]}")
+        b = trainer._put(batch)
+        losses = []
+
+        def step(state, batch_):  # the train step, keeping every loss (on the device)
+            metrics = trainer.train_step(state, batch_)
+            losses.append(metrics["loss"])
+            return metrics
+
+        torch.cuda.reset_peak_memory_stats()
+        la.reset_launches()
+        dt = time_train_steps(step, trainer.state, b, n_timed)  # one warm-up step, then n_timed
+        per_step = la.launches / (n_timed + 1)
+        for _ in range(n_more):
+            step(trainer.state, b)
+        _sync()
+        count = la.launches
+        launches += count
+        peak = torch.cuda.max_memory_allocated()
+        vals = np.asarray([float(v) for v in losses])
+        first, last = float(vals[:5].mean()), float(vals[-5:].mean())
+        print(f"[train] {label}: {1 / dt:.3f} steps/s, {batch_size / dt:.1f} examples/s "
+              f"({dt * 1e3:.1f} ms per step, mean of {n_timed} after a warm-up), peak memory {peak / 2**30:.2f} GiB, "
+              f"B1 launches per step {per_step:g} (expected {expected}), {count} in {n_steps} steps; B1 forward "
+              f"{b1_step_ms[label]:.2f} ms of the step ({b1_step_ms[label] / (dt * 1e3):.3f}); loss mean of the first "
+              f"5 steps {first:.5f}, of the last 5 {last:.5f}; on {card}")
+        if not np.isfinite(vals).all():
+            raise AssertionError(f"{label}: non-finite losses {vals}")
+        if not last < first:
+            raise AssertionError(f"{label}: {len(vals)} steps on one batch did not lower the loss ({first} -> {last})")
+        if per_step != expected or count != expected * n_steps:
+            raise AssertionError(f"{label}: B1 launches per step {per_step}, {count} in all; expected {expected} per step")
+        if interpolator is None:
+            interpolator = model  # the stage-1 model is stage 2's frozen interpolator
+    return launches
+
+
+def phase_fit(card):
+    """interface.run_experiment at a small size, stage 1 then stage 2 with
+    the trained stage-1 model in memory. The B1 launch count is set to 0
+    before each stage and must read what its steps and validations imply.
+    Returns the B1 launches of both stages."""
+    import numpy as np
+
+    from dyffusion_tpu_torch.config import get_config
+    from dyffusion_tpu_torch.interface import run_experiment
+    from dyffusion_tpu_torch.models.modules import LinearAttention
+    from dyffusion_tpu_torch.ops import linear_attention as la
+
+    extra = [
+        "datamodule.spatial=(24,24)", "datamodule.channels=1", "datamodule.horizon=3",
+        "datamodule.n_traj=6", "datamodule.n_time=12", "datamodule.batch_size=4",
+        "datamodule.eval_batch_size=4", "model.dim=16", "model.dim_mults=(1,2)",
+        "module.num_predictions=3", "diffusion.additional_interpolation_steps=2", "trainer.max_epochs=2",
+    ]
+
+    def expected(trainer):
+        """B1 launches of a fit: n_attn per Unet forward; a train step runs one
+        forward (stage 1) or four (stage 2); a validation batch runs one
+        forward per interpolated i (stage 1), or the sampler's forecaster and
+        interpolator forward per step plus the peeled last forecaster forward
+        (stage 2)."""
+        exp = trainer.experiment
+        n_attn = sum(isinstance(m, LinearAttention) for m in exp.model.modules())
+        n_val = sum(1 for h in trainer.history if "val/crps" in h) * len(list(trainer.datamodule.val_batches()))
+        if getattr(exp, "engine", None) is None:
+            return n_attn * (trainer.state.step + n_val * len(exp.horizon_range))
+        return n_attn * (4 * trainer.state.step + n_val * (2 * len(exp.engine._steps.s) + 1))
+
+    t0 = time.perf_counter()
+    la.reset_launches()
+    tr1, best1 = run_experiment(get_config("synthetic_interpolation", extra))
+    _sync()
+    n1 = la.launches
+    la.reset_launches()
+    tr2, best2 = run_experiment(get_config("synthetic_dyffusion", extra), interpolator=tr1.experiment.model)
+    _sync()
+    n2 = la.launches
+    print(f"[fit] stage 1: best val/crps {best1:.5f} after {tr1.state.step} steps, B1 launches {n1} "
+          f"(expected {expected(tr1)}); stage 2: best val/crps {best2:.5f} after {tr2.state.step} steps, B1 launches "
+          f"{n2} (expected {expected(tr2)}); {time.perf_counter() - t0:.1f} s; on {card}")
+    if not (np.isfinite(best1) and np.isfinite(best2)):
+        raise AssertionError(f"run_experiment returned a non-finite best val/crps: {best1}, {best2}")
+    if (n1, n2) != (expected(tr1), expected(tr2)):
+        raise AssertionError(f"[fit] B1 launches {(n1, n2)} != {(expected(tr1), expected(tr2))}")
+    return n1 + n2
 
 
 def _sst_slice():
@@ -393,15 +823,29 @@ def main(argv) -> int:
     if argv:
         phase_profile(smi)
         return 0
-    max_err, ms, plain_ms = phase_kernel()
-    phase_reference()
-    launches = phase_slice(smi)
+    from dyffusion_tpu_torch.ops import fused_act as fa
     from dyffusion_tpu_torch.ops import linear_attention as la
 
-    print(json.dumps({"kernels": [{
-        "name": "linear_attention_qkv", "route": "cuda", "source": la.SOURCE, "replaces": la.REPLACES,
-        "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-    }]}))
+    b1, b3, b2 = phase_kernel(), phase_kernel_core(), phase_kernel_act()
+    op_launches = phase_op_path()
+    phase_reference()
+    phase_train_reference()
+    serve = phase_slice(smi)
+    train = phase_train(smi, b1["train_step"])
+    fit = phase_fit(smi)
+    # B1's top-level numbers are the [train] path's (this slice's main path);
+    # by_path keeps each path's own count, read after setting it to 0.
+    # No single PyTorch call computes any of the three functions: library_ms is null
+    print(json.dumps({"kernels": [
+        {"name": "linear_attention_qkv", "route": "cuda", "source": la.SOURCE, "replaces": la.REPLACES,
+         "launches": train, "max_abs_err": b1["max_abs_err"], **b1["train"], "bound_by": "bytes", "library_ms": None,
+         "by_path": {"serve": {"launches": serve, **b1["serve"]}, "train": {"launches": train, **b1["train"]},
+                     "fit": {"launches": fit}}},
+        {"name": "fused_leaky_relu", "route": "cuda", "source": fa.SOURCE, "replaces": fa.REPLACES,
+         "launches": op_launches["fused_leaky_relu"], **b2, "library_ms": None},
+        {"name": "linear_attention_core", "route": "cuda", "source": la.SOURCE, "replaces": la.CORE_REPLACES,
+         "launches": op_launches["linear_attention_core"], **b3, "library_ms": None},
+    ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
 

@@ -5,6 +5,13 @@ Counterpart of ``dyffusion_tpu/config.py`` for the presets the port runs:
 base layer deep-merged with a dataset layer and a method layer; overrides
 use the same ``a.b.c=value`` grammar (Python literals, ``true``/``false``/
 ``null``, a ``+`` prefix for intentionally new keys).
+
+The training path reads ``module.{optimizer, scheduler, use_ema, ema_decay,
+train_dtype}``, ``trainer.{max_epochs, max_steps, gradient_clip_val,
+accumulate_grad_batches, fold_accumulation_into_batch, val_every_n_epochs,
+early_stopping_patience, log_every_n_steps, precision}``, ``model.remat``
+and ``diffusion.{lambda_reconstruction, lambda_reconstruction2,
+train_interpolator_dtype, loss_function}``.
 """
 from __future__ import annotations
 

@@ -1,8 +1,16 @@
-// 'qkv'-rescale linear attention (B1) for Hopper, sm_90a.
+// 'qkv'-rescale linear attention for Hopper, sm_90a: kernels B1 and B3.
 //
-// Replaces dyffusion_tpu/ops/pallas_attention.py::_pallas_qkv / _qkv_kernel.
-// Per batch element b and head h, on the to_qkv projection laid out as
-// (B, N, 3*heads*D) with arbitrary element strides:
+// Replaces dyffusion_tpu/ops/pallas_attention.py::_pallas_qkv / _qkv_kernel
+// (B1, on the to_qkv projection (B, N, 3*heads*D)) and
+// ::_pallas_core_impl / _kernel (B3, on separate q, k, v of (BH, D, N), as
+// heads = 1). One kernel body, two instantiations: PACKED (B1) reads q, k
+// and v as channel ranges [0, hD), [hD, 2hD), [2hD, 3hD) of one tensor, from
+// one base pointer; otherwise (B3) q, k and v are three base pointers. The
+// inputs share one set of element strides for the (batch, token, channel)
+// axes; the output has its own. (ptxas holds this kernel at 48 registers:
+// a second 64-bit base pointer live through pass 1 spilled and cost B1 2% of
+// its time on the H100, so B1's instantiation keeps a single base pointer.)
+// Per batch element b and head h:
 //
 //   q' = softmax_D(q[n, :]) * scale        (per token, over the head's D channels)
 //   k' = softmax_N(k[:, d])                (per channel, over the N tokens)
@@ -30,7 +38,8 @@
 // What bounds it: bytes. At (B, N, 3hD) = (240, 3600, 384) bf16 the kernel
 // reads qkv's k and v once and q once (about 0.66 GB) and writes 0.22 GB,
 // for about 14 GFLOP; the H100 would need ~295 FLOP per byte to be bound by
-// its tensor cores. The arithmetic runs in f32 on the CUDA cores.
+// its tensor cores. The arithmetic runs in f32 on the CUDA cores. B3 at
+// (BH, D, N) moves 4 * BH * D * N elements for the same work per head.
 //
 // Plain C interface, loaded with ctypes; returns cudaGetLastError().
 
@@ -65,11 +74,11 @@ __device__ __forceinline__ void load_tile(float (*tile)[LD], const T* base, int 
   }
 }
 
-template <typename T>
+template <typename T, bool PACKED>
 __global__ void __launch_bounds__(THREADS)
-linear_attention_qkv_kernel(const T* __restrict__ qkv, T* __restrict__ out, int N, int heads,
-                            int64_t sb, int64_t sn, int64_t sc,
-                            int64_t ob, int64_t on, int64_t oc, float scale) {
+linear_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                        T* __restrict__ out, int N, int heads, int64_t sb, int64_t sn, int64_t sc,
+                        int64_t ob, int64_t on, int64_t oc, float scale) {
   __shared__ float ks[TILE_N][LD];   // k tile, then exp(k - max); q tile in pass 2
   __shared__ float vs[TILE_N][LD];   // v tile; output tile in pass 2
   __shared__ float ctx[D][LD];       // context * scale / (sum * N)
@@ -77,11 +86,11 @@ linear_attention_qkv_kernel(const T* __restrict__ qkv, T* __restrict__ out, int 
 
   const int b = blockIdx.x / heads;
   const int h = blockIdx.x % heads;
-  const int hd = heads * D;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const T* base = qkv + (int64_t)b * sb;
+  const int hd = heads * D;
+  const T* base = q + (int64_t)b * sb;
   T* obase = out + (int64_t)b * ob;
   const bool in_tokens_fast = sn == 1;
   const bool out_tokens_fast = on == 1;
@@ -92,8 +101,13 @@ linear_attention_qkv_kernel(const T* __restrict__ qkv, T* __restrict__ out, int 
   float run_max = -CUDART_INF_F, run_sum = 0.f;  // meaningful in warp 0 (lane = d)
   for (int n0 = 0; n0 < N; n0 += TILE_N) {
     const int nt = min(TILE_N, N - n0);
-    load_tile(ks, base, n0, nt, sn, sc, hd + h * D, in_tokens_fast);
-    load_tile(vs, base, n0, nt, sn, sc, 2 * hd + h * D, in_tokens_fast);
+    if constexpr (PACKED) {
+      load_tile(ks, base, n0, nt, sn, sc, hd + h * D, in_tokens_fast);
+      load_tile(vs, base, n0, nt, sn, sc, 2 * hd + h * D, in_tokens_fast);
+    } else {
+      load_tile(ks, k + (int64_t)b * sb, n0, nt, sn, sc, h * D, in_tokens_fast);
+      load_tile(vs, v + (int64_t)b * sb, n0, nt, sn, sc, h * D, in_tokens_fast);
+    }
     __syncthreads();
     if (warp == 0) {
       float m = run_max;
@@ -164,21 +178,37 @@ linear_attention_qkv_kernel(const T* __restrict__ qkv, T* __restrict__ out, int 
   }
 }
 
+template <typename T>
+void launch(const void* q, const void* k, const void* v, void* out, int packed, int B, int N,
+            int heads, int64_t sb, int64_t sn, int64_t sc, int64_t ob, int64_t on, int64_t oc,
+            float scale, cudaStream_t s) {
+  dim3 grid((unsigned)(B * heads));
+  if (packed) {
+    linear_attention_kernel<T, true><<<grid, THREADS, 0, s>>>(
+        (const T*)q, nullptr, nullptr, (T*)out, N, heads, sb, sn, sc, ob, on, oc, scale);
+  } else {
+    linear_attention_kernel<T, false><<<grid, THREADS, 0, s>>>(
+        (const T*)q, (const T*)k, (const T*)v, (T*)out, N, heads, sb, sn, sc, ob, on, oc, scale);
+  }
+}
+
 }  // namespace
 
-extern "C" int linear_attention_qkv_launch(const void* qkv, void* out, int is_bf16, int B, int N,
-                                           int heads, int dim_head, int64_t sb, int64_t sn,
-                                           int64_t sc, int64_t ob, int64_t on, int64_t oc,
-                                           float scale, void* stream) {
+// q, k, v (one layout) and out with their (batch, token, channel) element
+// strides; head h reads channels [h*D, (h+1)*D) of each input and writes the
+// same channels of out. packed = 1: q is the (B, N, 3*heads*D) projection
+// and k, v are ignored (they are its second and third channel thirds).
+extern "C" int linear_attention_launch(const void* q, const void* k, const void* v, void* out,
+                                       int packed, int is_bf16, int B, int N, int heads,
+                                       int dim_head, int64_t sb, int64_t sn, int64_t sc, int64_t ob,
+                                       int64_t on, int64_t oc, float scale, void* stream) {
   if (dim_head != D || B <= 0 || N <= 0 || heads <= 0) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)(B * heads));
+  if (!packed && (k == nullptr || v == nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) {
-    linear_attention_qkv_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-        (const __nv_bfloat16*)qkv, (__nv_bfloat16*)out, N, heads, sb, sn, sc, ob, on, oc, scale);
+    launch<__nv_bfloat16>(q, k, v, out, packed, B, N, heads, sb, sn, sc, ob, on, oc, scale, s);
   } else {
-    linear_attention_qkv_kernel<float><<<grid, THREADS, 0, s>>>(
-        (const float*)qkv, (float*)out, N, heads, sb, sn, sc, ob, on, oc, scale);
+    launch<float>(q, k, v, out, packed, B, N, heads, sb, sn, sc, ob, on, oc, scale, s);
   }
   return (int)cudaGetLastError();
 }

@@ -123,6 +123,11 @@ class DataModule:
             self.setup(name)
         return self._splits[name]
 
+    def train_batches(self, rng: Optional[np.random.Generator] = None):
+        """Shuffled train batches of ``batch_size`` rows; the last partial
+        batch is dropped."""
+        return self.split("train").batches(self.batch_size, shuffle=True, rng=rng, drop_last=True)
+
     def _balanced_eval_batch_size(self, n: int) -> int:
         """Minimal-padding eval batch size: the same NUMBER of batches as
         ``eval_batch_size`` would give, but sized so batches differ by at

@@ -1,25 +1,29 @@
-"""DYffusion sampling engine over a forecaster and a frozen interpolator.
+"""DYffusion engine over a forecaster and a frozen interpolator.
 
-Counterpart of ``dyffusion_tpu/diffusion/dyffusion.py`` for the serving
-path: the step mapping, the sampling-schedule DSL, the precomputed static
-schedule, and the cold/naive sampler. The JAX ``lax.scan`` becomes a Python
-loop over the precomputed steps; each cold step still runs the two
-interpolator calls as ONE 2B-batch forward, and the last step is peeled.
-Tensors are NCHW. Training (``p_losses``) is not ported yet.
+Counterpart of ``dyffusion_tpu/diffusion/dyffusion.py``: the step mapping,
+the sampling-schedule DSL, the precomputed static schedule, the cold/naive
+sampler and the two-term training loss (``p_losses``, ``loss``). The JAX
+``lax.scan`` becomes a Python loop over the precomputed steps; each cold
+step still runs the two interpolator calls as ONE 2B-batch forward, and the
+last step is peeled. Tensors are NCHW.
 
 Randomness comes from one explicit ``torch.Generator``, drawn in a fixed
-order, so the same seed gives the same samples. The forecaster always runs
-deterministic; the interpolator's dropout is live when
-``enable_interpolator_dropout`` is set and a generator is given.
+order, so the same seed gives the same samples. In sampling the forecaster
+runs deterministic and the interpolator's dropout is live when
+``enable_interpolator_dropout`` is set and a generator is given; in the
+training loss both networks' dropout is live whenever a generator is given.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
+
+from dyffusion_tpu_torch.models.base import apply_model
+from dyffusion_tpu_torch.utils.loss import mse_loss
 
 Params = Optional[Mapping[str, torch.Tensor]]
 
@@ -164,6 +168,10 @@ class DyffusionConfig:
     enable_interpolator_dropout: bool = True
     use_cold_sampling_for_last_step: bool = False
     num_input_channels: int = 1  # C of a single dynamics frame
+    lambda_reconstruction: float = 1.0
+    lambda_reconstruction2: float = 0.0
+    # frozen-interpolator precision in the training loss: None | 'bfloat16'
+    train_interpolator_dtype: Optional[str] = None
 
     def __post_init__(self):
         assert self.forward_conditioning in ("data", "none", "data+noise")
@@ -186,21 +194,15 @@ class _SampleSteps:
     n_outputs: int
 
 
-def _apply(module: nn.Module, params: Params, x, time, condition, generator):
-    """Call a backbone, with its own weights or with ``params`` substituted
-    (the JAX package's ``apply_fn(params, ...)``; used to run bf16 copies)."""
-    if params is None:
-        return module(x, time, condition, generator)
-    return torch.func.functional_call(module, params, (x, time, condition, generator))
-
-
 class DyffusionEngine:
     """DYffusion sampler over a forecaster and a (frozen) interpolator.
 
     Both are backbones called as ``(x, time, condition, generator)``; the
     interpolator gets ``x = cat([initial_condition, x_last], dim=1)``. The
     methods take optional ``fc_params``/``ip_params`` state dicts that replace
-    the modules' own weights for the call (``None`` = the module's own)."""
+    the modules' own weights for the call (``None`` = the module's own).
+    ``criterion(preds, targets, mask=None)`` is the training loss (default
+    MSE)."""
 
     def __init__(
         self,
@@ -208,10 +210,12 @@ class DyffusionEngine:
         forecaster: nn.Module,
         interpolator: nn.Module,
         interpolator_horizon: Optional[int] = None,
+        criterion: Optional[Callable] = None,
     ):
         self.cfg = config
         self.forecaster = forecaster
         self.interpolator = interpolator
+        self.criterion = criterion or mse_loss
         self.mapping = StepMapping.create(
             horizon=config.timesteps,
             schedule=config.schedule,
@@ -292,7 +296,7 @@ class DyffusionEngine:
         fcond = self._forward_condition(condition, t, noise_generator)
         if static_condition is not None:
             fcond = static_condition if fcond is None else torch.cat([fcond, static_condition], dim=1)
-        return _apply(self.forecaster, fc_params, x_t, self._encode_time(t), fcond, generator)
+        return apply_model(self.forecaster, fc_params, x_t, self._encode_time(t), fcond, generator)
 
     def interpolate(
         self,
@@ -305,7 +309,7 @@ class DyffusionEngine:
     ) -> torch.Tensor:
         """Stochastic interpolator I(x0, x_h, i), time in interpolation units."""
         inputs = torch.cat([initial_condition, x_last], dim=1)
-        return _apply(self.interpolator, ip_params, inputs, interpolation_time, static_condition, generator)
+        return apply_model(self.interpolator, ip_params, inputs, interpolation_time, static_condition, generator)
 
     def q_sample(
         self,
@@ -320,6 +324,91 @@ class DyffusionEngine:
         dynamical frame, ``x_end`` the initial condition."""
         i_t = torch.clamp(self.mapping.to_interpolation_step(t), self._i_min, self._i_max)
         return self.interpolate(ip_params, x_end, x0, i_t, static_condition, generator)
+
+    # ---- training loss ----
+    def p_losses(
+        self,
+        fc_params: Params,
+        ip_params: Params,
+        generator: Optional[torch.Generator],
+        xt_last: torch.Tensor,
+        condition: torch.Tensor,
+        t: torch.Tensor,
+        static_condition: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Two-term DYffusion loss for a batch with per-row diffusion steps ``t``:
+        l1 * |F(x_t, t) - x_h| + l2 * |F(D(F(x_t, t), t+1), t+1) - x_h|, D the
+        frozen interpolator. Static shapes: rows with t == 0 take the raw
+        condition as x_t, and the l2 term is masked over rows with t > N-2.
+
+        The l2 term's gradient runs through D's input ``F(x_t, t)``: D's
+        weights are frozen, but its second call is differentiated (as in
+        the JAX package, which has no stop_gradient there). Dropout is live
+        in both networks whenever ``generator`` is given; the draws come
+        from it in a fixed order."""
+        cfg = self.cfg
+        lam1, lam2 = cfg.lambda_reconstruction, cfg.lambda_reconstruction2
+        if condition.shape[1] != xt_last.shape[1]:
+            raise ValueError(
+                "DYffusion training requires a single-frame condition "
+                f"(datamodule.window=1): condition has {condition.shape[1]} "
+                f"channels but the target frame has {xt_last.shape[1]}."
+            )
+        # frozen-interpolator mixed precision (train_interpolator_dtype)
+        ip_dt = torch.bfloat16 if cfg.train_interpolator_dtype in ("bfloat16", "bf16") else None
+        if ip_dt is not None:
+            source = ip_params if ip_params is not None else self.interpolator.state_dict()
+            ip_params = {k: v.to(ip_dt) if v.is_floating_point() else v for k, v in source.items()}
+            static_ip = None if static_condition is None else static_condition.to(ip_dt)
+        else:
+            static_ip = static_condition
+
+        def run_q_sample(x0, x_end, t_q):
+            """q_sample at the interpolator's training precision; f32 out
+            under train_interpolator_dtype."""
+            if ip_dt is None:
+                return self.q_sample(ip_params, x0, x_end, t_q, static_ip, generator)
+            return self.q_sample(ip_params, x0.to(ip_dt), x_end.to(ip_dt), t_q, static_ip, generator).float()
+
+        t = t.float()
+        row = (-1,) + (1,) * (condition.ndim - 1)
+        # 1) forecaster input: the interpolated frame for t > 0, the condition for t == 0
+        x_interpolated = run_q_sample(xt_last, condition, torch.clamp(t, min=1.0))
+        x_t = torch.where((t > 0).reshape(row), x_interpolated.to(condition.dtype), condition)
+        # 2) forward loss
+        xt_last_pred = self.predict_x_last(
+            fc_params, condition, x_t, t, static_condition, generator=generator, noise_generator=generator
+        )
+        loss_forward = self.criterion(xt_last_pred, xt_last)
+        # 3) one-step diffusion-emulation loss (the l2 term)
+        if lam2 > 0:
+            mask2 = (t <= self.num_timesteps - 2).float()
+            t2 = torch.clamp(t + 1.0, max=float(self.num_timesteps - 1))
+            x_interpolated2 = run_q_sample(xt_last_pred, condition, t2)
+            x_last_pred2 = self.predict_x_last(
+                fc_params, condition, x_interpolated2, t2, static_condition,
+                generator=generator, noise_generator=generator,
+            )
+            loss_forward2 = self.criterion(x_last_pred2, xt_last, mask=mask2)
+        else:
+            loss_forward2 = torch.zeros((), dtype=loss_forward.dtype, device=loss_forward.device)
+        loss = lam1 * loss_forward + lam2 * loss_forward2
+        return loss, {"loss": loss, "loss_forward": loss_forward, "loss_forward2": loss_forward2}
+
+    def loss(
+        self,
+        fc_params: Params,
+        ip_params: Params,
+        generator: Optional[torch.Generator],
+        xt_last: torch.Tensor,
+        condition: torch.Tensor,
+        static_condition: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Draw t ~ U{0..N-1} per row from ``generator``, then :meth:`p_losses`."""
+        t = torch.randint(
+            0, self.num_timesteps, (condition.shape[0],), generator=generator, device=condition.device
+        )
+        return self.p_losses(fc_params, ip_params, generator, xt_last, condition, t, static_condition)
 
     # ---- sampling ----
     def sample(

@@ -1,17 +1,33 @@
-"""Experiment layer: channel arithmetic and eval-function builders.
+"""Experiment layer: channel arithmetic, loss and eval functions.
 
 Counterpart of ``dyffusion_tpu/experiments/base.py``. Batches are dicts of
 arrays in the JAX package's layout: ``dynamics`` (B, T, H, W, C) and an
 optional static ``condition`` (B, H, W, Cc); numpy arrays or tensors.
+
+Experiments run on the CUDA device unless the caller asks for the CPU
+(``device="cpu"``); where there is no CUDA device the default raises.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from dataclasses import dataclass, field
+from typing import Any, Dict, Mapping, Optional
 
 import torch
+from torch import nn
 
 from dyffusion_tpu_torch.models.base import BackboneSpec
+
+
+def resolve_device(device: torch.device | str) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device where CUDA is not
+    available raises instead of running on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested, but torch.cuda.is_available() is False: the port runs on the "
+            "GPU by default; pass device='cpu' to run on the CPU"
+        )
+    return device
 
 
 def stack_window(dynamics: torch.Tensor, window: int) -> torch.Tensor:
@@ -23,10 +39,22 @@ def stack_window(dynamics: torch.Tensor, window: int) -> torch.Tensor:
     return past.permute(0, 1, 4, 2, 3).reshape(B, w * C, H, W)
 
 
+def cast_params(
+    module: nn.Module, dtype: torch.dtype, params: Optional[Mapping[str, torch.Tensor]] = None
+) -> Optional[Dict[str, torch.Tensor]]:
+    """Weights for ``functional_call`` at ``dtype``: ``params`` (or the
+    module's own state) as ``dtype`` copies; ``None`` (the module's own
+    weights) when there is nothing to substitute or cast."""
+    if params is None:
+        if dtype == torch.float32:
+            return None
+        params = module.state_dict()
+    return {k: v.to(dtype) if v.is_floating_point() else v for k, v in params.items()}
+
+
 @dataclass
 class ExperimentConfig:
-    """The experiment hyperparameters the eval path reads (the JAX
-    ``ExperimentConfig``'s training fields come with training)."""
+    """Shared experiment hyperparameters (the JAX ``ExperimentConfig``)."""
 
     window: int = 1
     horizon: int = 1
@@ -34,17 +62,28 @@ class ExperimentConfig:
     num_predictions: int = 20  # ensemble members (val, predict)
     num_predictions_test: int = 50
     prediction_inputs_noise: float = 0.0
+    enable_inference_dropout: bool = True
+    loss_function: str = "mse"
     eval_dtype: Optional[str] = None  # None | 'bfloat16'
-    fold_members_into_batch: bool = True  # the only layout ported so far
+    # mixed-precision training: the compute runs in bf16 through a cast at
+    # the loss boundary; master weights, optimizer state, EMA, gradients and
+    # loss reductions stay f32
+    train_dtype: Optional[str] = None  # None | 'bfloat16'
+    fold_members_into_batch: bool = True  # the only eval layout ported so far
+    use_ema: bool = False
+    ema_decay: float = 0.9999
+    optimizer: Dict[str, Any] = field(default_factory=lambda: {"name": "adamw", "lr": 3e-4})
+    scheduler: Optional[Dict[str, Any]] = None
+    monitor: Optional[str] = None
 
 
 class Experiment:
-    """Base experiment. Subclasses implement channel arithmetic and eval."""
+    """Base experiment. Subclasses implement channel arithmetic, loss and eval."""
 
-    def __init__(self, cfg: ExperimentConfig, dims: Dict[str, Any], device: torch.device | str = "cpu"):
+    def __init__(self, cfg: ExperimentConfig, dims: Dict[str, Any], device: torch.device | str = "cuda"):
         self.cfg = cfg
         self.dims = dims  # {'input', 'output', 'conditional', 'spatial'}
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
     def actual_num_input_channels(self) -> int:
         return self.dims["input"]
@@ -62,6 +101,15 @@ class Experiment:
             num_conditional_channels=self.num_conditional_channels(),
         )
 
+    @property
+    def default_monitor(self) -> str:
+        # ensemble CRPS when ensembling, as the JAX package does
+        return "val/crps" if self.cfg.num_predictions > 1 else "val/avg/mse"
+
+    @property
+    def monitor(self) -> str:
+        return self.cfg.monitor or self.default_monitor
+
     def num_members(self, split: str) -> int:
         return self.cfg.num_predictions_test if split == "test" else self.cfg.num_predictions
 
@@ -69,10 +117,13 @@ class Experiment:
         return torch.bfloat16 if self.cfg.eval_dtype in ("bfloat16", "bf16") else torch.float32
 
     def to_device(self, x) -> Optional[torch.Tensor]:
-        """A batch array (numpy or tensor) as an f32 tensor on the device."""
+        """A batch array (numpy or tensor) as a tensor on the device; float64
+        becomes f32, other dtypes are kept (bf16 batches of mixed-precision
+        training stay bf16)."""
         if x is None:
             return None
-        return torch.as_tensor(x, device=self.device).float()
+        t = torch.as_tensor(x, device=self.device)
+        return t.float() if t.dtype == torch.float64 else t
 
     def static_condition(self, batch: Dict[str, Any]) -> Optional[torch.Tensor]:
         """The batch's static condition, NCHW on the device."""

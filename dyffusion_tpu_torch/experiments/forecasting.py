@@ -1,13 +1,16 @@
-"""Multi-horizon DYffusion forecasting: the ensemble evaluation path.
+"""Multi-horizon DYffusion forecasting: the stage-2 loss and the ensemble
+evaluation path.
 
 Counterpart of ``dyffusion_tpu/experiments/forecasting.py`` for
-``DyffusionForecastingExperiment``'s eval function in the FOLDED layout: the
-N ensemble members are folded into the batch and run as one (N*B)-batch
-sampler call; ``eval_dtype=bfloat16`` runs the sampler on bf16 copies of
-both networks' weights and bf16 inputs, and casts predictions back to f32.
-Autoregressive windows chain ceil(prediction_horizon / horizon) sampler
-calls, each member continuing its own trajectory. The member-vmap layout,
-boundary conditions and the training loss are not ported yet.
+``DyffusionForecastingExperiment``: the training loss (the engine's two-term
+``p_losses`` on the stacked window and the last frame) and the eval function
+in the FOLDED layout: the N ensemble members are folded into the batch and
+run as one (N*B)-batch sampler call; ``eval_dtype=bfloat16`` runs the
+sampler on bf16 copies of both networks' weights and bf16 inputs, and casts
+predictions back to f32. Autoregressive windows chain
+ceil(prediction_horizon / horizon) sampler calls, each member continuing its
+own trajectory. The member-vmap layout and boundary conditions are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -15,21 +18,13 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from dyffusion_tpu_torch.experiments.base import Experiment, stack_window
-
-
-def cast_params(module: torch.nn.Module, dtype: torch.dtype) -> Optional[Dict[str, torch.Tensor]]:
-    """The module's state as ``dtype`` copies (``None`` when no cast is
-    needed), for ``torch.func.functional_call``."""
-    if dtype == torch.float32:
-        return None
-    return {k: v.to(dtype) for k, v in module.state_dict().items()}
+from dyffusion_tpu_torch.experiments.base import Experiment, cast_params, stack_window
 
 
 class ForecastingExperiment(Experiment):
     """Shared multi-horizon machinery."""
 
-    def __init__(self, cfg, dims, model=None, device="cpu"):
+    def __init__(self, cfg, dims, model=None, device="cuda"):
         super().__init__(cfg, dims, device)
         self.model = model
 
@@ -72,7 +67,7 @@ class DyffusionForecastingExperiment(ForecastingExperiment):
 
     def __init__(
         self, cfg, dims, model=None, engine=None, interpolator=None, forward_conditioning: str = "data",
-        device="cpu",
+        device="cuda",
     ):
         super().__init__(cfg, dims, model, device=device)
         self.engine = engine  # DyffusionEngine over forecaster + interpolator
@@ -89,10 +84,27 @@ class DyffusionForecastingExperiment(ForecastingExperiment):
             return base
         return base + self.dims["input"] * self.cfg.window
 
+    def make_loss_fn(self) -> Callable:
+        """``loss_fn(params, batch, generator) -> (loss, metrics)``: the
+        engine's two-term loss with the stacked window as the condition and
+        the last frame as the target. ``params`` replaces the forecaster's
+        weights (``None``: its own); the interpolator keeps its frozen ones."""
+        engine = self.engine
+
+        def loss_fn(params, batch: Dict[str, Any], generator: Optional[torch.Generator]):
+            dynamics = self.to_device(batch["dynamics"])
+            x_last = dynamics[:, -1].permute(0, 3, 1, 2)
+            condition = stack_window(dynamics, self.cfg.window)
+            return engine.loss(params, None, generator, x_last, condition, self.static_condition(batch))
+
+        return loss_fn
+
     def make_eval_fn(self, split: str = "val", autoregressive: bool = False) -> Callable:
-        """``eval_fn(batch, generator) -> {'t{i}_preds': (N, B, H, W, C),
-        't{i}_targets': (B, H, W, C)}`` (f32 tensors on the device): the full
-        sampler over an N-member MC-dropout ensemble folded into the batch."""
+        """``eval_fn(batch, generator=None, params=None) -> {'t{i}_preds':
+        (N, B, H, W, C), 't{i}_targets': (B, H, W, C)}`` (f32 tensors on the
+        device): the full sampler over an N-member MC-dropout ensemble folded
+        into the batch. ``params`` replaces the forecaster's weights (e.g.
+        the EMA)."""
         if not self.cfg.fold_members_into_batch:
             raise NotImplementedError("only the folded ensemble layout is ported (fold_members_into_batch=True)")
         engine = self.engine
@@ -109,11 +121,13 @@ class DyffusionForecastingExperiment(ForecastingExperiment):
             return preds.permute(0, 1, 2, 4, 5, 3)
 
         @torch.no_grad()
-        def eval_fn(batch: Dict[str, Any], generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-            dynamics = self.to_device(batch["dynamics"])
+        def eval_fn(
+            batch: Dict[str, Any], generator: Optional[torch.Generator] = None, params=None
+        ) -> Dict[str, torch.Tensor]:
+            dynamics = self.to_device(batch["dynamics"]).float()
             B = dynamics.shape[0]
             static_cond = self.static_condition(batch)
-            fc_params = cast_params(engine.forecaster, dtype)
+            fc_params = cast_params(engine.forecaster, dtype, params)
             ip_params = cast_params(engine.interpolator, dtype)
             cond_flat = _tile(stack_window(dynamics, self.cfg.window).to(dtype))
             sc_flat = None if static_cond is None else _tile(static_cond.to(dtype))

@@ -7,8 +7,8 @@ the mid-block, stride-2 4x4 downsampling and nearest-x2 + 3x3 conv
 upsampling, four dropout sites (input / block1 / block2 / attention) and the
 optional outer resample. Submodules carry the original reference's names
 (``downs.{i}.{0..3}``, ``ups.{i}.3.1``, ``mid_attn``, ``time_emb_mlp``, ...).
-The JAX ``remat`` option only matters for training; ``build_backbone``
-drops it.
+``remat=True`` checkpoints every ResNet block and every pre-norm attention
+block (the JAX ``nn.remat`` granularity) with ``torch.utils.checkpoint``.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dyffusion_tpu_torch.models.base import concat_condition
 from dyffusion_tpu_torch.models.modules import (
@@ -79,6 +80,33 @@ class ResnetBlock(nn.Module):
         return h + self.residual_conv(x)
 
 
+def remat_call(block: nn.Module, generator: Optional[torch.Generator], *args) -> torch.Tensor:
+    """``block(*args, generator)`` under ``torch.utils.checkpoint``: the
+    backward recomputes the block's activations instead of keeping them.
+
+    The recompute must see what the forward saw. ``checkpoint`` restores
+    only the global RNG states, so the explicit generator's state is taken
+    here and the recompute draws from a copy of it: the same dropout masks,
+    and the live generator is left as the forward left it. The recompute
+    also runs after any ``functional_call`` that substituted the block's
+    weights has returned, so it substitutes the tensors the forward used."""
+    params = dict(block.named_parameters())
+    state = None if generator is None else generator.get_state()
+    calls = []
+
+    def run(*inputs):
+        calls.append(None)
+        if len(calls) == 1:  # the forward
+            return block(*inputs, generator)
+        replay = None
+        if state is not None:
+            replay = torch.Generator(device=generator.device)
+            replay.set_state(state)
+        return torch.func.functional_call(block, params, (*inputs, replay))
+
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 class Upsample(nn.Sequential):
     """Nearest x2 + 3x3 conv (the conv at index 1, as in the reference)."""
 
@@ -112,8 +140,10 @@ class Unet(nn.Module):
         init_kernel_size: int = 7,
         attn_heads: int = 4,
         attn_dim_head: int = 32,
+        remat: bool = False,
     ):
         super().__init__()
+        self.remat = bool(remat)
         if learned_sinusoidal_cond:
             raise NotImplementedError("learned_sinusoidal_cond is not ported yet")
         self.num_conditional_channels = num_conditional_channels
@@ -180,6 +210,13 @@ class Unet(nn.Module):
             return F.interpolate(x, size=size, mode="bilinear", align_corners=False, antialias=False)
         return F.interpolate(x, size=size, mode="nearest-exact")
 
+    def _block(self, block: nn.Module, generator: Optional[torch.Generator], *args) -> torch.Tensor:
+        """A ResNet or pre-norm attention block, checkpointed under remat
+        when gradients are being recorded."""
+        if self.remat and torch.is_grad_enabled():
+            return remat_call(block, generator, *args)
+        return block(*args, generator)
+
     def forward(
         self,
         x: torch.Tensor,
@@ -187,6 +224,7 @@ class Unet(nn.Module):
         condition: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
+        g, blk = generator, self._block
         x = concat_condition(x, condition, self.num_conditional_channels)
         orig_shape = tuple(x.shape[-2:])
         if self.outer_sample_mode is not None:
@@ -199,24 +237,24 @@ class Unet(nn.Module):
 
         hs = []
         for block1, block2, attn, resample in self.downs:
-            x = block1(x, t, generator)
+            x = blk(block1, g, x, t)
             hs.append(x)
-            x = block2(x, t, generator)
-            x = attn(x, generator)
+            x = blk(block2, g, x, t)
+            x = blk(attn, g, x)
             hs.append(x)
             x = resample(x)
 
-        x = self.mid_block1(x, t, generator)
-        x = self.mid_attn(x, generator)
-        x = self.mid_block2(x, t, generator)
+        x = blk(self.mid_block1, g, x, t)
+        x = blk(self.mid_attn, g, x)
+        x = blk(self.mid_block2, g, x, t)
 
         for block1, block2, attn, resample in self.ups:
-            x = block1(torch.cat([x, hs.pop()], dim=1), t, generator)
-            x = block2(torch.cat([x, hs.pop()], dim=1), t, generator)
-            x = attn(x, generator)
+            x = blk(block1, g, torch.cat([x, hs.pop()], dim=1), t)
+            x = blk(block2, g, torch.cat([x, hs.pop()], dim=1), t)
+            x = blk(attn, g, x)
             x = resample(x)
 
-        x = self.final_res_block(torch.cat([x, r], dim=1), t, generator)
+        x = blk(self.final_res_block, g, torch.cat([x, r], dim=1), t)
         x = self.final_conv(x)
         if self.outer_sample_mode is not None:
             x = self._resize(x, orig_shape)

@@ -1,4 +1,17 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch version."""
-from dyffusion_tpu_torch.ops.linear_attention import linear_attention_qkv, linear_attention_qkv_plain
+from dyffusion_tpu_torch.ops.fused_act import fused_leaky_relu, fused_leaky_relu_plain
+from dyffusion_tpu_torch.ops.linear_attention import (
+    linear_attention_core,
+    linear_attention_core_plain,
+    linear_attention_qkv,
+    linear_attention_qkv_plain,
+)
 
-__all__ = ["linear_attention_qkv", "linear_attention_qkv_plain"]
+__all__ = [
+    "fused_leaky_relu",
+    "fused_leaky_relu_plain",
+    "linear_attention_core",
+    "linear_attention_core_plain",
+    "linear_attention_qkv",
+    "linear_attention_qkv_plain",
+]

@@ -5,7 +5,8 @@ a plain C interface (``nvcc -gencode arch=compute_90a,code=sm_90a -shared``),
 under ``build/kernels/`` beside the package. The library's file name carries
 a hash of the source and the flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is. There is no fallback: a missing ``nvcc`` or
-a failed build raises.
+a failed build raises. Libraries build independently: :func:`load_libraries`
+runs one nvcc for each, all at once.
 """
 from __future__ import annotations
 
@@ -16,8 +17,9 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
@@ -26,7 +28,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
+_locks_lock = threading.Lock()
+_locks: Dict[str, threading.Lock] = {}  # one per library: different libraries build at once
 _loaded: Dict[str, ctypes.CDLL] = {}
 # name -> {"seconds": build time (0.0 when loaded from an earlier build),
 #          "ptxas": the -Xptxas -v report}
@@ -50,7 +53,9 @@ def _nvcc() -> str:
 def load_library(name: str) -> ctypes.CDLL:
     """Return the loaded library built from ``csrc/<name>.cu``, compiling
     it first if no build of this exact source exists."""
-    with _lock:
+    with _locks_lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _loaded:
             return _loaded[name]
         src = CSRC / f"{name}.cu"
@@ -77,3 +82,9 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(lib_path))
         _loaded[name] = lib
         return lib
+
+
+def load_libraries(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
+    """:func:`load_library` for each name, the builds running in parallel."""
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        return dict(zip(names, pool.map(load_library, names)))

@@ -1,0 +1,154 @@
+"""Fused bias + LeakyReLU with gain (kernel B2).
+
+Counterpart of ``dyffusion_tpu/ops/fused_act.py::fused_leaky_relu``:
+
+    out = leaky_relu(x + bias, negative_slope) * scale,  scale = sqrt(2)
+
+with ``bias`` broadcast over dim 1, the channel axis of NCHW (the original
+reference's fused_bias_act op; the JAX package, being NHWC, broadcasts over
+the last axis). On a CUDA tensor :func:`fused_leaky_relu` launches the
+hand-written kernel in ``csrc/fused_act.cu`` (built on first use by
+:mod:`dyffusion_tpu_torch.ops._build`) or raises; it never falls back. On a
+CPU tensor it runs :func:`fused_leaky_relu_plain`, the same arithmetic in
+plain PyTorch, which is also what the kernel is checked against. The
+backward replays the plain composition (the JAX package differentiates its
+composition too).
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+SOURCE = "dyffusion_tpu_torch/csrc/fused_act.cu"
+REPLACES = "dyffusion_tpu/ops/fused_act.py:54"  # the pl.pallas_call of _pallas_fused_leaky_relu
+
+# Kernel launches since the last reset; bumped only where the kernel is
+# launched, so a run can show that it went through the kernel.
+launches = 0
+
+_fn = None
+
+
+def reset_launches() -> None:
+    global launches
+    launches = 0
+
+
+def fused_leaky_relu_plain(
+    x: torch.Tensor, bias: Optional[torch.Tensor] = None, negative_slope: float = 0.2, scale: float = math.sqrt(2.0)
+) -> torch.Tensor:
+    """Plain PyTorch version: f32 arithmetic (the kernel's numerics), result
+    cast back to the input dtype."""
+    v = x.float()
+    if bias is not None:
+        v = v + bias.float().reshape((1, -1) + (1,) * (x.dim() - 2))
+    return (torch.where(v >= 0, v, v * negative_slope) * scale).to(x.dtype)
+
+
+def _is_dense(x: torch.Tensor) -> bool:
+    """True when x's elements fill one block of memory in some axis order
+    (contiguous, channels-last, any permutation of a contiguous tensor)."""
+    expected = 1
+    for d in sorted((d for d in range(x.dim()) if x.shape[d] != 1), key=x.stride):
+        if x.stride(d) != expected:
+            return False
+        expected *= x.shape[d]
+    return True
+
+
+def _check(x: torch.Tensor, bias: Optional[torch.Tensor]) -> None:
+    if bias is None:
+        return
+    if x.dim() < 2 or bias.shape != (x.shape[1],):
+        raise ValueError(
+            f"bias must be (C,) for the channel axis (dim 1) of x, got bias {tuple(bias.shape)} for x {tuple(x.shape)}"
+        )
+    if bias.device != x.device:
+        raise ValueError(f"bias lies on {bias.device}, x on {x.device}")
+
+
+def _launch(x: torch.Tensor, bias: Optional[torch.Tensor], negative_slope: float, scale: float) -> torch.Tensor:
+    global launches, _fn
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused_leaky_relu kernel takes float32 or bfloat16, got {x.dtype}")
+    if not _is_dense(x):
+        raise ValueError(f"fused_leaky_relu kernel takes a dense tensor in any axis order, got strides {x.stride()}")
+    out = torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device=x.device)
+    numel = x.numel()
+    if numel == 0:
+        return out
+    C, cstride, b = 1, 1, None
+    if bias is not None and x.shape[1] > 1:
+        C, cstride = x.shape[1], x.stride(1)
+    if bias is not None:
+        b = bias.detach().float().contiguous()  # C floats; a no-op for a contiguous f32 bias
+    # the widest load (up to 16 bytes) that the count, the channel stride and
+    # both pointers allow, so that each vector lies in one channel
+    isz = x.element_size()
+    vec = 16 // isz
+    while vec > 1 and not (
+        numel % vec == 0 and (b is None or cstride % vec == 0)
+        and x.data_ptr() % (vec * isz) == 0 and out.data_ptr() % (vec * isz) == 0
+    ):
+        vec //= 2
+    if _fn is None:
+        from dyffusion_tpu_torch.ops._build import load_library
+
+        fn = load_library("fused_act").fused_leaky_relu_launch
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int64, ctypes.c_int64] + [ctypes.c_int] * 2 + [
+            ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _fn(
+            x.data_ptr(), None if b is None else b.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
+            numel, cstride, C, vec, float(negative_slope), float(scale), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_leaky_relu kernel launch failed: cudaError {err}")
+    launches += 1
+    return out
+
+
+class _FusedLeakyReLU(torch.autograd.Function):
+    """Kernel forward; the backward replays the plain composition:
+    grad_x = g * scale * (1 where x + b >= 0, else slope), grad_b = grad_x
+    summed over every axis but 1."""
+
+    @staticmethod
+    def forward(ctx, x, bias, negative_slope, scale):
+        ctx.save_for_backward(x, bias)
+        ctx.args = (negative_slope, scale)
+        return _launch(x, bias, negative_slope, scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, bias = ctx.saved_tensors
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_(True)]
+            if bias is not None:
+                xs.append(bias.detach().requires_grad_(True))
+            out = fused_leaky_relu_plain(xs[0], xs[1] if bias is not None else None, *ctx.args)
+            grads = torch.autograd.grad(out, xs, grad)
+        return grads[0], (grads[1] if bias is not None else None), None, None
+
+
+def fused_leaky_relu(
+    x: torch.Tensor, bias: Optional[torch.Tensor] = None, negative_slope: float = 0.2, scale: float = math.sqrt(2.0)
+) -> torch.Tensor:
+    """leaky_relu(x + bias, negative_slope) * scale, ``bias`` (C,) over dim 1.
+
+    CUDA tensor: the B2 kernel (float32 or bfloat16, any dense layout; the
+    output keeps x's strides), or an error. CPU tensor: the plain version.
+    Differentiable either way."""
+    _check(x, bias)
+    if x.device.type == "cuda":
+        return _FusedLeakyReLU.apply(x, bias, negative_slope, scale)
+    if x.device.type == "cpu":
+        return fused_leaky_relu_plain(x, bias, negative_slope, scale)
+    raise ValueError(f"fused_leaky_relu takes CPU or CUDA tensors, got device {x.device}")

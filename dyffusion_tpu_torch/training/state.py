@@ -1,0 +1,61 @@
+"""Train state: the model, its optimizer, the EMA shadow, the step generator
+and the step count (counterpart of ``dyffusion_tpu/training/state.py``).
+
+The JAX package keeps these in one immutable pytree that each step
+replaces; here they are the live objects, updated in place by
+:meth:`TrainState.apply_gradients`.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from dyffusion_tpu_torch.training.ema import ema_update, init_ema
+from dyffusion_tpu_torch.training.optim import Optimizer
+
+
+class TrainState:
+    """``fold_factor`` (``trainer.fold_accumulation_into_batch``) is how many
+    accumulation micro-batches one step stands for: an unfolded run updates
+    the EMA once per micro-batch (k-1 updates against the unchanged weights,
+    then one against the stepped weights) and counts ``step`` in
+    micro-batches; a folded step replays exactly that, so folded and
+    unfolded runs have the same EMA trajectory and step units."""
+
+    def __init__(
+        self,
+        model: nn.Module,
+        optimizer: Optimizer,
+        generator: torch.Generator,
+        use_ema: bool = True,
+        ema_decay: float = 0.9999,
+        fold_factor: int = 1,
+    ):
+        self.model = model
+        self.optimizer = optimizer
+        self.generator = generator  # the dropout / time draws of every step, in order
+        self.params: Dict[str, nn.Parameter] = {n: p for n, p in model.named_parameters() if p.requires_grad}
+        self.use_ema = use_ema
+        self.ema_decay = ema_decay
+        self.fold_factor = fold_factor
+        self.ema = init_ema(self.params) if use_ema else None
+        self.ema_num_updates = 0
+        self.step = 0  # micro-batches
+
+    def apply_gradients(self) -> None:
+        """One optimizer step from the weights' ``.grad``, then the EMA."""
+        if self.use_ema:
+            # folded: the k-1 micro-batch updates against the not-yet-stepped weights
+            for _ in range(self.fold_factor - 1):
+                self.ema_num_updates = ema_update(self.ema, self.params.values(), self.ema_num_updates, self.ema_decay)
+        self.optimizer.step()
+        if self.use_ema:
+            self.ema_num_updates = ema_update(self.ema, self.params.values(), self.ema_num_updates, self.ema_decay)
+        self.step += self.fold_factor
+
+    def eval_params(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The weights to evaluate with: the EMA shadow if enabled, else
+        ``None`` (the model's own)."""
+        return self.ema if self.use_ema else None

@@ -1,0 +1,64 @@
+"""Loss functions (counterpart of ``dyffusion_tpu/utils/loss.py``).
+
+Each loss takes an optional ``mask`` of shape (B,) over the leading (batch)
+axis: masked rows contribute nothing and the mean runs over the unmasked
+rows only, a static-shape form of ``criterion(pred[rows], target[rows])``.
+Reductions always run in f32, so bf16 predictions under mixed-precision
+training keep their gradient signal.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+LossFn = Callable[..., torch.Tensor]
+
+
+def _masked_mean(per_elem: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Mean of ``per_elem``; with ``mask`` (B,), the per-row means averaged
+    over the rows where the mask is nonzero (equal to
+    ``per_elem[mask].mean()``: every row has the same number of elements)."""
+    if mask is None:
+        return per_elem.mean()
+    mask = mask.to(per_elem.dtype)
+    row_mean = per_elem.reshape(per_elem.shape[0], -1).mean(dim=-1)
+    return (row_mean * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    return x.float() if x.is_floating_point() else x
+
+
+def mse_loss(preds: torch.Tensor, targets: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return _masked_mean((_f32(preds) - _f32(targets)) ** 2, mask)
+
+
+def l1_loss(preds: torch.Tensor, targets: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return _masked_mean((_f32(preds) - _f32(targets)).abs(), mask)
+
+
+def smooth_l1_loss(
+    preds: torch.Tensor, targets: torch.Tensor, mask: Optional[torch.Tensor] = None, beta: float = 1.0
+) -> torch.Tensor:
+    d = (_f32(preds) - _f32(targets)).abs()
+    return _masked_mean(torch.where(d < beta, 0.5 * d * d / beta, d - 0.5 * beta), mask)
+
+
+_LOSSES = {
+    "mse": mse_loss,
+    "l2": mse_loss,
+    "mean_squared_error": mse_loss,
+    "l1": l1_loss,
+    "mae": l1_loss,
+    "mean_absolute_error": l1_loss,
+    "smooth_l1": smooth_l1_loss,
+    "huber": smooth_l1_loss,
+}
+
+
+def get_loss_fn(name: str) -> LossFn:
+    key = name.lower().strip()
+    if key not in _LOSSES:
+        raise ValueError(f"Unknown loss function '{name}'. Available: {sorted(_LOSSES)}")
+    return _LOSSES[key]

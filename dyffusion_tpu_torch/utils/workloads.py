@@ -1,4 +1,5 @@
-"""The SST-scale DYffusion workload, defined once for the port.
+"""The SST-scale DYffusion workload, defined once for the port, and the
+train-step timing idiom.
 
 The same overrides as ``dyffusion_tpu/utils/workloads.py`` (reference
 ``configs/experiment/oisst_pacific_dyffusion.yaml``): 60x60 grid, C=1,
@@ -7,7 +8,10 @@ horizon 7, k=25 auxiliary steps, a dim-64 ResNet-attention UNet with mults
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
 
 SST_CORE: Tuple[str, ...] = (
     "datamodule.spatial=(60,60)",
@@ -36,3 +40,22 @@ def sst_overrides(extra: Optional[Sequence[str]] = None) -> List[str]:
     """The SST workload plus caller-specific ``extra`` overrides (later
     entries win)."""
     return list(SST_CORE) + list(extra or ())
+
+
+def time_train_steps(step_fn, state, batch, steps: int = 20) -> float:
+    """Seconds per train step of ``step_fn(state, batch) -> metrics``,
+    averaged over ``steps`` after one warm-up step. The timing ends in
+    ``torch.cuda.synchronize()`` (when the loss lies on a GPU) and a host
+    read of the last loss."""
+
+    def wait(metrics):
+        if metrics["loss"].is_cuda:
+            torch.cuda.synchronize(metrics["loss"].device)
+        return float(metrics["loss"])
+
+    wait(step_fn(state, batch))  # warm-up
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        metrics = step_fn(state, batch)
+    wait(metrics)
+    return (time.perf_counter() - t0) / steps

@@ -3,8 +3,11 @@
 Inputs are made with numpy from a seed and handed to both packages; the port
 works in NCHW, the JAX package in NHWC.
 """
+import os
+
 import jax
 import numpy as np
+import pytest
 import torch
 
 
@@ -25,3 +28,17 @@ def holder(module: torch.nn.Module) -> torch.nn.Module:
     h = torch.nn.Module()
     h.m = module
     return h
+
+
+@pytest.fixture(autouse=True, scope="module")
+def torch_threads_share_of_cores():
+    """Give torch this pytest-xdist worker's share of the cores for a test
+    module (import it into the module to apply it). N workers each running
+    torch's default pool of one thread per core oversubscribe the machine,
+    and torch's CPU kernels then slow down many-fold (one port test took
+    421 s under 6 workers on 8 cores, 8 s alone)."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    before = torch.get_num_threads()
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+    yield
+    torch.set_num_threads(before)

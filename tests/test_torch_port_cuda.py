@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on the GPU, against their plain PyTorch versions.
+"""The port's CUDA kernels (B1, B2, B3) on the GPU, against their plain
+PyTorch versions.
 
 These tests need an NVIDIA GPU and nvcc; elsewhere they skip. The module
 imports neither JAX nor the JAX package, so it also runs where JAX is not
@@ -13,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from dyffusion_tpu_torch.ops import fused_act as fa
 from dyffusion_tpu_torch.ops import linear_attention as la
 
 HEADS, DIM_HEAD = 4, 32
@@ -84,3 +86,107 @@ def test_kernel_rejects_what_it_does_not_take():
         la.linear_attention_qkv(torch.zeros(1, 8, 3 * 2 * 16, device="cuda"), 2, 16, 0.25)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         la.linear_attention_qkv(torch.zeros(1, 8, 384, device="cuda", dtype=torch.float16), HEADS, DIM_HEAD, SCALE)
+
+
+def _core_inputs(BH, N, seed, strided):
+    g = np.random.default_rng(seed)
+    xs = [torch.from_numpy(g.normal(size=(BH, DIM_HEAD, N)).astype(np.float32)).cuda() for _ in range(3)]
+    if strided:  # (BH, d, N) views of (BH, N, d) tensors: channels on the stride-1 axis
+        xs = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in xs]
+    return xs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("strided", [False, True])
+def test_core_kernel_matches_plain(dtype, strided):
+    """B3, the (BH, d, N) stride case of the B1 kernel."""
+    _require_cuda()
+    dt = getattr(torch, dtype)
+    for BH, N in ((2, 7), (6, 64), (8, 225), (4, 900), (3, 3600)):
+        q, k, v = (x.to(dt) for x in _core_inputs(BH, N, BH * N, strided))
+        before = la.core_launches
+        got = la.linear_attention_core(q, k, v, SCALE)
+        torch.cuda.synchronize()
+        assert la.core_launches == before + 1
+        assert got.dtype == dt and tuple(got.shape) == (BH, DIM_HEAD, N) and got.is_contiguous()
+        want = la.linear_attention_core_plain(q, k, v, SCALE)
+        _assert_close_to_scale(got, want, REL_TOL[dt])
+        if N >= 900:
+            for wrong in (want * 1.05, torch.zeros_like(want)):
+                with pytest.raises(AssertionError, match="max abs err"):
+                    _assert_close_to_scale(wrong, want, REL_TOL[dt])
+
+
+@pytest.mark.cuda
+def test_core_kernel_rejects_mixed_layouts():
+    _require_cuda()
+    q, k, _ = _core_inputs(2, 64, 5, False)
+    _, _, v = _core_inputs(2, 64, 5, True)
+    with pytest.raises(ValueError, match="one layout"):
+        la.linear_attention_core(q, k, v, SCALE)
+
+
+@pytest.mark.cuda
+def test_core_kernel_gradient():
+    _require_cuda()
+    xs = [x.requires_grad_(True) for x in _core_inputs(4, 100, 11, False)]
+    g = torch.randn(4, DIM_HEAD, 100, device="cuda")
+    (la.linear_attention_core(*xs, SCALE) * g).sum().backward()
+    ys = [x.detach().clone().requires_grad_(True) for x in xs]
+    (la.linear_attention_core_plain(*ys, SCALE) * g).sum().backward()
+    for x, y in zip(xs, ys):
+        _assert_close_to_scale(x.grad, y.grad, REL_TOL[torch.float32])
+
+
+def _act_input(shape, dtype, channels_last, seed):
+    x = torch.from_numpy(np.random.default_rng(seed).normal(size=shape).astype(np.float32)).cuda()
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    return x.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("channels_last", [False, True])
+def test_fused_leaky_relu_kernel_matches_plain(dtype, channels_last):
+    """B2 with and without a bias, at shapes that take every load width."""
+    _require_cuda()
+    dt = getattr(torch, dtype)
+    for shape in ((2, 64, 60, 60), (3, 128, 30, 30), (2, 256, 15, 15), (3, 5, 7, 3)):
+        x = _act_input(shape, dt, channels_last, sum(shape))
+        bias = torch.randn(shape[1], device="cuda")
+        for b in (bias, None):
+            before = fa.launches
+            got = fa.fused_leaky_relu(x, b)
+            torch.cuda.synchronize()
+            assert fa.launches == before + 1
+            assert got.dtype == dt and got.shape == x.shape and got.stride() == x.stride()
+            want = fa.fused_leaky_relu_plain(x, b)
+            _assert_close_to_scale(got, want, 1e-6 if dt == torch.float32 else 1e-2)
+            for wrong in (want * 1.05, torch.zeros_like(want)):
+                with pytest.raises(AssertionError, match="max abs err"):
+                    _assert_close_to_scale(wrong, want, 1e-6 if dt == torch.float32 else 1e-2)
+
+
+@pytest.mark.cuda
+def test_fused_leaky_relu_kernel_gradient():
+    _require_cuda()
+    x = _act_input((2, 16, 9, 9), torch.float32, False, 3).requires_grad_(True)
+    b = torch.randn(16, device="cuda", requires_grad=True)
+    g = torch.randn(2, 16, 9, 9, device="cuda")
+    (fa.fused_leaky_relu(x, b) * g).sum().backward()
+    y, c = x.detach().clone().requires_grad_(True), b.detach().clone().requires_grad_(True)
+    (fa.fused_leaky_relu_plain(y, c) * g).sum().backward()
+    _assert_close_to_scale(x.grad, y.grad, 1e-6)
+    _assert_close_to_scale(b.grad, c.grad, 1e-5)
+
+
+@pytest.mark.cuda
+def test_fused_leaky_relu_kernel_rejects_what_it_does_not_take():
+    _require_cuda()
+    x = torch.zeros(2, 4, 6, 6, device="cuda")
+    with pytest.raises(ValueError, match="dense"):
+        fa.fused_leaky_relu(x[:, :, ::2], torch.zeros(4, device="cuda"))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.fused_leaky_relu(x.half())

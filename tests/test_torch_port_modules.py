@@ -14,6 +14,7 @@ from dyffusion_tpu_torch.models import convert
 from dyffusion_tpu_torch.models import modules as tm
 from dyffusion_tpu_torch.models import unet as tu
 from tests._torch_port_helpers import holder, nchw_to_nhwc, nhwc_to_nchw, to_numpy_tree
+from tests._torch_port_helpers import torch_threads_share_of_cores  # noqa: F401 (autouse fixture)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 

@@ -1,9 +1,9 @@
-"""B1, the 'qkv' linear-attention kernel of the port, against the JAX package.
+"""The port's kernels B1, B2 and B3 against the JAX package.
 
-On the CPU the port's wrapper runs its plain version; it is held against the
-JAX Pallas kernel (interpret mode, as ``tests/test_pallas_attention.py`` runs
-it) and the XLA composition ``_xla_qkv``. The kernel itself is compared with
-the plain version on the GPU in ``test_torch_port_cuda.py``.
+On the CPU each wrapper runs its plain version; it is held against the JAX
+Pallas kernel (interpret mode, as ``tests/test_pallas_attention.py`` runs
+it) and the XLA composition. The kernels themselves are compared with the
+plain versions on the GPU in ``test_torch_port_cuda.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -11,9 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from dyffusion_tpu.ops.pallas_attention import _xla_qkv
+from dyffusion_tpu.ops.fused_act import fused_leaky_relu as jax_fused_leaky_relu
+from dyffusion_tpu.ops.pallas_attention import _core_reference, _xla_qkv
+from dyffusion_tpu.ops.pallas_attention import linear_attention_core as jax_linear_attention_core
 from dyffusion_tpu.ops.pallas_attention import linear_attention_qkv as jax_linear_attention_qkv
+from dyffusion_tpu_torch.ops import fused_act as fa
 from dyffusion_tpu_torch.ops import linear_attention as la
+from tests._torch_port_helpers import torch_threads_share_of_cores  # noqa: F401 (autouse fixture)
 
 HEADS, DIM_HEAD = 4, 32
 SCALE = DIM_HEAD**-0.5
@@ -102,3 +106,96 @@ def test_plain_bf16_follows_f32_numerics():
 def test_wrapper_rejects_wrong_width():
     with pytest.raises(ValueError, match="3\\*heads\\*dim_head"):
         la.linear_attention_qkv(torch.zeros(1, 8, 100), HEADS, DIM_HEAD, SCALE)
+
+
+# ---------------------------------------------------------------------------
+# B3: the linear-attention core on (BH, d, N)
+# ---------------------------------------------------------------------------
+def _core_qkv(BH, N, seed):
+    g = np.random.default_rng(seed)
+    return [g.normal(size=(BH, DIM_HEAD, N)).astype(np.float32) for _ in range(3)]
+
+
+@pytest.mark.parametrize("N", [7, 225, 900])
+def test_core_plain_matches_jax_pallas_and_reference(N):
+    q, k, v = _core_qkv(3, N, seed=N)
+    want_pallas = np.asarray(jax_linear_attention_core(q, k, v, SCALE, use_pallas=True))
+    want_ref = np.asarray(_core_reference(q, k, v, SCALE, N))
+    la.reset_launches()
+    got = la.linear_attention_core(*(torch.from_numpy(x) for x in (q, k, v)), SCALE)
+    assert la.core_launches == 0  # the CPU runs the plain version, never the kernel
+    assert got.shape == (3, DIM_HEAD, N) and got.dtype == torch.float32
+    assert_close_to_scale(got.numpy(), want_pallas)
+    assert_close_to_scale(got.numpy(), want_ref)
+    bad = want_pallas * 1.05  # negative control
+    with pytest.raises(AssertionError, match="max abs err"):
+        assert_close_to_scale(bad, want_pallas)
+
+
+def test_core_gradient_matches_jax_vjp():
+    """The port's B3 gradient (the plain composition) equals ``jax.vjp`` of
+    the Pallas path's custom VJP."""
+    q, k, v = _core_qkv(2, 37, seed=3)
+    g = np.random.default_rng(4).normal(size=(2, DIM_HEAD, 37)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: jax_linear_attention_core(a, b, c, SCALE, use_pallas=True), q, k, v)
+    want = vjp(jnp.asarray(g))
+    xs = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    (la.linear_attention_core(*xs, SCALE) * torch.from_numpy(g)).sum().backward()
+    for x, w in zip(xs, want):
+        assert_close_to_scale(x.grad.numpy(), np.asarray(w))
+
+
+def test_core_wrapper_rejects_mismatched_shapes():
+    q = torch.zeros(2, DIM_HEAD, 9)
+    with pytest.raises(ValueError, match="one shape"):
+        la.linear_attention_core(q, q, torch.zeros(2, DIM_HEAD, 8), SCALE)
+
+
+# ---------------------------------------------------------------------------
+# B2: fused bias + LeakyReLU * sqrt(2), bias over dim 1 (NCHW)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("shape", [(2, 6, 5, 7), (3, 4)], ids=str)
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_fused_leaky_relu_plain_matches_jax_pallas(shape, with_bias):
+    """The JAX op is NHWC (bias over the last axis): move the channel axis
+    to the end for it and back."""
+    g = np.random.default_rng(len(shape))
+    x = g.normal(size=shape).astype(np.float32)
+    bias = g.normal(size=(shape[1],)).astype(np.float32) if with_bias else None
+    x_last = np.moveaxis(x, 1, -1)
+    want = np.moveaxis(np.asarray(jax_fused_leaky_relu(x_last, bias, use_pallas=True)), -1, 1)
+    want_xla = np.moveaxis(np.asarray(jax_fused_leaky_relu(x_last, bias)), -1, 1)
+    fa.reset_launches()
+    got = fa.fused_leaky_relu(torch.from_numpy(x), None if bias is None else torch.from_numpy(bias))
+    assert fa.launches == 0 and got.shape == shape
+    # the same f32 operations in the same order on both sides
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(got.numpy(), want_xla, rtol=1e-6, atol=1e-7)
+
+
+def test_fused_leaky_relu_gradient_matches_jax():
+    g = np.random.default_rng(9)
+    x = g.normal(size=(2, 5, 4, 3)).astype(np.float32)
+    bias = g.normal(size=(5,)).astype(np.float32)
+    cot = g.normal(size=x.shape).astype(np.float32)
+    want_x, want_b = jax.grad(
+        lambda a, b: jnp.sum(jnp.moveaxis(jax_fused_leaky_relu(jnp.moveaxis(a, 1, -1), b), -1, 1) * cot),
+        argnums=(0, 1),
+    )(jnp.asarray(x), jnp.asarray(bias))
+    xt, bt = torch.from_numpy(x).requires_grad_(True), torch.from_numpy(bias).requires_grad_(True)
+    (fa.fused_leaky_relu(xt, bt) * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want_x), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(bt.grad.numpy(), np.asarray(want_b), rtol=1e-5, atol=1e-5)
+
+
+def test_fused_leaky_relu_bf16_computes_in_f32():
+    x = torch.from_numpy(np.random.default_rng(2).normal(size=(2, 3, 4, 4)).astype(np.float32)).bfloat16()
+    b = torch.tensor([0.1, -0.2, 0.3])
+    got = fa.fused_leaky_relu(x, b)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, fa.fused_leaky_relu_plain(x.float(), b).bfloat16())
+
+
+def test_fused_leaky_relu_rejects_a_bias_of_the_wrong_width():
+    with pytest.raises(ValueError, match="dim 1"):
+        fa.fused_leaky_relu(torch.zeros(2, 4, 3, 3), torch.zeros(3))

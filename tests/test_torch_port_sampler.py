@@ -33,6 +33,7 @@ from dyffusion_tpu_torch.models import Unet, unet_state_dict_from_jax
 from dyffusion_tpu_torch.utils import evaluation as port_eval
 from dyffusion_tpu_torch.utils.workloads import SST_FAST_EVAL, sst_overrides
 from tests._torch_port_helpers import nhwc_to_nchw, to_numpy_tree
+from tests._torch_port_helpers import torch_threads_share_of_cores  # noqa: F401 (autouse fixture)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -139,11 +140,11 @@ def _build_port(overrides, ip_vars=None, fc_vars=None):
     c1 = port_config.get_config("synthetic_interpolation", overrides)
     dm = port_interface.get_datamodule(c1)
     dm.setup()
-    _, ip, _, _ = port_interface.build_experiment(c1, dm)
+    _, ip, _, _, _ = port_interface.build_experiment(c1, dm, device="cpu")
     if ip_vars is not None:
         ip.load_state_dict(unet_state_dict_from_jax(ip_vars))
     c2 = port_config.get_config("synthetic_dyffusion", overrides)
-    exp, fc, eval_fns, engine = port_interface.build_experiment(c2, dm, interpolator=ip)
+    exp, fc, _, eval_fns, engine = port_interface.build_experiment(c2, dm, interpolator=ip, device="cpu")
     if fc_vars is not None:
         fc.load_state_dict(unet_state_dict_from_jax(fc_vars))
     return dm, exp, eval_fns
@@ -267,11 +268,11 @@ def test_experiment_channel_arithmetic_and_inputs_match(window):
 
     dims = {"input": 2, "output": 2, "conditional": 1, "spatial": (5, 4)}
     kw = dict(window=window, horizon=3)
-    ji, pi = JaxInterp(JaxExpConfig(**kw), dims), PortInterp(PortExpConfig(**kw), dims)
+    ji, pi = JaxInterp(JaxExpConfig(**kw), dims), PortInterp(PortExpConfig(**kw), dims, device="cpu")
     assert pi.actual_num_input_channels() == ji.actual_num_input_channels()
     for fc in ("data", "none"):
         jf = JaxDyff(JaxExpConfig(**kw), dims, forward_conditioning=fc)
-        pf = PortDyff(PortExpConfig(**kw), dims, forward_conditioning=fc)
+        pf = PortDyff(PortExpConfig(**kw), dims, forward_conditioning=fc, device="cpu")
         assert pf.backbone_spec().num_conditional_channels == jf.backbone_spec().num_conditional_channels
         assert pf.backbone_spec().num_input_channels == jf.backbone_spec().num_input_channels
     dyn = np.random.default_rng(8).normal(size=(3, window + 3, 5, 4, 2)).astype(np.float32)
@@ -287,3 +288,23 @@ def test_experiment_channel_arithmetic_and_inputs_match(window):
     want = np.asarray(jf.next_window_inputs(preds))  # (N, B, H, W, w*C)
     got = pf.next_window_inputs(torch.from_numpy(preds))  # (N, B, w*C, H, W)
     np.testing.assert_array_equal(got.permute(0, 1, 3, 4, 2).numpy(), want)
+
+
+def test_entry_points_default_to_cuda():
+    """The port runs on the GPU unless asked for the CPU: where CUDA is not
+    available, the defaults raise instead of running on the CPU."""
+    from dyffusion_tpu_torch.experiments import ExperimentConfig as PortExpConfig
+    from dyffusion_tpu_torch.experiments import InterpolationExperiment as PortInterp
+
+    c1 = port_config.get_config("synthetic_interpolation", SMALL)
+    dm = port_interface.get_datamodule(c1)
+    if torch.cuda.is_available():
+        assert port_interface.build_experiment(c1, dm)[0].device.type == "cuda"
+        return
+    for call in (
+        lambda: port_interface.build_experiment(c1, dm),
+        lambda: port_interface.run_experiment(c1, dm),
+        lambda: PortInterp(PortExpConfig(horizon=3), dm.dims),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()

@@ -18,6 +18,7 @@ from dyffusion_tpu.models.base import init_backbone
 from dyffusion_tpu_torch.models import Unet, unet_state_dict_from_jax
 from dyffusion_tpu_torch.models.modules import TimeEmbedder
 from tests._torch_port_helpers import nchw_to_nhwc, nhwc_to_nchw, to_numpy_tree
+from tests._torch_port_helpers import torch_threads_share_of_cores  # noqa: F401 (autouse fixture)
 
 
 def _pair(with_time, n_cond, **kw):
