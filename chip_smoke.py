@@ -8,9 +8,11 @@ non-zero:
 
 1. device: requires CUDA; prints the card's name, the device count and
    ``nvidia-smi --query-gpu=name,power.limit``.
-2. build: compiles every kernel (B1 and B3 share one source) from the
-   repo's CUDA sources with nvcc (sm_90a), one nvcc per source, all at once,
-   and prints the build times and ptxas reports.
+2. build: compiles every kernel (B1 ``linear_attention_qkv.cu``, B3
+   ``linear_attention.cu``, B2 ``fused_act.cu``) from the repo's CUDA
+   sources with nvcc (sm_90a), one nvcc per source, all at once, and prints
+   the build times, the ptxas reports and each kernel's registers and
+   spills; a spill in B1's kernels fails the run.
 3. kernel vs plain: B1 at the shapes of the serving, train and fit paths,
    B3 and B2 at theirs, bf16 and f32, contiguous and as a strided view,
    against their plain PyTorch versions, with a tolerance relative to the
@@ -18,7 +20,9 @@ non-zero:
    result that is 5% off or zero; B3's backward against the plain
    composition's. Then kernel and plain times (CUDA events, after a
    warm-up), GB/s and the share of the byte bound, at the serving and the
-   batch-64 train shapes, with B1's forward time per request and per step.
+   batch-64 train shapes, with B1's forward time per request and per step,
+   and B1's splits S, S' (``split_counts``), load width and resident blocks
+   per SM at each timed shape.
 4. op path: B2 and B3 through their public ops (``fused_leaky_relu``,
    ``linear_attention_core``, forward and backward) at their path shapes,
    with the launch counts read around it; no model of the JAX package calls
@@ -59,6 +63,11 @@ runs phases 1 and 2, then profiles one SST request with ``torch.profiler``:
 the unprofiled request times, the profiled request's wall time, its summed
 kernel time and busy share, and kernel time by category. It prints no
 ``ok`` line.
+
+    python3 chip_smoke.py --kernels
+
+runs phases 1 and 2, then the three kernel phases (B1, B3, B2 against their
+plain versions, and their times) and stops, with no ``ok`` line.
 """
 from __future__ import annotations
 
@@ -105,16 +114,44 @@ def phase_device():
     return name, smi
 
 
+def _ptxas_kernels(report):
+    """[(kernel, registers, spill store bytes, spill load bytes)] from an
+    ``-Xptxas -v`` report, names demangled where ``c++filt`` exists."""
+    import re
+    import shutil
+
+    rows, name, spill = [], None, (0, 0)
+    for line in report.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            name = m.group(1)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spill = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            rows.append([name, int(m.group(1)), *spill])
+            name, spill = None, (0, 0)
+    if rows and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows), capture_output=True, text=True,
+                             timeout=60).stdout.splitlines()
+        if len(out) == len(rows):
+            for r, n in zip(rows, out):
+                r[0] = n.replace("(anonymous namespace)::", "")
+    return rows
+
+
 def phase_build():
     from dyffusion_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    names = ("linear_attention", "fused_act")
+    names = ("linear_attention_qkv", "linear_attention", "fused_act")
     _build.load_libraries(names)
     for name in names:
         log = _build.build_log[name]
         print(f"[build] {name}: nvcc {log['seconds']:.2f} s")
         print(f"[build] ptxas: {log['ptxas']}")
+        for kernel, regs, spill_st, spill_ld in _ptxas_kernels(log["ptxas"]):
+            print(f"[build] {name}: {kernel[:150]}: {regs} registers, spill stores {spill_st} B, loads {spill_ld} B")
+            if name == "linear_attention_qkv" and (spill_st or spill_ld):
+                raise AssertionError(f"B1's kernel {kernel} spills registers")
     print(f"[build] all kernels built and loaded in {time.perf_counter() - t0:.2f} s")
 
 
@@ -233,6 +270,13 @@ def phase_kernel():
 
     def timed(B, N, dtype):  # NCHW view, as the Unet calls it
         qkv = _qkv(B, N, dtype, True, gen)
+        S, S2 = la.split_counts(B * heads, N)
+        vec, tokens_fast = la.load_width(qkv)
+        occ = la.qkv_occupancy(dtype, vec, tokens_fast)
+        print(f"[kernel-split] B1 B={B} N={N} {str(dtype)[6:]} nchw-view: S={S}, S'={S2}, "
+              f"{vec * qkv.element_size()}-byte loads, blocks per SM (partial, output) {occ}, grids "
+              f"{B * heads * S} and {B * heads * S2} blocks = {B * heads * S / (132 * occ[0]):.2f} and "
+              f"{B * heads * S2 / (132 * occ[1]):.2f} waves")
         ms_k, ms_p = _time_pair(lambda: la.linear_attention_qkv(qkv, heads, d, scale),
                                 lambda: la.linear_attention_qkv_plain(qkv, heads, d, scale))
         n_bytes = B * N * (384 + 128) * qkv.element_size()  # read q, k, v once, write out once
@@ -816,12 +860,15 @@ def phase_profile(card):
 def main(argv) -> int:
     import torch
 
-    if argv not in ([], ["--profile"]):
-        raise SystemExit("usage: python3 chip_smoke.py [--profile]")
+    if argv not in ([], ["--profile"], ["--kernels"]):
+        raise SystemExit("usage: python3 chip_smoke.py [--profile | --kernels]")
     name, smi = phase_device()
     phase_build()
-    if argv:
+    if argv == ["--profile"]:
         phase_profile(smi)
+        return 0
+    if argv == ["--kernels"]:
+        phase_kernel(), phase_kernel_core(), phase_kernel_act()
         return 0
     from dyffusion_tpu_torch.ops import fused_act as fa
     from dyffusion_tpu_torch.ops import linear_attention as la
@@ -843,7 +890,7 @@ def main(argv) -> int:
                      "fit": {"launches": fit}}},
         {"name": "fused_leaky_relu", "route": "cuda", "source": fa.SOURCE, "replaces": fa.REPLACES,
          "launches": op_launches["fused_leaky_relu"], **b2, "library_ms": None},
-        {"name": "linear_attention_core", "route": "cuda", "source": la.SOURCE, "replaces": la.CORE_REPLACES,
+        {"name": "linear_attention_core", "route": "cuda", "source": la.CORE_SOURCE, "replaces": la.CORE_REPLACES,
          "launches": op_launches["linear_attention_core"], **b3, "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,15 +1,11 @@
-// 'qkv'-rescale linear attention for Hopper, sm_90a: kernels B1 and B3.
+// 'qkv'-rescale linear attention for Hopper, sm_90a: kernel B3.
 //
-// Replaces dyffusion_tpu/ops/pallas_attention.py::_pallas_qkv / _qkv_kernel
-// (B1, on the to_qkv projection (B, N, 3*heads*D)) and
-// ::_pallas_core_impl / _kernel (B3, on separate q, k, v of (BH, D, N), as
-// heads = 1). One kernel body, two instantiations: PACKED (B1) reads q, k
-// and v as channel ranges [0, hD), [hD, 2hD), [2hD, 3hD) of one tensor, from
-// one base pointer; otherwise (B3) q, k and v are three base pointers. The
-// inputs share one set of element strides for the (batch, token, channel)
-// axes; the output has its own. (ptxas holds this kernel at 48 registers:
-// a second 64-bit base pointer live through pass 1 spilled and cost B1 2% of
-// its time on the H100, so B1's instantiation keeps a single base pointer.)
+// Replaces dyffusion_tpu/ops/pallas_attention.py::_pallas_core_impl /
+// _kernel (B3, on separate q, k, v of (BH, D, N), as heads = 1). q, k and v
+// are three base pointers that share one set of element strides for the
+// (batch, token, channel) axes; the output has its own. (This body also ran
+// B1 until B1 moved to its own two-launch kernel, linear_attention_qkv.cu;
+// ptxas holds this kernel at 61 registers with no spill.)
 // Per batch element b and head h:
 //
 //   q' = softmax_D(q[n, :]) * scale        (per token, over the head's D channels)
@@ -35,11 +31,11 @@
 // a 1x1-conv output, channels for the token-major layout), so both layouts
 // move whole cache lines and no copy is needed on either side.
 //
-// What bounds it: bytes. At (B, N, 3hD) = (240, 3600, 384) bf16 the kernel
-// reads qkv's k and v once and q once (about 0.66 GB) and writes 0.22 GB,
-// for about 14 GFLOP; the H100 would need ~295 FLOP per byte to be bound by
-// its tensor cores. The arithmetic runs in f32 on the CUDA cores. B3 at
-// (BH, D, N) moves 4 * BH * D * N elements for the same work per head.
+// What bounds it: bytes. At (BH, D, N) it reads q, k and v once and writes
+// out once, 4 * BH * D * N elements, for 4 * BH * N * D * D f32 operations:
+// at (480, 32, 3600) bf16 0.44 GB against 7.1 GFLOP, where the H100 would
+// need ~295 FLOP per byte to be bound by its tensor cores. The arithmetic
+// runs in f32 on the CUDA cores.
 //
 // Plain C interface, loaded with ctypes; returns cudaGetLastError().
 
@@ -74,7 +70,7 @@ __device__ __forceinline__ void load_tile(float (*tile)[LD], const T* base, int 
   }
 }
 
-template <typename T, bool PACKED>
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
 linear_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                         T* __restrict__ out, int N, int heads, int64_t sb, int64_t sn, int64_t sc,
@@ -89,7 +85,6 @@ linear_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int hd = heads * D;
   const T* base = q + (int64_t)b * sb;
   T* obase = out + (int64_t)b * ob;
   const bool in_tokens_fast = sn == 1;
@@ -101,13 +96,8 @@ linear_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
   float run_max = -CUDART_INF_F, run_sum = 0.f;  // meaningful in warp 0 (lane = d)
   for (int n0 = 0; n0 < N; n0 += TILE_N) {
     const int nt = min(TILE_N, N - n0);
-    if constexpr (PACKED) {
-      load_tile(ks, base, n0, nt, sn, sc, hd + h * D, in_tokens_fast);
-      load_tile(vs, base, n0, nt, sn, sc, 2 * hd + h * D, in_tokens_fast);
-    } else {
-      load_tile(ks, k + (int64_t)b * sb, n0, nt, sn, sc, h * D, in_tokens_fast);
-      load_tile(vs, v + (int64_t)b * sb, n0, nt, sn, sc, h * D, in_tokens_fast);
-    }
+    load_tile(ks, k + (int64_t)b * sb, n0, nt, sn, sc, h * D, in_tokens_fast);
+    load_tile(vs, v + (int64_t)b * sb, n0, nt, sn, sc, h * D, in_tokens_fast);
     __syncthreads();
     if (warp == 0) {
       float m = run_max;
@@ -179,36 +169,29 @@ linear_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const 
 }
 
 template <typename T>
-void launch(const void* q, const void* k, const void* v, void* out, int packed, int B, int N,
-            int heads, int64_t sb, int64_t sn, int64_t sc, int64_t ob, int64_t on, int64_t oc,
-            float scale, cudaStream_t s) {
+void launch(const void* q, const void* k, const void* v, void* out, int B, int N, int heads, int64_t sb,
+            int64_t sn, int64_t sc, int64_t ob, int64_t on, int64_t oc, float scale, cudaStream_t s) {
   dim3 grid((unsigned)(B * heads));
-  if (packed) {
-    linear_attention_kernel<T, true><<<grid, THREADS, 0, s>>>(
-        (const T*)q, nullptr, nullptr, (T*)out, N, heads, sb, sn, sc, ob, on, oc, scale);
-  } else {
-    linear_attention_kernel<T, false><<<grid, THREADS, 0, s>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)out, N, heads, sb, sn, sc, ob, on, oc, scale);
-  }
+  linear_attention_kernel<T><<<grid, THREADS, 0, s>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, N, heads, sb, sn, sc, ob, on, oc, scale);
 }
 
 }  // namespace
 
 // q, k, v (one layout) and out with their (batch, token, channel) element
 // strides; head h reads channels [h*D, (h+1)*D) of each input and writes the
-// same channels of out. packed = 1: q is the (B, N, 3*heads*D) projection
-// and k, v are ignored (they are its second and third channel thirds).
+// same channels of out.
 extern "C" int linear_attention_launch(const void* q, const void* k, const void* v, void* out,
-                                       int packed, int is_bf16, int B, int N, int heads,
-                                       int dim_head, int64_t sb, int64_t sn, int64_t sc, int64_t ob,
-                                       int64_t on, int64_t oc, float scale, void* stream) {
+                                       int is_bf16, int B, int N, int heads, int dim_head, int64_t sb,
+                                       int64_t sn, int64_t sc, int64_t ob, int64_t on, int64_t oc,
+                                       float scale, void* stream) {
   if (dim_head != D || B <= 0 || N <= 0 || heads <= 0) return (int)cudaErrorInvalidValue;
-  if (!packed && (k == nullptr || v == nullptr)) return (int)cudaErrorInvalidValue;
+  if (q == nullptr || k == nullptr || v == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) {
-    launch<__nv_bfloat16>(q, k, v, out, packed, B, N, heads, sb, sn, sc, ob, on, oc, scale, s);
+    launch<__nv_bfloat16>(q, k, v, out, B, N, heads, sb, sn, sc, ob, on, oc, scale, s);
   } else {
-    launch<float>(q, k, v, out, packed, B, N, heads, sb, sn, sc, ob, on, oc, scale, s);
+    launch<float>(q, k, v, out, B, N, heads, sb, sn, sc, ob, on, oc, scale, s);
   }
   return (int)cudaGetLastError();
 }

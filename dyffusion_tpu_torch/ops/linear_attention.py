@@ -12,14 +12,18 @@ Per batch element and head:
     q' = softmax over dim_head (per token) * scale;  k' = softmax over tokens;
     v' = v / N;  context = k'^T v' (d x d);  out = q' context
 
-Both run the one hand-written kernel in ``csrc/linear_attention.cu`` (built
-on first use by :mod:`dyffusion_tpu_torch.ops._build`): B1 reads q, k and v
-as the channel thirds of one tensor, B3 as three tensors of one layout with
-heads = 1. On a CUDA tensor each wrapper launches the kernel or raises; it
-never falls back. On a CPU tensor it runs its plain version, the same
-arithmetic in plain PyTorch, which is also what the kernel is checked
-against. Each backward replays the plain composition, as the JAX package's
-``_pallas_qkv_bwd`` and ``_pallas_core_bwd`` replay their XLA references.
+Each runs a hand-written kernel (built on first use by
+:mod:`dyffusion_tpu_torch.ops._build`). B1 (``csrc/linear_attention_qkv.cu``)
+reads q, k and v as the channel thirds of one tensor in two launches: a
+partial pass over S chunks of the tokens per (batch, head), then a pass that
+merges the chunks and writes the output, S' blocks per (batch, head)
+(:func:`split_counts`). B3 (``csrc/linear_attention.cu``) runs one block per
+(batch*head) on three tensors of one layout. On a CUDA tensor each wrapper
+launches its kernel or raises; it never falls back. On a CPU tensor it runs
+its plain version, the same arithmetic in plain PyTorch, which is also what
+the kernel is checked against. Each backward replays the plain composition,
+as the JAX package's ``_pallas_qkv_bwd`` and ``_pallas_core_bwd`` replay
+their XLA references.
 """
 from __future__ import annotations
 
@@ -27,10 +31,29 @@ import ctypes
 
 import torch
 
-SOURCE = "dyffusion_tpu_torch/csrc/linear_attention.cu"
+SOURCE = "dyffusion_tpu_torch/csrc/linear_attention_qkv.cu"  # B1
 REPLACES = "dyffusion_tpu/ops/pallas_attention.py:181"  # the pl.pallas_call of _pallas_qkv
+CORE_SOURCE = "dyffusion_tpu_torch/csrc/linear_attention.cu"  # B3
 CORE_REPLACES = "dyffusion_tpu/ops/pallas_attention.py:293"  # the pl.pallas_call of _pallas_core_impl
-KERNEL_DIM_HEAD = 32  # the kernel holds one head's channels in one warp
+KERNEL_DIM_HEAD = 32  # the kernels hold one head's D x D context
+
+# B1's launch geometry (csrc/linear_attention_qkv.cu): the partial pass walks
+# whole tiles of TILE_N tokens; the output pass takes OUT_TOKENS tokens at a
+# time, one thread each; each chunk's partial is PARTIAL_FLOATS f32 (its
+# D x D context, per-channel max and sum of exponentials)
+TILE_N = 64
+OUT_TOKENS = 128
+PARTIAL_FLOATS = KERNEL_DIM_HEAD * KERNEL_DIM_HEAD + 2 * KERNEL_DIM_HEAD
+# the H100's SMs, and the blocks of each pass resident on one SM (the
+# occupancy that chip_smoke.py reads from the CUDA runtime); split_counts
+# sizes both grids to at least two waves of these
+SMS = 132
+PARTIAL_BLOCKS_PER_SM = 4
+OUTPUT_BLOCKS_PER_SM = 5
+# at most this many tiles (partial pass) or OUT_TOKENS-token steps (output
+# pass) per block: more splits mean more partials to write and merge
+MAX_TILES_PER_CHUNK = 16
+MAX_STEPS_PER_BLOCK = 8
 
 # Kernel launches since the last reset, B1 (``launches``) and B3
 # (``core_launches``); bumped only where the kernel is launched, so a run can
@@ -39,6 +62,7 @@ launches = 0
 core_launches = 0
 
 _fn = None
+_qkv_fn = None
 
 
 def reset_launches() -> None:
@@ -96,41 +120,107 @@ def _check_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         )
 
 
-def _launch(q, k, v, out, packed: bool, B: int, N: int, heads: int, dim_head: int, strides, scale: float) -> None:
-    """Launch the kernel. ``packed``: q is the (B, N, 3*heads*dim_head)
-    projection holding k and v too. ``strides`` holds the (batch, token,
-    channel) element strides of the inputs (one layout for q, k and v), then
-    of out."""
-    global _fn
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"the linear attention kernel takes float32 or bfloat16, got {q.dtype}")
+def split_counts(bh: int, n: int) -> tuple:
+    """(S, S') of B1 for B*heads = ``bh`` and N = ``n`` tokens: the chunks
+    per (batch, head) of the partial pass and the blocks per (batch, head)
+    of the output pass. Each pass takes the fewest splits (at most
+    MAX_TILES_PER_CHUNK tiles or MAX_STEPS_PER_BLOCK steps per block) whose
+    grid fills two waves of the card, or one tile / one step per block when
+    no split does; S = 1 when one tile holds N. No split is empty."""
+
+    def split(units: int, blocks_per_sm: int, cap: int) -> int:
+        target = 2 * SMS * blocks_per_sm
+        fits = [c for c in range(1, min(units, cap) + 1) if bh * -(-units // c) >= target]
+        return -(-units // max(fits, default=1))
+
+    return (split(-(-n // TILE_N), PARTIAL_BLOCKS_PER_SM, MAX_TILES_PER_CHUNK),
+            split(-(-n // OUT_TOKENS), OUTPUT_BLOCKS_PER_SM, MAX_STEPS_PER_BLOCK))
+
+
+def load_width(qkv: torch.Tensor) -> tuple:
+    """(vec, tokens_fast) of B1's loads from ``qkv`` (B, N, 3*heads*d):
+    tokens_fast when tokens are its stride-1 axis (the NCHW view), and vec,
+    the most elements (up to 16 bytes) per load along the stride-1 axis that
+    the base pointer's alignment, the other strides and, when tokens are
+    fast, N allow. Neither axis at stride 1: one element per load."""
+    B, N, _ = qkv.shape
+    sb, sn, sc = qkv.stride()
+    isz = qkv.element_size()
+    tokens_fast = sn == 1 and sc != 1
+    if not tokens_fast and sc != 1:
+        return 1, sn <= sc
+    # the strides that step between vectors must keep each one aligned
+    others = ([sc] if tokens_fast else [sn] if N > 1 else []) + ([sb] if B > 1 else [])
+    vec = 16 // isz
+    while vec > 1 and not (
+        qkv.data_ptr() % (vec * isz) == 0 and all(s % vec == 0 for s in others) and (not tokens_fast or N % vec == 0)
+    ):
+        vec //= 2
+    return vec, tokens_fast
+
+
+def _check_kernel_args(dtype: torch.dtype, dim_head: int, strides) -> None:
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the linear attention kernel takes float32 or bfloat16, got {dtype}")
     if dim_head != KERNEL_DIM_HEAD:
         raise ValueError(f"the linear attention kernel takes dim_head={KERNEL_DIM_HEAD}, got {dim_head}")
     if any(s < 0 for s in strides):
         raise ValueError(f"the linear attention kernel takes non-negative strides, got {strides}")
-    if _fn is None:
-        from dyffusion_tpu_torch.ops._build import load_library
 
-        fn = load_library("linear_attention").linear_attention_launch
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_int64] * 6 + [
-            ctypes.c_float, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        _fn = fn
+
+def _library_fn(name: str, symbol: str, argtypes):
+    from dyffusion_tpu_torch.ops._build import load_library
+
+    fn = getattr(load_library(name), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(q, k, v, out, B: int, N: int, heads: int, dim_head: int, strides, scale: float) -> None:
+    """Launch B3's kernel. ``strides`` holds the (batch, token, channel)
+    element strides of the inputs (one layout for q, k and v), then of out."""
+    global _fn
+    _check_kernel_args(q.dtype, dim_head, strides)
+    if _fn is None:
+        _fn = _library_fn("linear_attention", "linear_attention_launch", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                          + [ctypes.c_int64] * 6 + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), int(packed), int(q.dtype == torch.bfloat16),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16),
             B, N, heads, dim_head, *strides, float(scale), stream,
         )
     if err != 0:
         raise RuntimeError(f"linear attention kernel launch failed: cudaError {err}")
 
 
+def _qkv_library():
+    global _qkv_fn
+    if _qkv_fn is None:
+        _qkv_fn = _library_fn("linear_attention_qkv", "linear_attention_qkv_launch", [ctypes.c_void_p] * 3
+                              + [ctypes.c_int] * 7 + [ctypes.c_int64] * 6 + [ctypes.c_int] * 2
+                              + [ctypes.c_float, ctypes.c_void_p])
+    return _qkv_fn
+
+
+def qkv_occupancy(dtype: torch.dtype, vec: int, tokens_fast: bool) -> tuple:
+    """(partial, output): resident blocks per SM of B1's two kernels for
+    this dtype and load width, from the CUDA runtime (needs the card)."""
+    fn = _library_fn("linear_attention_qkv", "linear_attention_qkv_occupancy",
+                     [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)])
+    blocks = (ctypes.c_int * 2)()
+    err = fn(int(dtype == torch.bfloat16), vec, int(tokens_fast), blocks)
+    if err != 0:
+        raise RuntimeError(f"linear attention occupancy query failed: cudaError {err}")
+    return blocks[0], blocks[1]
+
+
 def _launch_qkv(qkv: torch.Tensor, heads: int, dim_head: int, scale: float) -> torch.Tensor:
     global launches
     B, N, _ = qkv.shape
     hd = heads * dim_head
+    _check_kernel_args(qkv.dtype, dim_head, qkv.stride())
     # the output keeps the input's axis order: tokens fastest for the NCHW
     # view of a 1x1-conv output (so it is itself an NCHW tensor), channels
     # fastest otherwise
@@ -138,8 +228,18 @@ def _launch_qkv(qkv: torch.Tensor, heads: int, dim_head: int, scale: float) -> t
         out = torch.empty((B, hd, N), dtype=qkv.dtype, device=qkv.device).transpose(1, 2)
     else:
         out = torch.empty((B, N, hd), dtype=qkv.dtype, device=qkv.device)
-    # q, k, v are the three thirds of the channel axis of qkv
-    _launch(qkv, qkv, qkv, out, True, B, N, heads, dim_head, qkv.stride() + out.stride(), scale)
+    S, S2 = split_counts(B * heads, N)
+    vec, tokens_fast = load_width(qkv)
+    ws = torch.empty(B * heads * S * PARTIAL_FLOATS, dtype=torch.float32, device=qkv.device)
+    fn = _qkv_library()
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        err = fn(
+            qkv.data_ptr(), out.data_ptr(), ws.data_ptr(), int(qkv.dtype == torch.bfloat16), vec, int(tokens_fast),
+            B, N, heads, dim_head, *qkv.stride(), *out.stride(), S, S2, float(scale), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"linear attention kernel launch failed: cudaError {err}")
     launches += 1
     return out
 
@@ -152,7 +252,7 @@ def _launch_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
     def bnc(t):  # (batch, token, channel) strides of a (BH, d, N) tensor
         return t.stride(0), t.stride(2), t.stride(1)
 
-    _launch(q, k, v, out, False, BH, N, 1, d, bnc(q) + bnc(out), scale)
+    _launch(q, k, v, out, BH, N, 1, d, bnc(q) + bnc(out), scale)
     core_launches += 1
     return out
 

@@ -68,6 +68,62 @@ def test_kernel_matches_plain(dtype, strided):
                     _assert_close_to_scale(wrong, want, REL_TOL[dt])
 
 
+def _assert_close_with_controls(got, want, r):
+    _assert_close_to_scale(got, want, r)
+    for wrong in (want * 1.05, torch.zeros_like(want)):  # negative controls: the check rejects these
+        with pytest.raises(AssertionError, match="max abs err"):
+            _assert_close_to_scale(wrong, want, r)
+
+
+def _qkv_wide_k(B, N, strided, dtype, seed, offset=0):
+    """(B, N, 3hd) on the GPU: q, v standard normal, k uniform in [-50, 50]
+    (chunk maxima far apart, so the merge's rescale matters); contiguous or
+    the NCHW view; ``offset`` elements into a larger buffer."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    F, hd = 3 * HEADS * DIM_HEAD, HEADS * DIM_HEAD
+    x = torch.randn((B, N, F), generator=g, device="cuda")
+    x[:, :, hd:2 * hd] = torch.rand((B, N, hd), generator=g, device="cuda") * 100 - 50
+    buf = torch.empty(B * N * F + offset, dtype=dtype, device="cuda")[offset:]
+    out = buf.view(B, F, N).transpose(1, 2) if strided else buf.view(B, N, F)
+    return out.copy_(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("B", [1, 240])
+@pytest.mark.parametrize("N", [1, 7, 225, 900, 3600, 3601])
+def test_kernel_matches_plain_across_splits(N, B, strided, dtype):
+    """B1's two launches at the splits S, S' that ``split_counts`` picks
+    (one chunk up to N = 64, several above), every load width of both
+    layouts, and k of magnitude up to 50."""
+    _require_cuda()
+    dt = getattr(torch, dtype)
+    x = _qkv_wide_k(B, N, strided, dt, seed=B * 10007 + N)
+    before = la.launches
+    got = la.linear_attention_qkv(x, HEADS, DIM_HEAD, SCALE)
+    torch.cuda.synchronize()
+    assert la.launches == before + 1
+    assert got.dtype == dt and tuple(got.shape) == (B, N, HEADS * DIM_HEAD)
+    _assert_close_with_controls(got, la.linear_attention_qkv_plain(x, HEADS, DIM_HEAD, SCALE), REL_TOL[dt])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("strided", [False, True])
+def test_kernel_matches_plain_from_a_misaligned_base(strided, dtype):
+    """A qkv one element into a larger buffer: its base pointer allows only
+    one element per load."""
+    _require_cuda()
+    dt = getattr(torch, dtype)
+    for N in (900, 3600):
+        x = _qkv_wide_k(3, N, strided, dt, seed=N, offset=1)
+        assert la.load_width(x) == (1, strided)
+        got = la.linear_attention_qkv(x, HEADS, DIM_HEAD, SCALE)
+        torch.cuda.synchronize()
+        _assert_close_with_controls(got, la.linear_attention_qkv_plain(x, HEADS, DIM_HEAD, SCALE), REL_TOL[dt])
+
+
 @pytest.mark.cuda
 def test_kernel_gradient():
     _require_cuda()

@@ -109,6 +109,127 @@ def test_wrapper_rejects_wrong_width():
 
 
 # ---------------------------------------------------------------------------
+# B1's two launches: chunked partials, then the merge
+# ---------------------------------------------------------------------------
+def _chunk_tiles(N, S):
+    """(tiles, tiles per chunk) of B1's partial pass: chunk s takes the whole
+    tiles [s * per, (s + 1) * per) that exist."""
+    tiles = -(-N // la.TILE_N)
+    return tiles, -(-tiles // S)
+
+
+def _chunked_qkv(qkv, S, rescale=True):
+    """B1's algorithm (``csrc/linear_attention_qkv.cu``) in plain torch, f32.
+    Partial pass: each of S chunks walks its tiles with an online softmax and
+    keeps its per-channel max m, sum of exponentials l and unnormalised
+    context C (an empty chunk keeps m = -inf, l = 0, C = 0). Merge: M =
+    max_s m_s, L = sum_s l_s e^{m_s - M}, ctx = sum_s C_s e^{m_s - M} *
+    scale / (L N); then out = softmax_d(q) ctx. ``rescale=False`` drops the
+    e^{m_s - M} factor (a negative control)."""
+    B, N, _ = qkv.shape
+    T = la.TILE_N
+    x = qkv.float().reshape(B, N, 3, HEADS, DIM_HEAD)
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]  # (B, N, h, d)
+    tiles, per = _chunk_tiles(N, S)
+    ms, ls, cs = [], [], []
+    for s in range(S):
+        m = torch.full((B, HEADS, DIM_HEAD), -torch.inf)
+        l = torch.zeros(B, HEADS, DIM_HEAD)
+        c = torch.zeros(B, HEADS, DIM_HEAD, DIM_HEAD)
+        for t in range(s * per, min(tiles, (s + 1) * per)):
+            kt, vt = k[:, t * T:(t + 1) * T], v[:, t * T:(t + 1) * T]
+            new = torch.maximum(m, kt.amax(1))
+            alpha = torch.exp(m - new)  # 0 on the chunk's first tile
+            p = torch.exp(kt - new[:, None])
+            l = l * alpha + p.sum(1)
+            c = c * alpha[..., None] + torch.einsum("bnhd,bnhe->bhde", p, vt)
+            m = new
+        ms.append(m), ls.append(l), cs.append(c)
+    m = torch.stack(ms)
+    w = torch.exp(m - m.amax(0)) if rescale else torch.ones_like(m)  # e^{-inf} = 0: an empty chunk weighs nothing
+    L = (w * torch.stack(ls)).sum(0)
+    ctx = (w[..., None] * torch.stack(cs)).sum(0) * SCALE / (L[..., None] * N)
+    out = torch.einsum("bnhd,bhde->bnhe", torch.softmax(q, dim=-1), ctx)
+    return out.reshape(B, N, HEADS * DIM_HEAD)
+
+
+def _shifted_qkv(N, S, seed):
+    """Inputs whose chunk 1 (chunk 0 when it is the only one with tokens) has
+    its k raised by 30, so that the chunks' maxima differ."""
+    x = _qkv(2, N, seed=seed)
+    tiles, per = _chunk_tiles(N, S)
+    c = 1 if per < tiles else 0
+    x[:, c * per * la.TILE_N:(c + 1) * per * la.TILE_N, HEADS * DIM_HEAD:2 * HEADS * DIM_HEAD] += 30.0
+    return x
+
+
+@pytest.mark.parametrize("N", [7, 225, 900])
+@pytest.mark.parametrize("S", [1, 2, 3, 7, 16])
+def test_chunked_merge_matches_jax_pallas(N, S):
+    """The merge algebra of B1's two launches equals the JAX Pallas kernel,
+    for every split S, with empty chunks (S = 16 leaves some at every N) and
+    with chunk maxima 30 apart."""
+    x = _shifted_qkv(N, S, seed=N + S)
+    tiles, per = _chunk_tiles(N, S)
+    if S == 16:
+        assert (S - 1) * per >= tiles  # the last chunk holds no token
+    want = np.asarray(jax_linear_attention_qkv(jnp.asarray(x), HEADS, DIM_HEAD, SCALE, use_pallas=True))
+    got = _chunked_qkv(torch.from_numpy(x), S)
+    assert_close_to_scale(got.numpy(), want)
+
+
+@pytest.mark.parametrize("N", [225, 900])
+def test_chunked_merge_without_the_rescale_is_rejected(N):
+    """Negative control: the same check fails when the merge drops e^{m_s - M}."""
+    x = _shifted_qkv(N, 3, seed=N)
+    want = np.asarray(jax_linear_attention_qkv(jnp.asarray(x), HEADS, DIM_HEAD, SCALE, use_pallas=True))
+    with pytest.raises(AssertionError, match="max abs err"):
+        assert_close_to_scale(_chunked_qkv(torch.from_numpy(x), 3, rescale=False).numpy(), want)
+
+
+def test_split_counts():
+    """S and S' at the serving (B*heads = 480, 960) and batch-64 train
+    (B*heads = 256) shapes: more than one chunk, no empty split, each grid
+    at least two waves of the card or one unit per block; S = 1 when one
+    tile holds N; the same answer every time."""
+    for bh in (480, 960, 256):
+        for n in (3600, 900, 225):
+            S, S2 = la.split_counts(bh, n)
+            assert S > 1 and la.split_counts(bh, n) == (S, S2)
+            for splits, unit, per_sm in ((S, la.TILE_N, la.PARTIAL_BLOCKS_PER_SM),
+                                         (S2, la.OUT_TOKENS, la.OUTPUT_BLOCKS_PER_SM)):
+                units = -(-n // unit)
+                per = -(-units // splits)
+                assert (splits - 1) * per < units
+                assert bh * splits >= 2 * la.SMS * per_sm or splits == units
+    for bh in (1, 16, 480, 960):
+        for n in (1, 7, 64):
+            assert la.split_counts(bh, n) == (1, 1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_load_width(dtype):
+    """B1's loads: 16 bytes at N = 3600, and at N = 900 in f32 (8 in bf16);
+    one element at N = 225 in the NCHW view; 16 bytes token-major; one
+    element from a base pointer one element off, or with neither axis at
+    stride 1."""
+    dt = getattr(torch, dtype)
+    wide = 16 // torch.empty((), dtype=dt).element_size()
+
+    def qkv(N, nchw, offset=0):
+        buf = torch.zeros(2 * 384 * N + offset, dtype=dt)[offset:]
+        return buf.view(2, 384, N).transpose(1, 2) if nchw else buf.view(2, N, 384)
+
+    assert la.load_width(qkv(3600, True)) == (wide, True)
+    assert la.load_width(qkv(900, True)) == (4, True)
+    assert la.load_width(qkv(225, True)) == (1, True)
+    assert la.load_width(qkv(225, False)) == (wide, False)
+    assert la.load_width(qkv(3600, True, offset=1)) == (1, True)
+    assert la.load_width(qkv(3600, False, offset=1)) == (1, False)
+    assert la.load_width(torch.zeros(2, 10, 768, dtype=dt)[:, :, ::2]) == (1, False)
+
+
+# ---------------------------------------------------------------------------
 # B3: the linear-attention core on (BH, d, N)
 # ---------------------------------------------------------------------------
 def _core_qkv(BH, N, seed):
