@@ -97,6 +97,14 @@ constexpr int partial_smem() {
   return 4 * Stage<T>::BYTES + (2 * D * LDP + WARPS * D + D) * (int)sizeof(float);
 }
 
+// v, opaque to the compiler at each use: a stride multiplied into several
+// addresses inside a loop is then not hoisted out of it as one 64-bit
+// register per address
+__device__ __forceinline__ int64_t opaque(int64_t v) {
+  asm volatile("mov.b64 %0, %0;" : "+l"(v));
+  return v;
+}
+
 __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
 __device__ __forceinline__ void st4(float* p, float a, float b, float c, float d) {
   *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
@@ -191,8 +199,14 @@ __device__ __forceinline__ void read_slice(const T* st, int lane, int warp, floa
   }
 }
 
+// resident blocks per SM that the partial kernel's registers are held to:
+// 3 (80 registers) with vector copies; one-element copies keep more
+// addresses and values in flight, spill there and get 2 (128 registers)
+template <int VEC>
+constexpr int partial_min_blocks() { return VEC == 1 ? 2 : 3; }
+
 template <typename T, int VEC, bool TOKENS_FAST>
-__global__ void __launch_bounds__(THREADS, 3)
+__global__ void __launch_bounds__(THREADS, partial_min_blocks<VEC>())
 linear_attention_qkv_partial_kernel(const T* __restrict__ qkv, float* __restrict__ ws, int N, int heads,
                                     int64_t sb, int64_t sn, int64_t sc) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -332,8 +346,9 @@ linear_attention_qkv_partial_kernel(const T* __restrict__ qkv, float* __restrict
 template <typename T, int VEC>
 __device__ __forceinline__ void load_row(const T* row, int64_t sc, float (&x)[D]) {
   if constexpr (VEC == 1) {
+    const int64_t step = opaque(sc);
 #pragma unroll
-    for (int c = 0; c < D; ++c) x[c] = to_f32(row[(int64_t)c * sc]);
+    for (int c = 0; c < D; ++c) x[c] = to_f32(row[c * step]);
   } else {
     using R = typename Raw<VEC * sizeof(T)>::type;
 #pragma unroll
@@ -348,8 +363,13 @@ __device__ __forceinline__ void load_row(const T* row, int64_t sc, float (&x)[D]
 
 // VEC: elements per q load along the channels (1 when tokens are the fast
 // axis: neighbouring threads then read neighbouring tokens)
+// resident blocks per SM that the output kernel's registers are held to:
+// 5 (96 registers) in bf16; f32 spills there and gets 4 (128 registers)
+template <typename T>
+constexpr int output_min_blocks() { return sizeof(T) == 2 ? 5 : 4; }
+
 template <typename T, int VEC>
-__global__ void __launch_bounds__(OUT_THREADS, 4)
+__global__ void __launch_bounds__(OUT_THREADS, output_min_blocks<T>())
 linear_attention_qkv_output_kernel(const T* __restrict__ qkv, const float* __restrict__ ws, T* __restrict__ out,
                                    int N, int heads, int S, int64_t sb, int64_t sn, int64_t sc, int64_t ob,
                                    int64_t on, int64_t oc, float scale) {
@@ -387,11 +407,8 @@ linear_attention_qkv_output_kernel(const T* __restrict__ qkv, const float* __res
   T* obase = out + (int64_t)b * ob + (int64_t)h * D * oc;
   for (int n0 = n_begin; n0 < n_end; n0 += OUT_THREADS) {
     const int n = n0 + tid;
-    float y[D];
-#pragma unroll
-    for (int e = 0; e < D; ++e) y[e] = 0.f;
     if (n < n_end) {
-      float x[D];
+      float x[D];  // q, then softmax_D(q)
       load_row<T, VEC>(qbase + (int64_t)n * sn, sc, x);
       float m = x[0];
 #pragma unroll
@@ -404,28 +421,35 @@ linear_attention_qkv_output_kernel(const T* __restrict__ qkv, const float* __res
       }
       const float inv = 1.f / s;
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        const float q = x[d] * inv;
+      for (int c = 0; c < D; ++c) x[c] *= inv;
+      // the outputs in two halves of D / 2, each stored before the next:
+      // fewer values live at once
 #pragma unroll
-        for (int e = 0; e < D; e += 4) {
-          const float4 cc = ld4(ctx + d * D + e);  // the same address in every lane: a broadcast
-          y[e] = fmaf(q, cc.x, y[e]);
-          y[e + 1] = fmaf(q, cc.y, y[e + 1]);
-          y[e + 2] = fmaf(q, cc.z, y[e + 2]);
-          y[e + 3] = fmaf(q, cc.w, y[e + 3]);
+      for (int e0 = 0; e0 < D; e0 += D / 2) {
+        float y[D / 2];
+#pragma unroll
+        for (int e = 0; e < D / 2; ++e) y[e] = 0.f;
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+#pragma unroll
+          for (int e = 0; e < D / 2; e += 4) {
+            const float4 cc = ld4(ctx + d * D + e0 + e);  // the same address in every lane: a broadcast
+            y[e] = fmaf(x[d], cc.x, y[e]);
+            y[e + 1] = fmaf(x[d], cc.y, y[e + 1]);
+            y[e + 2] = fmaf(x[d], cc.z, y[e + 2]);
+            y[e + 3] = fmaf(x[d], cc.w, y[e + 3]);
+          }
+        }
+        if (on == 1) {  // tokens fast in out: each store instruction covers 32 neighbouring tokens
+#pragma unroll
+          for (int e = 0; e < D / 2; ++e) from_f32(obase + (int64_t)(e0 + e) * oc + n, y[e]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < D / 2; ++e) tile[tid * LDO + e0 + e] = y[e];
         }
       }
     }
-    if (on == 1) {  // tokens fast in out: each store instruction covers 32 neighbouring tokens
-      if (n < n_end) {
-#pragma unroll
-        for (int e = 0; e < D; ++e) from_f32(obase + (int64_t)e * oc + n, y[e]);
-      }
-    } else {  // through shared memory: each warp store covers one token's D channels
-      if (n < n_end) {
-#pragma unroll
-        for (int e = 0; e < D; ++e) tile[tid * LDO + e] = y[e];
-      }
+    if (on != 1) {  // through shared memory: each warp store covers one token's D channels
       __syncthreads();
       for (int i = tid; i < OUT_THREADS * D; i += OUT_THREADS) {
         const int t = i / D, e = i % D;

@@ -28,6 +28,7 @@ their XLA references.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -44,11 +45,11 @@ KERNEL_DIM_HEAD = 32  # the kernels hold one head's D x D context
 TILE_N = 64
 OUT_TOKENS = 128
 PARTIAL_FLOATS = KERNEL_DIM_HEAD * KERNEL_DIM_HEAD + 2 * KERNEL_DIM_HEAD
-# the H100's SMs, and the blocks of each pass resident on one SM (the
-# occupancy that chip_smoke.py reads from the CUDA runtime); split_counts
-# sizes both grids to at least two waves of these
+# the H100's SMs, and the blocks of each pass resident on one SM with
+# vector loads (the occupancy that chip_smoke.py reads from the CUDA runtime
+# and prints); split_counts sizes both grids to at least two waves of these
 SMS = 132
-PARTIAL_BLOCKS_PER_SM = 4
+PARTIAL_BLOCKS_PER_SM = 3
 OUTPUT_BLOCKS_PER_SM = 5
 # at most this many tiles (partial pass) or OUT_TOKENS-token steps (output
 # pass) per block: more splits mean more partials to write and merge
@@ -120,13 +121,15 @@ def _check_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         )
 
 
+@functools.lru_cache(maxsize=None)
 def split_counts(bh: int, n: int) -> tuple:
     """(S, S') of B1 for B*heads = ``bh`` and N = ``n`` tokens: the chunks
     per (batch, head) of the partial pass and the blocks per (batch, head)
     of the output pass. Each pass takes the fewest splits (at most
     MAX_TILES_PER_CHUNK tiles or MAX_STEPS_PER_BLOCK steps per block) whose
     grid fills two waves of the card, or one tile / one step per block when
-    no split does; S = 1 when one tile holds N. No split is empty."""
+    no split does; S = 1 when one tile holds N. No split is empty. Cached:
+    it runs on every call, on the host."""
 
     def split(units: int, blocks_per_sm: int, cap: int) -> int:
         target = 2 * SMS * blocks_per_sm
