@@ -19,7 +19,8 @@ non-zero:
    output's scale; negative controls show that the same check rejects a
    result that is 5% off or zero; B3's backward against the plain
    composition's. Then kernel and plain times (CUDA events, after a
-   warm-up), GB/s and the share of the byte bound, at the serving and the
+   warm-up, with the queue filled behind a sleep kernel: device time),
+   GB/s and the share of the byte bound, at the serving and the
    batch-64 train shapes, with B1's forward time per request and per step,
    and B1's splits S, S' (``split_counts``), load width and resident blocks
    per SM at each timed shape.
@@ -198,12 +199,24 @@ def _qkv(B, N, dtype, strided, gen):
     return torch.randn((B, N, F), generator=gen, device="cuda", dtype=torch.float32).to(dtype)
 
 
+# cycles of the sleep kernel that holds the device while the host issues a
+# timed window (~0.1 s at the H100's clocks): longer than the host takes to
+# issue any window here
+HOLD_CYCLES = 200_000_000
+
+
 def _time_ms(fn, iters=20, warmup=3):
+    """Device time per call: CUDA events around ``iters`` calls after a
+    warm-up. The device sleeps while the host issues the window, so the
+    calls run back to back from a full queue and the host's issue time per
+    call (~0.03-0.07 ms for B1 on the H100 host) does not bound a small
+    kernel's time."""
     import torch
 
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -855,6 +868,9 @@ def phase_profile(card):
     print("[profile] top kernels: ms | launches | name")
     for e in sorted(kernels, key=lambda e: -ms[e.key])[:20]:
         print(f"[profile] {ms[e.key]:.1f} | {e.count} | {e.key[:120]}")
+    print("[profile] B1 kernels: ms | launches | ms per launch | name")
+    for e in sorted((e for e in kernels if "linear_attention_qkv" in e.key), key=lambda e: -ms[e.key]):
+        print(f"[profile] {ms[e.key]:.2f} | {e.count} | {ms[e.key] / e.count:.4f} | {e.key[:110]}")
 
 
 def main(argv) -> int:

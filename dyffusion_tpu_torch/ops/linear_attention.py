@@ -128,15 +128,18 @@ def split_counts(bh: int, n: int) -> tuple:
     of the output pass. Each pass takes the fewest splits (at most
     MAX_TILES_PER_CHUNK tiles or MAX_STEPS_PER_BLOCK steps per block) whose
     grid fills two waves of the card, or one tile / one step per block when
-    no split does; S = 1 when one tile holds N. No split is empty. Cached:
-    it runs on every call, on the host."""
+    no split does. The partial pass takes at least two chunks once N spans
+    two tiles, so no block walks a whole (batch, head); S = 1 when one tile
+    holds N. No split is empty. Cached: it runs on every call, on the
+    host."""
 
     def split(units: int, blocks_per_sm: int, cap: int) -> int:
         target = 2 * SMS * blocks_per_sm
         fits = [c for c in range(1, min(units, cap) + 1) if bh * -(-units // c) >= target]
         return -(-units // max(fits, default=1))
 
-    return (split(-(-n // TILE_N), PARTIAL_BLOCKS_PER_SM, MAX_TILES_PER_CHUNK),
+    tiles = -(-n // TILE_N)
+    return (split(tiles, PARTIAL_BLOCKS_PER_SM, min(MAX_TILES_PER_CHUNK, -(-tiles // 2))),
             split(-(-n // OUT_TOKENS), OUTPUT_BLOCKS_PER_SM, MAX_STEPS_PER_BLOCK))
 
 
@@ -234,13 +237,15 @@ def _launch_qkv(qkv: torch.Tensor, heads: int, dim_head: int, scale: float) -> t
     S, S2 = split_counts(B * heads, N)
     vec, tokens_fast = load_width(qkv)
     ws = torch.empty(B * heads * S * PARTIAL_FLOATS, dtype=torch.float32, device=qkv.device)
-    fn = _qkv_library()
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        err = fn(
-            qkv.data_ptr(), out.data_ptr(), ws.data_ptr(), int(qkv.dtype == torch.bfloat16), vec, int(tokens_fast),
-            B, N, heads, dim_head, *qkv.stride(), *out.stride(), S, S2, float(scale), stream,
-        )
+    args = (qkv.data_ptr(), out.data_ptr(), ws.data_ptr(), int(qkv.dtype == torch.bfloat16), vec, int(tokens_fast),
+            B, N, heads, dim_head, *qkv.stride(), *out.stride(), S, S2, float(scale))
+    # the kernels launch on the current device: switch to qkv's only when it
+    # is another (a per-call cost on the host, which bounds small calls)
+    if qkv.device.index == torch.cuda.current_device():
+        err = _qkv_library()(*args, torch.cuda.current_stream(qkv.device).cuda_stream)
+    else:
+        with torch.cuda.device(qkv.device):
+            err = _qkv_library()(*args, torch.cuda.current_stream(qkv.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"linear attention kernel launch failed: cudaError {err}")
     launches += 1
@@ -304,10 +309,14 @@ def linear_attention_qkv(qkv: torch.Tensor, heads: int, dim_head: int, scale: fl
 
     CUDA tensor: the B1 kernel (any non-negative strides; float32 or
     bfloat16; dim_head 32), or an error. CPU tensor: the plain version.
-    Differentiable either way."""
+    Differentiable either way; without a gradient to record (no_grad, or
+    qkv needs none) the kernel is called without the autograd Function's
+    per-call cost on the host."""
     _check(qkv, heads, dim_head)
     if qkv.device.type == "cuda":
-        return _LinearAttentionQKV.apply(qkv, heads, dim_head, scale)
+        if torch.is_grad_enabled() and qkv.requires_grad:
+            return _LinearAttentionQKV.apply(qkv, heads, dim_head, scale)
+        return _launch_qkv(qkv, heads, dim_head, scale)
     if qkv.device.type == "cpu":
         return linear_attention_qkv_plain(qkv, heads, dim_head, scale)
     raise ValueError(f"linear_attention_qkv takes CPU or CUDA tensors, got device {qkv.device}")
