@@ -209,8 +209,7 @@ def _time_ms(fn, iters=20, warmup=3):
     """Device time per call: CUDA events around ``iters`` calls after a
     warm-up. The device sleeps while the host issues the window, so the
     calls run back to back from a full queue and the host's issue time per
-    call (~0.03-0.07 ms for B1 on the H100 host) does not bound a small
-    kernel's time."""
+    call does not bound a small kernel's time."""
     import torch
 
     for _ in range(warmup):
@@ -884,7 +883,9 @@ def main(argv) -> int:
         phase_profile(smi)
         return 0
     if argv == ["--kernels"]:
-        phase_kernel(), phase_kernel_core(), phase_kernel_act()
+        phase_kernel()
+        phase_kernel_core()
+        phase_kernel_act()
         return 0
     from dyffusion_tpu_torch.ops import fused_act as fa
     from dyffusion_tpu_torch.ops import linear_attention as la

@@ -3,9 +3,9 @@
 // Replaces dyffusion_tpu/ops/pallas_attention.py::_pallas_core_impl /
 // _kernel (B3, on separate q, k, v of (BH, D, N), as heads = 1). q, k and v
 // are three base pointers that share one set of element strides for the
-// (batch, token, channel) axes; the output has its own. (This body also ran
-// B1 until B1 moved to its own two-launch kernel, linear_attention_qkv.cu;
-// ptxas holds this kernel at 61 registers with no spill.)
+// (batch, token, channel) axes; the output has its own. (B1 runs its own
+// two-launch kernel, linear_attention_qkv.cu; ptxas holds this one at 61
+// registers with no spill.)
 // Per batch element b and head h:
 //
 //   q' = softmax_D(q[n, :]) * scale        (per token, over the head's D channels)

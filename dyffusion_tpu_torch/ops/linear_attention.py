@@ -27,6 +27,7 @@ their XLA references.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -121,7 +122,7 @@ def _check_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         )
 
 
-@functools.lru_cache(maxsize=None)
+@functools.lru_cache(maxsize=1024)
 def split_counts(bh: int, n: int) -> tuple:
     """(S, S') of B1 for B*heads = ``bh`` and N = ``n`` tokens: the chunks
     per (batch, head) of the partial pass and the blocks per (batch, head)
@@ -241,11 +242,9 @@ def _launch_qkv(qkv: torch.Tensor, heads: int, dim_head: int, scale: float) -> t
             B, N, heads, dim_head, *qkv.stride(), *out.stride(), S, S2, float(scale))
     # the kernels launch on the current device: switch to qkv's only when it
     # is another (a per-call cost on the host, which bounds small calls)
-    if qkv.device.index == torch.cuda.current_device():
+    current = qkv.device.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if current else torch.cuda.device(qkv.device):
         err = _qkv_library()(*args, torch.cuda.current_stream(qkv.device).cuda_stream)
-    else:
-        with torch.cuda.device(qkv.device):
-            err = _qkv_library()(*args, torch.cuda.current_stream(qkv.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"linear attention kernel launch failed: cudaError {err}")
     launches += 1
