@@ -8,11 +8,11 @@ non-zero:
 
 1. device: requires CUDA; prints the card's name, the device count and
    ``nvidia-smi --query-gpu=name,power.limit``.
-2. build: compiles every kernel (B1 ``linear_attention_qkv.cu``, B3
-   ``linear_attention.cu``, B2 ``fused_act.cu``) from the repo's CUDA
-   sources with nvcc (sm_90a), one nvcc per source, all at once, and prints
-   the build times, the ptxas reports and each kernel's registers and
-   spills; a spill in B1's kernels fails the run.
+2. build: compiles every kernel (B1 and B3 ``linear_attention_qkv.cu``,
+   B2 ``fused_act.cu``) from the repo's CUDA sources with nvcc (sm_90a),
+   one nvcc per source, all at once, and prints the build times, the ptxas
+   reports and each kernel's registers and spills; a spill in any kernel
+   fails the run.
 3. kernel vs plain: B1 at the shapes of the serving, train and fit paths,
    B3 and B2 at theirs, bf16 and f32, contiguous and as a strided view,
    against their plain PyTorch versions, with a tolerance relative to the
@@ -22,8 +22,8 @@ non-zero:
    warm-up, with the queue filled behind a sleep kernel: device time),
    GB/s and the share of the byte bound, at the serving and the
    batch-64 train shapes, with B1's forward time per request and per step,
-   and B1's splits S, S' (``split_counts``), load width and resident blocks
-   per SM at each timed shape.
+   and B1's and B3's splits S, S' (``split_counts``), load width and
+   resident blocks per SM at each timed shape.
 4. op path: B2 and B3 through their public ops (``fused_leaky_relu``,
    ``linear_attention_core``, forward and backward) at their path shapes,
    with the launch counts read around it; no model of the JAX package calls
@@ -143,7 +143,7 @@ def phase_build():
     from dyffusion_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    names = ("linear_attention_qkv", "linear_attention", "fused_act")
+    names = ("linear_attention_qkv", "fused_act")
     _build.load_libraries(names)
     for name in names:
         log = _build.build_log[name]
@@ -151,8 +151,8 @@ def phase_build():
         print(f"[build] ptxas: {log['ptxas']}")
         for kernel, regs, spill_st, spill_ld in _ptxas_kernels(log["ptxas"]):
             print(f"[build] {name}: {kernel[:150]}: {regs} registers, spill stores {spill_st} B, loads {spill_ld} B")
-            if name == "linear_attention_qkv" and (spill_st or spill_ld):
-                raise AssertionError(f"B1's kernel {kernel} spills registers")
+            if spill_st or spill_ld:
+                raise AssertionError(f"the kernel {kernel} spills registers")
     print(f"[build] all kernels built and loaded in {time.perf_counter() - t0:.2f} s")
 
 
@@ -187,6 +187,19 @@ def _time_pair(kernel, plain, iters=20):
     kernel, plain, ``iters`` calls each."""
     p1, k1, k2, p2 = (_time_ms(f, iters) for f in (plain, kernel, kernel, plain))
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def _print_split(label, x, bh, N, *more):
+    """B1's/B3's splits S, S', load width (from ``x`` and ``more``, as
+    ``load_width`` takes them) and resident blocks per SM."""
+    from dyffusion_tpu_torch.ops import linear_attention as la
+
+    S, S2 = la.split_counts(bh, N)
+    vec, tokens_fast = la.load_width(x, *more)
+    occ = la.qkv_occupancy(x.dtype, vec, tokens_fast)
+    print(f"[kernel-split] {label}: S={S}, S'={S2}, {vec * x.element_size()}-byte loads, blocks per SM "
+          f"(partial, output) {occ}, grids {bh * S} and {bh * S2} blocks = {bh * S / (132 * occ[0]):.2f} and "
+          f"{bh * S2 / (132 * occ[1]):.2f} waves")
 
 
 def _qkv(B, N, dtype, strided, gen):
@@ -282,13 +295,7 @@ def phase_kernel():
 
     def timed(B, N, dtype):  # NCHW view, as the Unet calls it
         qkv = _qkv(B, N, dtype, True, gen)
-        S, S2 = la.split_counts(B * heads, N)
-        vec, tokens_fast = la.load_width(qkv)
-        occ = la.qkv_occupancy(dtype, vec, tokens_fast)
-        print(f"[kernel-split] B1 B={B} N={N} {str(dtype)[6:]} nchw-view: S={S}, S'={S2}, "
-              f"{vec * qkv.element_size()}-byte loads, blocks per SM (partial, output) {occ}, grids "
-              f"{B * heads * S} and {B * heads * S2} blocks = {B * heads * S / (132 * occ[0]):.2f} and "
-              f"{B * heads * S2 / (132 * occ[1]):.2f} waves")
+        _print_split(f"B1 B={B} N={N} {str(dtype)[6:]} nchw-view", qkv, B * heads, N)
         ms_k, ms_p = _time_pair(lambda: la.linear_attention_qkv(qkv, heads, d, scale),
                                 lambda: la.linear_attention_qkv_plain(qkv, heads, d, scale))
         n_bytes = B * N * (384 + 128) * qkv.element_size()  # read q, k, v once, write out once
@@ -327,9 +334,10 @@ def phase_kernel():
 
 
 def phase_kernel_core():
-    """B3, the linear-attention core on (BH, d, N), against its plain version
-    at the shapes of B1's path as heads = 1 (BH = B x 4), plus an odd N;
-    its backward against the plain composition's. Returns the summary."""
+    """B3, the linear-attention core on (BH, d, N) through B1's kernels as
+    heads = 1, against its plain version at the shapes of B1's path (BH = B
+    x 4), plus an odd N; its backward against the plain composition's; its
+    splits and times. Returns the summary."""
     import torch
 
     from dyffusion_tpu_torch.ops import linear_attention as la
@@ -367,6 +375,7 @@ def phase_kernel_core():
     total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     for BH, N in path:
         q, k, v = inputs(BH, N, torch.bfloat16, False)
+        _print_split(f"B3 BH={BH} N={N} bf16", q.transpose(1, 2), BH, N, k, v)
         ms_k, ms_p = _time_pair(lambda: la.linear_attention_core(q, k, v, scale),
                                 lambda: la.linear_attention_core_plain(q, k, v, scale))
         n_bytes = 4 * BH * d * N * 2  # read q, k, v, write out, bf16

@@ -1,9 +1,15 @@
-// 'qkv'-rescale linear attention for Hopper, sm_90a: kernel B1.
+// 'qkv'-rescale linear attention for Hopper, sm_90a: kernels B1 and B3.
 //
 // Replaces dyffusion_tpu/ops/pallas_attention.py::_pallas_qkv / _qkv_kernel
 // (the pl.pallas_call at :181) on the to_qkv projection (B, N, 3*heads*D):
 // q, k and v are the channel ranges [0, hD), [hD, 2hD) and [2hD, 3hD) of
-// one tensor. Per batch element b and head h:
+// one tensor. Also kernel B3, _pallas_core_impl / _kernel (the
+// pl.pallas_call at :293), on separate q, k, v of (BH, D, N): the same
+// function with B = BH, heads = 1, tokens at the (BH, D, N) tensors' dim-2
+// stride and channels at their dim-1 stride. The kernels read q, k and v
+// from three base pointers of one layout (one tensor's strides): B1 passes
+// qkv, qkv + hD*sc and qkv + 2hD*sc, B3 its three tensors. Per batch
+// element b and head h:
 //
 //   q' = softmax_D(q[n, :]) * scale        (per token, over the head's D channels)
 //   k' = softmax_N(k[:, d])                (per channel, over the N tokens)
@@ -24,7 +30,7 @@
 //    unnormalised context C[d][e] = sum_n exp(k[n,d] - m[d]) v[n,e] to a
 //    workspace the caller allocates. S splits N so that the grid fills the
 //    card; one block no longer walks all N tokens of its (b, h) alone.
-//    - Loads: the widest vector (2-16 bytes) that the base pointer, the
+//    - Loads: the widest vector (2-16 bytes) that the base pointers, the
 //      strides and N allow, chosen once per call by the caller, copied
 //      with cp.async (4-16 bytes) into a double-buffered staging tile in
 //      the input's layout and dtype, so the next tile's copy overlaps this
@@ -45,8 +51,9 @@
 //    threads read neighbouring tokens), the softmax runs in registers, and
 //    the 32 outputs come from ctx read as float4 broadcasts; no shuffles.
 //    Stores are direct and coalesced when tokens are the output's stride-1
-//    axis (the NCHW view), else through a shared tile, one token's channels
-//    per warp store.
+//    axis (the NCHW view, and B3's (BH, D, N) output whatever its inputs'
+//    layout), else through a shared tile, one token's channels per warp
+//    store.
 //
 // Plain C interface, loaded with ctypes; returns the first CUDA error of
 // the two launches (cudaGetLastError() after each).
@@ -207,8 +214,8 @@ constexpr int partial_min_blocks() { return VEC == 1 ? 2 : 3; }
 
 template <typename T, int VEC, bool TOKENS_FAST>
 __global__ void __launch_bounds__(THREADS, partial_min_blocks<VEC>())
-linear_attention_qkv_partial_kernel(const T* __restrict__ qkv, float* __restrict__ ws, int N, int heads,
-                                    int64_t sb, int64_t sn, int64_t sc) {
+linear_attention_qkv_partial_kernel(const T* __restrict__ k_all, const T* __restrict__ v_all, float* __restrict__ ws,
+                                    int N, int heads, int64_t sb, int64_t sn, int64_t sc) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* stage = reinterpret_cast<T*>(smem);  // [buffer 0, 1][k, v][Stage<T>::ELEMS]
   float* ps = reinterpret_cast<float*>(smem + 4 * Stage<T>::BYTES);  // p = exp(k - max), [d][token]
@@ -222,8 +229,9 @@ linear_attention_qkv_partial_kernel(const T* __restrict__ qkv, float* __restrict
   const int t_begin = blockIdx.y * per, t_end = min(tiles, t_begin + per);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int grp = tid >> 6, dblk = (tid >> 3) & 7, eblk = tid & 7;  // context: tokens [16 grp, 16 grp + 16)
-  const T* kbase = qkv + (int64_t)b * sb + (int64_t)(heads + h) * D * sc;
-  const T* vbase = kbase + (int64_t)heads * D * sc;
+  const int64_t head = (int64_t)b * sb + (int64_t)h * D * sc;  // (b, h)'s first channel
+  const T* kbase = k_all + head;
+  const T* vbase = v_all + head;
   const TileCopy<T, VEC, TOKENS_FAST> load_tile(sn, sc);
 
   float run_max = -CUDART_INF_F;  // of channel lane; the same in every warp
@@ -370,7 +378,7 @@ constexpr int output_min_blocks() { return sizeof(T) == 2 ? 5 : 4; }
 
 template <typename T, int VEC>
 __global__ void __launch_bounds__(OUT_THREADS, output_min_blocks<T>())
-linear_attention_qkv_output_kernel(const T* __restrict__ qkv, const float* __restrict__ ws, T* __restrict__ out,
+linear_attention_qkv_output_kernel(const T* __restrict__ q, const float* __restrict__ ws, T* __restrict__ out,
                                    int N, int heads, int S, int64_t sb, int64_t sn, int64_t sc, int64_t ob,
                                    int64_t on, int64_t oc, float scale) {
   __shared__ __align__(16) float ctx[D * D];
@@ -403,7 +411,7 @@ linear_attention_qkv_output_kernel(const T* __restrict__ qkv, const float* __res
   const int units = (N + OUT_THREADS - 1) / OUT_THREADS;
   const int per = (units + gridDim.y - 1) / gridDim.y * OUT_THREADS;
   const int n_begin = blockIdx.y * per, n_end = min(N, n_begin + per);
-  const T* qbase = qkv + (int64_t)b * sb + (int64_t)h * D * sc;
+  const T* qbase = q + (int64_t)b * sb + (int64_t)h * D * sc;
   T* obase = out + (int64_t)b * ob + (int64_t)h * D * oc;
   for (int n0 = n_begin; n0 < n_end; n0 += OUT_THREADS) {
     const int n = n0 + tid;
@@ -461,7 +469,7 @@ linear_attention_qkv_output_kernel(const T* __restrict__ qkv, const float* __res
 }
 
 struct Args {
-  const void* qkv;
+  const void *q, *k, *v;
   void* out;
   float* ws;
   int B, N, heads;
@@ -487,11 +495,11 @@ cudaError_t run(const Args& a, int* occupancy) {
         &occupancy[1], linear_attention_qkv_output_kernel<T, OUT_VEC>, OUT_THREADS, 0);
   }
   linear_attention_qkv_partial_kernel<T, VEC, TOKENS_FAST><<<dim3(a.B * a.heads, a.S), THREADS, smem, a.stream>>>(
-      (const T*)a.qkv, a.ws, a.N, a.heads, a.sb, a.sn, a.sc);
+      (const T*)a.k, (const T*)a.v, a.ws, a.N, a.heads, a.sb, a.sn, a.sc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   linear_attention_qkv_output_kernel<T, OUT_VEC><<<dim3(a.B * a.heads, a.S2), OUT_THREADS, 0, a.stream>>>(
-      (const T*)a.qkv, a.ws, (T*)a.out, a.N, a.heads, a.S, a.sb, a.sn, a.sc, a.ob, a.on, a.oc, a.scale);
+      (const T*)a.q, a.ws, (T*)a.out, a.N, a.heads, a.S, a.sb, a.sn, a.sc, a.ob, a.on, a.oc, a.scale);
   return cudaGetLastError();
 }
 
@@ -518,19 +526,20 @@ cudaError_t dispatch(int is_bf16, int vec, int tokens_fast, const Args& a, int* 
 
 }  // namespace
 
-// qkv (B, N, 3*heads*D) and out (B, N, heads*D) with their (batch, token,
-// channel) element strides; ws: B*heads*S*(D*D + 2*D) floats of scratch.
-// vec: elements per load along the fast axis (tokens when tokens_fast,
-// else channels), chosen by the caller so that every vector is aligned and
-// lies in one row. S: chunks per (b, h) of the partial pass; S2: blocks per
-// (b, h) of the output pass.
-extern "C" int linear_attention_qkv_launch(const void* qkv, void* out, void* ws, int is_bf16, int vec,
-                                           int tokens_fast, int B, int N, int heads, int dim_head, int64_t sb,
-                                           int64_t sn, int64_t sc, int64_t ob, int64_t on, int64_t oc, int S,
-                                           int S2, float scale, void* stream) {
+// q, k, v: the base pointers of the three (B, N, heads*D) inputs, of one
+// layout with (batch, token, channel) element strides sb, sn, sc; out (B,
+// N, heads*D) with its own strides; ws: B*heads*S*(D*D + 2*D) floats of
+// scratch. vec: elements per load along the fast axis (tokens when
+// tokens_fast, else channels), chosen by the caller so that every vector of
+// all three inputs is aligned and lies in one row. S: chunks per (b, h) of
+// the partial pass; S2: blocks per (b, h) of the output pass.
+extern "C" int linear_attention_qkv_launch(const void* q, const void* k, const void* v, void* out, void* ws,
+                                           int is_bf16, int vec, int tokens_fast, int B, int N, int heads,
+                                           int dim_head, int64_t sb, int64_t sn, int64_t sc, int64_t ob, int64_t on,
+                                           int64_t oc, int S, int S2, float scale, void* stream) {
   if (dim_head != D || B <= 0 || N <= 0 || heads <= 0 || S <= 0 || S2 <= 0 || S > 65535 || S2 > 65535)
     return (int)cudaErrorInvalidValue;
-  const Args a{qkv, out, (float*)ws, B, N, heads, sb, sn, sc, ob, on, oc, S, S2, scale, (cudaStream_t)stream};
+  const Args a{q, k, v, out, (float*)ws, B, N, heads, sb, sn, sc, ob, on, oc, S, S2, scale, (cudaStream_t)stream};
   return (int)dispatch(is_bf16, vec, tokens_fast, a, nullptr);
 }
 

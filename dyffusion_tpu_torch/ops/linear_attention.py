@@ -12,14 +12,14 @@ Per batch element and head:
     q' = softmax over dim_head (per token) * scale;  k' = softmax over tokens;
     v' = v / N;  context = k'^T v' (d x d);  out = q' context
 
-Each runs a hand-written kernel (built on first use by
-:mod:`dyffusion_tpu_torch.ops._build`). B1 (``csrc/linear_attention_qkv.cu``)
-reads q, k and v as the channel thirds of one tensor in two launches: a
-partial pass over S chunks of the tokens per (batch, head), then a pass that
-merges the chunks and writes the output, S' blocks per (batch, head)
-(:func:`split_counts`). B3 (``csrc/linear_attention.cu``) runs one block per
-(batch*head) on three tensors of one layout. On a CUDA tensor each wrapper
-launches its kernel or raises; it never falls back. On a CPU tensor it runs
+Both run the hand-written kernels of ``csrc/linear_attention_qkv.cu``
+(built on first use by :mod:`dyffusion_tpu_torch.ops._build`) in two
+launches: a partial pass over S chunks of the tokens per (batch, head), then
+a pass that merges the chunks and writes the output, S' blocks per (batch,
+head) (:func:`split_counts`). The kernels read q, k and v from three base
+pointers of one layout: B1 passes the channel thirds of its one tensor, B3
+its three tensors as heads = 1 and batch = BH. On a CUDA tensor each wrapper
+launches the kernels or raises; it never falls back. On a CPU tensor it runs
 its plain version, the same arithmetic in plain PyTorch, which is also what
 the kernel is checked against. Each backward replays the plain composition,
 as the JAX package's ``_pallas_qkv_bwd`` and ``_pallas_core_bwd`` replay
@@ -35,7 +35,7 @@ import torch
 
 SOURCE = "dyffusion_tpu_torch/csrc/linear_attention_qkv.cu"  # B1
 REPLACES = "dyffusion_tpu/ops/pallas_attention.py:181"  # the pl.pallas_call of _pallas_qkv
-CORE_SOURCE = "dyffusion_tpu_torch/csrc/linear_attention.cu"  # B3
+CORE_SOURCE = SOURCE  # B3 runs B1's kernels
 CORE_REPLACES = "dyffusion_tpu/ops/pallas_attention.py:293"  # the pl.pallas_call of _pallas_core_impl
 KERNEL_DIM_HEAD = 32  # the kernels hold one head's D x D context
 
@@ -63,7 +63,6 @@ MAX_STEPS_PER_BLOCK = 8
 launches = 0
 core_launches = 0
 
-_fn = None
 _qkv_fn = None
 
 
@@ -144,15 +143,18 @@ def split_counts(bh: int, n: int) -> tuple:
             split(-(-n // OUT_TOKENS), OUTPUT_BLOCKS_PER_SM, MAX_STEPS_PER_BLOCK))
 
 
-def load_width(qkv: torch.Tensor) -> tuple:
-    """(vec, tokens_fast) of B1's loads from ``qkv`` (B, N, 3*heads*d):
-    tokens_fast when tokens are its stride-1 axis (the NCHW view), and vec,
-    the most elements (up to 16 bytes) per load along the stride-1 axis that
-    the base pointer's alignment, the other strides and, when tokens are
-    fast, N allow. Neither axis at stride 1: one element per load."""
+def load_width(qkv: torch.Tensor, *more: torch.Tensor) -> tuple:
+    """(vec, tokens_fast) of the kernels' loads from ``qkv`` (B, N, C) and
+    from ``more``, tensors of its layout read by the same loads (B3's k and
+    v beside the (BH, N, d) view of q): tokens_fast when tokens are the
+    stride-1 axis (the NCHW view), and vec, the most elements (up to 16
+    bytes) per load along the stride-1 axis that every base pointer's
+    alignment, the other strides and, when tokens are fast, N allow. Neither
+    axis at stride 1: one element per load."""
     B, N, _ = qkv.shape
     sb, sn, sc = qkv.stride()
     isz = qkv.element_size()
+    ptrs = [t.data_ptr() for t in (qkv, *more)]
     tokens_fast = sn == 1 and sc != 1
     if not tokens_fast and sc != 1:
         return 1, sn <= sc
@@ -160,7 +162,8 @@ def load_width(qkv: torch.Tensor) -> tuple:
     others = ([sc] if tokens_fast else [sn] if N > 1 else []) + ([sb] if B > 1 else [])
     vec = 16 // isz
     while vec > 1 and not (
-        qkv.data_ptr() % (vec * isz) == 0 and all(s % vec == 0 for s in others) and (not tokens_fast or N % vec == 0)
+        all(p % (vec * isz) == 0 for p in ptrs) and all(s % vec == 0 for s in others)
+        and (not tokens_fast or N % vec == 0)
     ):
         vec //= 2
     return vec, tokens_fast
@@ -184,28 +187,10 @@ def _library_fn(name: str, symbol: str, argtypes):
     return fn
 
 
-def _launch(q, k, v, out, B: int, N: int, heads: int, dim_head: int, strides, scale: float) -> None:
-    """Launch B3's kernel. ``strides`` holds the (batch, token, channel)
-    element strides of the inputs (one layout for q, k and v), then of out."""
-    global _fn
-    _check_kernel_args(q.dtype, dim_head, strides)
-    if _fn is None:
-        _fn = _library_fn("linear_attention", "linear_attention_launch", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                          + [ctypes.c_int64] * 6 + [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16),
-            B, N, heads, dim_head, *strides, float(scale), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"linear attention kernel launch failed: cudaError {err}")
-
-
 def _qkv_library():
     global _qkv_fn
     if _qkv_fn is None:
-        _qkv_fn = _library_fn("linear_attention_qkv", "linear_attention_qkv_launch", [ctypes.c_void_p] * 3
+        _qkv_fn = _library_fn("linear_attention_qkv", "linear_attention_qkv_launch", [ctypes.c_void_p] * 5
                               + [ctypes.c_int] * 7 + [ctypes.c_int64] * 6 + [ctypes.c_int] * 2
                               + [ctypes.c_float, ctypes.c_void_p])
     return _qkv_fn
@@ -223,11 +208,30 @@ def qkv_occupancy(dtype: torch.dtype, vec: int, tokens_fast: bool) -> tuple:
     return blocks[0], blocks[1]
 
 
+def _run(x: torch.Tensor, ptrs, width, out: torch.Tensor, heads: int, dim_head: int, scale: float) -> None:
+    """Launch the two kernels on ``x`` (B, N, C), a view in the inputs'
+    layout: q, k and v from the base pointers ``ptrs``, with the load width
+    ``width`` (:func:`load_width`); ``out`` a (B, N, heads*dim_head) view."""
+    B, N, _ = x.shape
+    _check_kernel_args(x.dtype, dim_head, x.stride())
+    S, S2 = split_counts(B * heads, N)
+    vec, tokens_fast = width
+    ws = torch.empty(B * heads * S * PARTIAL_FLOATS, dtype=torch.float32, device=x.device)
+    args = (*ptrs, out.data_ptr(), ws.data_ptr(), int(x.dtype == torch.bfloat16), vec, int(tokens_fast),
+            B, N, heads, dim_head, *x.stride(), *out.stride(), S, S2, float(scale))
+    # the kernels launch on the current device: switch to x's only when it
+    # is another (a per-call cost on the host, which bounds small calls)
+    current = x.device.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if current else torch.cuda.device(x.device):
+        err = _qkv_library()(*args, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"linear attention kernel launch failed: cudaError {err}")
+
+
 def _launch_qkv(qkv: torch.Tensor, heads: int, dim_head: int, scale: float) -> torch.Tensor:
     global launches
     B, N, _ = qkv.shape
     hd = heads * dim_head
-    _check_kernel_args(qkv.dtype, dim_head, qkv.stride())
     # the output keeps the input's axis order: tokens fastest for the NCHW
     # view of a 1x1-conv output (so it is itself an NCHW tensor), channels
     # fastest otherwise
@@ -235,31 +239,22 @@ def _launch_qkv(qkv: torch.Tensor, heads: int, dim_head: int, scale: float) -> t
         out = torch.empty((B, hd, N), dtype=qkv.dtype, device=qkv.device).transpose(1, 2)
     else:
         out = torch.empty((B, N, hd), dtype=qkv.dtype, device=qkv.device)
-    S, S2 = split_counts(B * heads, N)
-    vec, tokens_fast = load_width(qkv)
-    ws = torch.empty(B * heads * S * PARTIAL_FLOATS, dtype=torch.float32, device=qkv.device)
-    args = (qkv.data_ptr(), out.data_ptr(), ws.data_ptr(), int(qkv.dtype == torch.bfloat16), vec, int(tokens_fast),
-            B, N, heads, dim_head, *qkv.stride(), *out.stride(), S, S2, float(scale))
-    # the kernels launch on the current device: switch to qkv's only when it
-    # is another (a per-call cost on the host, which bounds small calls)
-    current = qkv.device.index == torch.cuda.current_device()
-    with contextlib.nullcontext() if current else torch.cuda.device(qkv.device):
-        err = _qkv_library()(*args, torch.cuda.current_stream(qkv.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"linear attention kernel launch failed: cudaError {err}")
+    q = qkv.data_ptr()
+    third = hd * qkv.stride(2) * qkv.element_size()  # bytes from q's channels to k's, and k's to v's
+    _run(qkv, (q, q + third, q + 2 * third), load_width(qkv), out, heads, dim_head, scale)
     launches += 1
     return out
 
 
 def _launch_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """B3 as B1 with heads = 1: the (BH, N, d) views of q, k, v. The output
+    is a contiguous (BH, d, N) tensor whatever the inputs' layout (tokens at
+    stride 1: the output pass's direct stores)."""
     global core_launches
     BH, d, N = q.shape
     out = torch.empty((BH, d, N), dtype=q.dtype, device=q.device)
-
-    def bnc(t):  # (batch, token, channel) strides of a (BH, d, N) tensor
-        return t.stride(0), t.stride(2), t.stride(1)
-
-    _launch(q, k, v, out, BH, N, 1, d, bnc(q) + bnc(out), scale)
+    x = q.transpose(1, 2)
+    _run(x, (q.data_ptr(), k.data_ptr(), v.data_ptr()), load_width(x, k, v), out.transpose(1, 2), 1, d, scale)
     core_launches += 1
     return out
 
@@ -325,12 +320,15 @@ def linear_attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sca
     """q, k, v (BH, d, N) -> out (BH, d, N), the linear-attention core per
     (batch*head).
 
-    CUDA tensors: the B3 kernel (any non-negative strides; float32 or
-    bfloat16; d = 32), or an error. CPU tensors: the plain version.
-    Differentiable either way."""
+    CUDA tensors: the B3 kernels (q, k, v of one layout, any non-negative
+    strides; float32 or bfloat16; d = 32), or an error. CPU tensors: the
+    plain version. Differentiable either way; without a gradient to record
+    the kernels are called without the autograd Function."""
     _check_core(q, k, v)
     if q.device.type == "cuda":
-        return _LinearAttentionCore.apply(q, k, v, scale)
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            return _LinearAttentionCore.apply(q, k, v, scale)
+        return _launch_core(q, k, v, scale)
     if q.device.type == "cpu":
         return linear_attention_core_plain(q, k, v, scale)
     raise ValueError(f"linear_attention_core takes CPU or CUDA tensors, got device {q.device}")

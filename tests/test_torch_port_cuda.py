@@ -174,6 +174,58 @@ def test_core_kernel_matches_plain(dtype, strided):
                     _assert_close_to_scale(wrong, want, REL_TOL[dt])
 
 
+def _core_wide_k(BH, N, strided, dtype, seed, off=(0, 0, 0)):
+    """q, k, v (BH, d, N) on the GPU: q, v standard normal, k uniform in
+    [-50, 50]; contiguous or views of (BH, N, d) tensors; each ``off``
+    elements into its own buffer."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for i, o in enumerate(off):
+        x = torch.randn((BH, DIM_HEAD, N), generator=g, device="cuda")
+        if i == 1:
+            x = torch.rand((BH, DIM_HEAD, N), generator=g, device="cuda") * 100 - 50
+        buf = torch.empty(BH * DIM_HEAD * N + o, dtype=dtype, device="cuda")[o:]
+        t = buf.view(BH, N, DIM_HEAD).transpose(1, 2) if strided else buf.view(BH, DIM_HEAD, N)
+        out.append(t.copy_(x))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("BH", [1, 960])
+@pytest.mark.parametrize("N", [1, 7, 225, 900, 3600, 3601])
+def test_core_kernel_matches_plain_across_splits(N, BH, strided, dtype):
+    """B3 through B1's two kernels as heads = 1: the splits S, S' that
+    ``split_counts(BH, N)`` picks, every load width of both layouts (the
+    output contiguous either way), and k of magnitude up to 50."""
+    _require_cuda()
+    dt = getattr(torch, dtype)
+    q, k, v = _core_wide_k(BH, N, strided, dt, seed=BH * 10007 + N)
+    before = la.core_launches
+    got = la.linear_attention_core(q, k, v, SCALE)
+    torch.cuda.synchronize()
+    assert la.core_launches == before + 1
+    assert got.dtype == dt and tuple(got.shape) == (BH, DIM_HEAD, N) and got.is_contiguous()
+    _assert_close_with_controls(got, la.linear_attention_core_plain(q, k, v, SCALE), REL_TOL[dt])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("strided", [False, True])
+def test_core_kernel_matches_plain_from_a_misaligned_base(strided, dtype):
+    """One of q, k, v one element into a larger buffer: one element per
+    load for all three."""
+    _require_cuda()
+    dt = getattr(torch, dtype)
+    for off in ((1, 0, 0), (0, 0, 1)):
+        q, k, v = _core_wide_k(64, 3600, strided, dt, seed=sum(off), off=off)
+        assert la.load_width(q.transpose(1, 2), k, v) == (1, not strided)
+        got = la.linear_attention_core(q, k, v, SCALE)
+        torch.cuda.synchronize()
+        _assert_close_with_controls(got, la.linear_attention_core_plain(q, k, v, SCALE), REL_TOL[dt])
+
+
 @pytest.mark.cuda
 def test_core_kernel_rejects_mixed_layouts():
     _require_cuda()

@@ -229,6 +229,67 @@ def test_load_width(dtype):
     assert la.load_width(torch.zeros(2, 10, 768, dtype=dt)[:, :, ::2]) == (1, False)
 
 
+def _core_view_and_kv(BH, N, dtype, strided, off=(0, 0, 0)):
+    """B3's inputs as its wrapper hands them to ``load_width``: the (BH, N,
+    d) view of q, then k and v, each (BH, d, N) of one layout (contiguous,
+    or views of (BH, N, d) tensors), each ``off`` elements into its own
+    buffer."""
+    def one(o):
+        buf = torch.zeros(BH * DIM_HEAD * N + o, dtype=dtype)[o:]
+        return buf.view(BH, N, DIM_HEAD).transpose(1, 2) if strided else buf.view(BH, DIM_HEAD, N)
+
+    q, k, v = (one(o) for o in off)
+    return q.transpose(1, 2), k, v
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("BH,N", [(480, 3600), (960, 900), (960, 225)])
+def test_core_load_width_over_three_pointers(BH, N, dtype):
+    """B3's loads at its path shapes: as B1's at the same N in the NCHW view
+    (tokens fast: 16 bytes at N = 3600, 8 in bf16 at 900, one element at
+    225) and 16 bytes in both dtypes with channels fast; any one of q, k, v
+    one element off its alignment gives one element per load."""
+    dt = getattr(torch, dtype)
+    wide = 16 // torch.empty((), dtype=dt).element_size()
+    nchw = {3600: wide, 900: 4, 225: 1}[N]
+    assert la.load_width(*_core_view_and_kv(BH, N, dt, False)) == (nchw, True)
+    assert la.load_width(*_core_view_and_kv(BH, N, dt, True)) == (wide, False)
+    for off in ((1, 0, 0), (0, 1, 0), (0, 0, 1)):
+        assert la.load_width(*_core_view_and_kv(BH, N, dt, False, off)) == (1, True)
+        assert la.load_width(*_core_view_and_kv(BH, N, dt, True, off)) == (1, False)
+    # the q view alone does not see k's or v's alignment
+    x, _, v = _core_view_and_kv(BH, N, dt, True, (0, 0, 1))
+    assert la.load_width(x) == (wide, False) and la.load_width(x, v) == (1, False)
+
+
+def test_core_hands_the_kernels_b1s_geometry(monkeypatch):
+    """What each wrapper hands the kernels, read where it would launch them:
+    B3 at (BH, d, N) gives the splits, load width and output layout that B1
+    gives at batch BH / 4 with 4 heads in the NCHW view, and three base
+    pointers where B1 gives its tensor's channel thirds."""
+    calls = []
+
+    def record(x, ptrs, width, out, heads, dim_head, scale):
+        B, N, _ = x.shape
+        calls.append({"splits": la.split_counts(B * heads, N), "width": width, "ptrs": ptrs,
+                      "out": (out.shape, out.stride()), "x": x})
+
+    monkeypatch.setattr(la, "_run", record)
+    for B, N in ((120, 3600), (240, 900), (240, 225), (1, 7)):
+        qkv = torch.zeros(B, 3 * HEADS * DIM_HEAD, N, dtype=torch.bfloat16).transpose(1, 2)  # NCHW view
+        q, k, v = (torch.zeros(HEADS * B, DIM_HEAD, N, dtype=torch.bfloat16) for _ in range(3))
+        la._launch_qkv(qkv, HEADS, DIM_HEAD, SCALE)
+        out = la._launch_core(q, k, v, SCALE)
+        b1, b3 = calls[-2:]
+        assert b3["splits"] == b1["splits"] and b3["width"] == b1["width"]
+        third = HEADS * DIM_HEAD * N * 2  # bytes
+        assert b1["ptrs"] == (qkv.data_ptr(), qkv.data_ptr() + third, qkv.data_ptr() + 2 * third)
+        assert b3["ptrs"] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+        assert b3["x"].shape == (HEADS * B, N, DIM_HEAD) and b3["x"].stride() == (DIM_HEAD * N, 1, N)
+        # the output pass writes tokens at stride 1 into B3's contiguous (BH, d, N) output
+        assert out.is_contiguous() and b3["out"] == ((HEADS * B, N, DIM_HEAD), (DIM_HEAD * N, 1, N))
+
+
 # ---------------------------------------------------------------------------
 # B3: the linear-attention core on (BH, d, N)
 # ---------------------------------------------------------------------------
