@@ -23,7 +23,9 @@ non-zero:
    GB/s and the share of the byte bound, at the serving and the
    batch-64 train shapes, with B1's forward time per request and per step,
    and B1's and B3's splits S, S' (``split_counts``), load width and
-   resident blocks per SM at each timed shape.
+   resident blocks per SM at each timed shape; B2's load width at its path
+   shapes (16 bytes, or the run fails), and its times in NCHW and
+   channels-last over copies of the input that exceed L2 twice over.
 4. op path: B2 and B3 through their public ops (``fused_leaky_relu``,
    ``linear_attention_core``, forward and backward) at their path shapes,
    with the launch counts read around it; no model of the JAX package calls
@@ -388,47 +390,86 @@ def phase_kernel_core():
     return {"max_abs_err": max_err, **total, "bound_by": "bytes"}
 
 
+ACT_PATH = ((120, 64, 60, 60), (120, 128, 30, 30), (120, 256, 15, 15))  # B2's path shapes
+# the H100's L2 cache (50 MB): B2's timed inputs rotate over more than twice
+# as many bytes, so that no call finds its input in L2
+L2_BYTES = 50e6
+
+
+def time_act(fa, gen, iters=200):
+    """Time B2 (``fa``: a checkout's ``ops.fused_act`` module) and its plain
+    version at the path shapes, bf16, NCHW and channels-last, each call on
+    the next of enough copies of the input to exceed L2 twice over; 200
+    calls a window (one call is ~0.01-0.05 ms). Prints a line per shape and
+    layout; returns the means over the NCHW shapes."""
+    import itertools
+    import math
+
+    import torch
+
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for shape in ACT_PATH:
+        bias = torch.randn((shape[1],), generator=gen, device="cuda")
+        x0 = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        n_bytes = 2 * x0.numel() * x0.element_size()  # read x, write out
+        copies = max(2, math.ceil(2 * L2_BYTES / (n_bytes / 2)))
+        for layout, fmt in (("nchw", torch.contiguous_format), ("channels-last", torch.channels_last)):
+            xs = itertools.cycle([x0.clone(memory_format=fmt) for _ in range(copies)])
+            ms_k, ms_p = _time_pair(lambda: fa.fused_leaky_relu(next(xs), bias),
+                                    lambda: fa.fused_leaky_relu_plain(next(xs), bias), iters=iters)
+            bound_ms, bound_by = _bound(n_bytes, 4 * x0.numel())
+            print(f"[kernel-time] B2 {shape} bf16 {layout}: kernel {ms_k:.4f} ms ({n_bytes / ms_k / 1e6:.0f} GB/s), "
+                  f"plain {ms_p:.4f} ms, plain/kernel {ms_p / ms_k:.2f}x, bound {bound_ms:.4f} ms ({bound_by}), "
+                  f"share of bound {bound_ms / ms_k:.3f}; {copies} inputs in rotation")
+            if layout == "nchw":
+                for key, val in (("ms", ms_k), ("plain_ms", ms_p), ("bound_ms", bound_ms)):
+                    total[key] += val / len(ACT_PATH)
+    return total
+
+
 def phase_kernel_act():
     """B2, fused bias + LeakyReLU * sqrt(2) over dim 1, against its plain
-    version at the forecaster's activation shapes and an odd shape, NCHW and
-    channels-last. Returns the summary."""
+    version at the forecaster's activation shapes, an odd shape (numel not
+    a multiple of the load width), a 1x1 one (channel stride 1 in NCHW too)
+    and from a base one element off, NCHW and channels-last, with a bias and
+    without; checks 16-byte loads at the path shapes; then its times.
+    Returns the summary."""
     import torch
 
     from dyffusion_tpu_torch.ops import fused_act as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    path = ((120, 64, 60, 60), (120, 128, 30, 30), (120, 256, 15, 15))
     max_err = 0.0
-    for shape in path + ((3, 5, 7, 3),):
+    for shape in ACT_PATH + ((3, 5, 7, 3), (2, 3, 1, 1)):
         bias = torch.randn((shape[1],), generator=gen, device="cuda")
         for dtype in (torch.bfloat16, torch.float32):
             for strided in (False, True):
-                x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-                if strided:
-                    x = x.contiguous(memory_format=torch.channels_last)
-                got = fa.fused_leaky_relu(x, bias)
-                _sync()
-                want = fa.fused_leaky_relu_plain(x, bias)
-                dt = str(dtype)[6:]
-                label = f"B2 {shape} {dt} {'channels-last' if strided else 'contiguous'}"
-                e = _check_vs_plain(label, got, want, REL_TOL[dt], negative_controls=shape == path[0] and not strided)
-                max_err = max(max_err, e)
-    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
-    for shape in path:
-        x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
-        bias = torch.randn((shape[1],), generator=gen, device="cuda")
-        # 200 calls a window: one call is ~0.05 ms, and windows of 20 calls
-        # read 0.043 and 0.069 ms in two runs on the same kind of card
-        ms_k, ms_p = _time_pair(lambda: fa.fused_leaky_relu(x, bias), lambda: fa.fused_leaky_relu_plain(x, bias),
-                                iters=200)
-        n_bytes = 2 * x.numel() * 2  # read x, write out, bf16
-        bound_ms, bound_by = _bound(n_bytes, 4 * x.numel())
-        print(f"[kernel-time] B2 {shape} bf16: kernel {ms_k:.4f} ms ({n_bytes / ms_k / 1e6:.0f} GB/s), "
-              f"plain {ms_p:.4f} ms, plain/kernel {ms_p / ms_k:.2f}x, bound {bound_ms:.4f} ms ({bound_by}), "
-              f"share of bound {bound_ms / ms_k:.3f}")
-        for key, val in (("ms", ms_k), ("plain_ms", ms_p), ("bound_ms", bound_ms)):
-            total[key] += val / len(path)
-    return {"max_abs_err": max_err, **total, "bound_by": "bytes"}
+                fmt = torch.channels_last if strided else torch.contiguous_format
+                x = torch.randn(shape, generator=gen, device="cuda").to(dtype).contiguous(memory_format=fmt)
+                dt, layout = str(dtype)[6:], "channels-last" if strided else "nchw"
+                width = fa.load_width(x, torch.empty_like(x)) * x.element_size()
+                if shape in ACT_PATH:
+                    print(f"[kernel-split] B2 {shape} {dt} {layout}: {width}-byte loads")
+                    if width != 16:
+                        raise AssertionError(f"B2 at {shape} {dt} {layout} loads {width} bytes, not 16")
+                for label, xin, b in (("", x, bias), (" no bias", x, None)) + (
+                        ((" base one element off", _off_by_one(x), bias),) if shape == ACT_PATH[0] else ()):
+                    got = fa.fused_leaky_relu(xin, b)
+                    _sync()
+                    want = fa.fused_leaky_relu_plain(xin, b)
+                    e = _check_vs_plain(f"B2 {shape} {dt} {layout}{label}", got, want, REL_TOL[dt],
+                                        negative_controls=shape == ACT_PATH[0] and not strided and not label)
+                    max_err = max(max_err, e)
+    return {"max_abs_err": max_err, **time_act(fa, gen), "bound_by": "bytes"}
+
+
+def _off_by_one(x):
+    """A copy of ``x`` with its strides whose base pointer is one element
+    past an allocation's start."""
+    import torch
+
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    return buf.as_strided(x.shape, x.stride()).copy_(x)
 
 
 def phase_op_path():
@@ -442,7 +483,7 @@ def phase_op_path():
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     fa.reset_launches()
     la.reset_launches()
-    for shape in ((120, 64, 60, 60), (120, 128, 30, 30), (120, 256, 15, 15)):
+    for shape in ACT_PATH:
         x = torch.randn(shape, generator=gen, device="cuda").bfloat16().requires_grad_(True)
         bias = torch.zeros(shape[1], device="cuda", requires_grad=True)
         out = fa.fused_leaky_relu(x, bias)

@@ -16,6 +16,7 @@ composition too).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 from typing import Optional
@@ -70,6 +71,30 @@ def _check(x: torch.Tensor, bias: Optional[torch.Tensor]) -> None:
         raise ValueError(f"bias lies on {bias.device}, x on {x.device}")
 
 
+def load_width(x: torch.Tensor, out: torch.Tensor) -> int:
+    """Elements per load and store of the kernel: the most, up to 16 bytes,
+    that both base pointers' alignment allows. Shape and layout do not
+    narrow it: a vector may span channels, and the kernel takes the last
+    numel % width elements one by one."""
+    isz = x.element_size()
+    vec = 16 // isz
+    while vec > 1 and (x.data_ptr() % (vec * isz) or out.data_ptr() % (vec * isz)):
+        vec //= 2
+    return vec
+
+
+def divisor(d: int) -> tuple:
+    """(m, s) of the kernel's multiply-shift divide: for 0 <= n < 2**63,
+    n // d == (((n * m) >> 64) + n) >> s, with s = ceil(log2 d) and m =
+    ceil(2**(64 + s) / d) - 2**64 < 2**64."""
+    s = (d - 1).bit_length()
+    return -(-(1 << (64 + s)) // d) - (1 << 64), s
+
+
+# how the kernel finds each element's bias (csrc/fused_act.cu, Mode)
+NO_BIAS, RUNS, CHANNELS_LAST = 0, 1, 2
+
+
 def _launch(x: torch.Tensor, bias: Optional[torch.Tensor], negative_slope: float, scale: float) -> torch.Tensor:
     global launches, _fn
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -80,35 +105,32 @@ def _launch(x: torch.Tensor, bias: Optional[torch.Tensor], negative_slope: float
     numel = x.numel()
     if numel == 0:
         return out
-    C, cstride, b = 1, 1, None
-    if bias is not None and x.shape[1] > 1:
-        C, cstride = x.shape[1], x.stride(1)
+    vec = load_width(x, out)
+    C, cstride, b, mode = 1, 1, None, NO_BIAS
     if bias is not None:
+        if x.shape[1] > 1:
+            C, cstride = x.shape[1], x.stride(1)
         b = bias.detach().float().contiguous()  # C floats; a no-op for a contiguous f32 bias
-    # the widest load (up to 16 bytes) that the count, the channel stride and
-    # both pointers allow, so that each vector lies in one channel
-    isz = x.element_size()
-    vec = 16 // isz
-    while vec > 1 and not (
-        numel % vec == 0 and (b is None or cstride % vec == 0)
-        and x.data_ptr() % (vec * isz) == 0 and out.data_ptr() % (vec * isz) == 0
-    ):
-        vec //= 2
+        if b.data_ptr() % 16:
+            b = b.clone()  # float4 reads of the bias need 16-byte alignment
+        mode = CHANNELS_LAST if cstride == 1 and C % vec == 0 else RUNS
     if _fn is None:
         from dyffusion_tpu_torch.ops._build import load_library
 
         fn = load_library("fused_act").fused_leaky_relu_launch
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int64, ctypes.c_int64] + [ctypes.c_int] * 2 + [
-            ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_int64] * 2 + [ctypes.c_int] + [
+            ctypes.c_uint64, ctypes.c_int, ctypes.c_uint64, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+            ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
         _fn = fn
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _fn(
-            x.data_ptr(), None if b is None else b.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
-            numel, cstride, C, vec, float(negative_slope), float(scale), stream,
-        )
+    args = (x.data_ptr(), None if b is None else b.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16), vec,
+            mode, numel, cstride, C, *divisor(cstride), *divisor(C), float(negative_slope), float(scale))
+    # the kernel launches on the current device: switch to x's only when it
+    # is another
+    current = x.device.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if current else torch.cuda.device(x.device):
+        err = _fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_leaky_relu kernel launch failed: cudaError {err}")
     launches += 1
@@ -145,10 +167,13 @@ def fused_leaky_relu(
 
     CUDA tensor: the B2 kernel (float32 or bfloat16, any dense layout; the
     output keeps x's strides), or an error. CPU tensor: the plain version.
-    Differentiable either way."""
+    Differentiable either way; without a gradient to record the kernel is
+    called without the autograd Function."""
     _check(x, bias)
     if x.device.type == "cuda":
-        return _FusedLeakyReLU.apply(x, bias, negative_slope, scale)
+        if torch.is_grad_enabled() and (x.requires_grad or bias is not None and bias.requires_grad):
+            return _FusedLeakyReLU.apply(x, bias, negative_slope, scale)
+        return _launch(x, bias, negative_slope, scale)
     if x.device.type == "cpu":
         return fused_leaky_relu_plain(x, bias, negative_slope, scale)
     raise ValueError(f"fused_leaky_relu takes CPU or CUDA tensors, got device {x.device}")

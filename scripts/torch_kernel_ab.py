@@ -6,10 +6,12 @@
 Runs the device, build, B1 and B3 phases of ``chip_smoke.py`` in two
 checkouts (PARENT_TREE, e.g. the parent commit unpacked with ``git archive``
 into a directory that ``.gitignore`` lists, and CHANGE_TREE, by default this
-checkout), one process each, in the order parent, change, change, parent.
+checkout), one process each, in the order parent, change, change, parent,
+then times the checkout's B2 (``ops.fused_act``) with CHANGE_TREE's
+``chip_smoke.time_act`` (inputs rotated past L2, NCHW and channels-last).
 Every process times with CHANGE_TREE's ``chip_smoke._time_ms``, so both trees
-are timed the same way. Prints each B1 and B3 time per shape, B1 per request
-and per train step, for the four runs and the change's mean over the
+are timed the same way. Prints each B1, B3 and B2 time per shape, B1 per
+request and per train step, for the four runs and the change's mean over the
 parent's. ``--log-dir`` keeps each run's whole output there.
 """
 from __future__ import annotations
@@ -29,6 +31,9 @@ spec.loader.exec_module(timer)
 import chip_smoke as c
 c._time_ms = timer._time_ms
 c.phase_device(); c.phase_build(); c.phase_kernel(); c.phase_kernel_core()
+import torch
+from dyffusion_tpu_torch.ops import fused_act
+timer.time_act(fused_act, torch.Generator(device="cuda").manual_seed(c.SEED + 2))
 """
 # what a [kernel-time] line times, and its kernel ms
 LINE = re.compile(r"^\[kernel-time\] (.*?):? kernel ([0-9.]+) ms")

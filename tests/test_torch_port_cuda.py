@@ -278,6 +278,34 @@ def test_fused_leaky_relu_kernel_matches_plain(dtype, channels_last):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", [(3, 5, 7, 3), (120, 256, 15, 15), (2, 3, 1, 1)], ids=str)
+def test_fused_leaky_relu_kernel_any_width(shape, offset, channels_last, dtype):
+    """B2 with vectors that span channels (channel stride 225, 21, 1),
+    numel not a multiple of the width (315, 6: the scalar tail), channels-
+    last with C % width != 0, and from a base one element off (one element
+    per load)."""
+    _require_cuda()
+    dt = getattr(torch, dtype)
+    x = _act_input(shape, dt, channels_last, sum(shape) + offset)
+    if offset:
+        buf = torch.empty(x.numel() + offset, dtype=dt, device="cuda")[offset:]
+        x = buf.as_strided(x.shape, x.stride()).copy_(x)
+    wide = 16 // x.element_size()
+    assert fa.load_width(x, torch.empty_like(x)) == (1 if offset else wide)
+    bias = torch.randn(shape[1], device="cuda")
+    for b in (bias, None):
+        before = fa.launches
+        got = fa.fused_leaky_relu(x, b)
+        torch.cuda.synchronize()
+        assert fa.launches == before + 1
+        assert got.dtype == dt and got.shape == x.shape and got.stride() == x.stride()
+        _assert_close_with_controls(got, fa.fused_leaky_relu_plain(x, b), 1e-6 if dt == torch.float32 else 1e-2)
+
+
+@pytest.mark.cuda
 def test_fused_leaky_relu_kernel_gradient():
     _require_cuda()
     x = _act_input((2, 16, 9, 9), torch.float32, False, 3).requires_grad_(True)

@@ -378,6 +378,101 @@ def test_fused_leaky_relu_bf16_computes_in_f32():
     assert torch.equal(got, fa.fused_leaky_relu_plain(x.float(), b).bfloat16())
 
 
+B2_PATH = [(120, 64, 60, 60), (120, 128, 30, 30), (120, 256, 15, 15)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("shape", B2_PATH + [(3, 5, 7, 3)], ids=str)
+def test_fused_leaky_relu_load_width(shape, channels_last, dtype):
+    """B2 loads 16 bytes at its path shapes (and an odd one) in both
+    layouts: shape, layout and numel no longer narrow the width, only a base
+    pointer off alignment does."""
+    dt = getattr(torch, dtype)
+    isz = torch.empty((), dtype=dt).element_size()
+    numel = int(np.prod(shape))
+    mf = torch.channels_last if channels_last else torch.contiguous_format
+    x = torch.empty(shape, dtype=dt, memory_format=mf)
+    out = torch.empty_strided(x.shape, x.stride(), dtype=dt)
+    assert fa.load_width(x, out) * isz == 16
+    off = torch.empty(numel + 1, dtype=dt)[1:].as_strided(x.shape, x.stride())  # one element off
+    assert fa.load_width(off, out) * isz == isz and fa.load_width(x, off) * isz == isz
+
+
+def _divide(n, m, s):
+    """The kernel's multiply-shift divide, in exact integer arithmetic."""
+    return (((n * m) >> 64) + n) >> s
+
+
+@pytest.mark.parametrize("shape", B2_PATH + [(3, 5, 7, 3), (2, 3, 1, 1)], ids=str)
+@pytest.mark.parametrize("channels_last", [False, True])
+def test_fused_leaky_relu_channel_divides(shape, channels_last):
+    """The wrapper's divisor constants give (j // cstride) % C at every
+    index of the first two batch rows of each shape, and near 2**31 and
+    2**62; a constant one off does not."""
+    mf = torch.channels_last if channels_last else torch.contiguous_format
+    x = torch.empty(shape, memory_format=mf)
+    C, cstride = shape[1], x.stride(1)
+    (mc, sc), (mC, sC) = fa.divisor(cstride), fa.divisor(C)
+    js = list(range(min(2 * int(np.prod(shape[1:])), x.numel())))
+    js += list(range(2**31 - 4096, 2**31 + 4096)) + list(range(2**62 - 4096, 2**62 + 4096))
+    for j in js:
+        run = _divide(j, mc, sc)
+        assert run == j // cstride and run - _divide(run, mC, sC) * C == (j // cstride) % C
+    if cstride > 1:  # negative control
+        assert any(_divide(j, mc - 1, sc) != j // cstride for j in js)
+
+
+def _vector_channels(j, vec, cstride, C):
+    """The channels of elements j .. j + vec - 1 (j a multiple of vec) as
+    the kernel's ``bias_of`` finds them (``csrc/fused_act.cu``)."""
+    (mc, sc), (mC, sC) = fa.divisor(cstride), fa.divisor(C)
+    if cstride == 1 and C % vec == 0:  # CHANNELS_LAST: consecutive channels
+        c = j - _divide(j, mC, sC) * C
+        return [c + t for t in range(vec)]
+    run = _divide(j, mc, sc)
+    r, c = j - run * cstride, run - _divide(run, mC, sC) * C
+    if cstride >= vec:  # one split point
+        nxt = 0 if c + 1 == C else c + 1
+        return [c if t < cstride - r else nxt for t in range(vec)]
+    out = []  # the walk
+    for _ in range(vec):
+        out.append(c)
+        r += 1
+        if r == cstride:
+            r, c = 0, 0 if c + 1 == C else c + 1
+    return out
+
+
+@pytest.mark.parametrize("vec", [8, 4, 2])
+@pytest.mark.parametrize("shape", B2_PATH + [(3, 5, 7, 3), (2, 3, 1, 1), (2, 12, 1, 3)], ids=str)
+@pytest.mark.parametrize("channels_last", [False, True])
+def test_fused_leaky_relu_vector_channels(channels_last, shape, vec):
+    """The kernel's per-vector rule (one divide pair per vector, then a
+    split point, a walk or consecutive channels) gives (j // cstride) % C
+    for every element of the first batch row, with vectors that span
+    channels; the rule without its split point does not."""
+    mf = torch.channels_last if channels_last else torch.contiguous_format
+    x = torch.empty(shape, memory_format=mf)
+    C, cstride = shape[1], x.stride(1)
+    n = -(-int(np.prod(shape[1:])) // vec) * vec
+    got = [c for j in range(0, n, vec) for c in _vector_channels(j, vec, cstride, C)]
+    assert got == [(j // cstride) % C for j in range(n)]
+    if cstride >= vec and cstride % vec:  # negative control: every element of a vector in its first channel
+        assert got != [c for j in range(0, n, vec) for c in [_vector_channels(j, vec, cstride, C)[0]] * vec]
+
+
+def test_divisor_constants_fit_and_divide():
+    """m < 2**64 and exact division for every divisor up to 4096 and near
+    2**31, at the ends of the dividend range."""
+    ns = [0, 1, 2**31 - 1, 2**31, 2**62 + 12345, 2**63 - 1]
+    for d in list(range(1, 4097)) + list(range(2**31 - 50, 2**31 + 50)):
+        m, s = fa.divisor(d)
+        assert 0 <= m < 2**64
+        for n in ns + [d - 1, d, d + 1, 7 * d - 1]:
+            assert _divide(n, m, s) == n // d, (d, n)
+
+
 def test_fused_leaky_relu_rejects_a_bias_of_the_wrong_width():
     with pytest.raises(ValueError, match="dim 1"):
         fa.fused_leaky_relu(torch.zeros(2, 4, 3, 3), torch.zeros(3))
