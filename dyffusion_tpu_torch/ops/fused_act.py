@@ -167,13 +167,10 @@ def fused_leaky_relu(
 
     CUDA tensor: the B2 kernel (float32 or bfloat16, any dense layout; the
     output keeps x's strides), or an error. CPU tensor: the plain version.
-    Differentiable either way; without a gradient to record the kernel is
-    called without the autograd Function."""
+    Differentiable either way."""
     _check(x, bias)
     if x.device.type == "cuda":
-        if torch.is_grad_enabled() and (x.requires_grad or bias is not None and bias.requires_grad):
-            return _FusedLeakyReLU.apply(x, bias, negative_slope, scale)
-        return _launch(x, bias, negative_slope, scale)
+        return _FusedLeakyReLU.apply(x, bias, negative_slope, scale)
     if x.device.type == "cpu":
         return fused_leaky_relu_plain(x, bias, negative_slope, scale)
     raise ValueError(f"fused_leaky_relu takes CPU or CUDA tensors, got device {x.device}")

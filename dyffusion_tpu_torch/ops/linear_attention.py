@@ -322,13 +322,10 @@ def linear_attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sca
 
     CUDA tensors: the B3 kernels (q, k, v of one layout, any non-negative
     strides; float32 or bfloat16; d = 32), or an error. CPU tensors: the
-    plain version. Differentiable either way; without a gradient to record
-    the kernels are called without the autograd Function."""
+    plain version. Differentiable either way."""
     _check_core(q, k, v)
     if q.device.type == "cuda":
-        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-            return _LinearAttentionCore.apply(q, k, v, scale)
-        return _launch_core(q, k, v, scale)
+        return _LinearAttentionCore.apply(q, k, v, scale)
     if q.device.type == "cpu":
         return linear_attention_core_plain(q, k, v, scale)
     raise ValueError(f"linear_attention_core takes CPU or CUDA tensors, got device {q.device}")
