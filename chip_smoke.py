@@ -13,7 +13,8 @@ non-zero:
    one nvcc per source, all at once, and prints the build times, the ptxas
    reports and each kernel's registers and spills; a spill in any kernel
    fails the run.
-3. kernel vs plain: B1 at the shapes of the serving, train and fit paths,
+3. kernel vs plain: B1 at the shapes of the serving, train, fit and cli
+   (the 50-member test ensemble: 300/600 rows) paths,
    B3 and B2 at theirs, bf16 and f32, contiguous and as a strided view,
    against their plain PyTorch versions, with a tolerance relative to the
    output's scale; negative controls show that the same check rejects a
@@ -40,7 +41,7 @@ non-zero:
 7. slice: the SST-width workload (60x60, C=1, h=7, k=25, dim-64 UNets with
    mults (1,2,4), 20 members x batch 6, bf16) built through
    ``interface.build_experiment`` with seeded random weights, answering
-   requests through ``serving.build_predict_fn``; checks shapes, finite
+   requests through ``serving.build_experiment_predict_fn``; checks shapes, finite
    values, live dropout (member spread > 0, seeds differ, a seed repeats),
    the kernel launch count per request, and prints latency, frames/s, peak
    memory and the ensemble metrics.
@@ -52,11 +53,18 @@ non-zero:
    variant (per step and in all); prints steps/s, examples/s, peak memory
    and B1's share of the step.
 9. fit: ``interface.run_experiment`` at a small size, stage 1 then stage 2,
-   two epochs each; both best val/crps must be finite, and each stage's B1
-   launches must be what its steps and validations imply.
+   two epochs each, in a temporary registry; both best val/crps must be
+   finite, and each stage's B1 launches must be what its steps and
+   validations imply.
+10. cli: the CLI (``train.main``) at SST width in a temporary registry:
+   stage 1, stage 2 from the registry by run id, the same command resumed
+   from step 4 to 8, ``mode=test`` with 50 members, and
+   ``serving.build_predict_fn`` by run id, which must serve the EMA
+   weights (the live weights' answer, a negative control, must differ);
+   prints each command's wall time and checks its B1 launches.
 
-Each path (slice, train, fit) sets the launch counts to 0 before it runs and
-reads them after. The line before the last is the kernel summary as JSON
+Each path (slice, train, fit, each cli command) sets the launch counts to 0
+before it runs and reads them after. The line before the last is the kernel summary as JSON
 (B1's top-level launches and times are the train path's; ``by_path`` has
 each path's count); the last line is ``{"ok": true, "device": {...}}``.
 
@@ -75,8 +83,10 @@ plain versions, and their times) and stops, with no ``ok`` line.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 0
@@ -281,9 +291,11 @@ def phase_kernel():
     serve = ((120, 3600), (240, 900), (240, 225), (240, 3600), (120, 900), (120, 225))
     train = ((64, 3600), (64, 900), (64, 225))  # batch 64, both stages
     fit = ((4, 576), (24, 144))  # [fit]: a train batch at 24x24; an interpolator eval call at 12x12
-    controls = ((120, 3600), (240, 900), (64, 3600))
+    # [cli]: the 50-member test ensemble folded into eval batches of 6 (forecaster 300, interpolator 600)
+    cli = ((300, 3600), (600, 3600), (300, 900), (600, 900), (300, 225), (600, 225))
+    controls = ((120, 3600), (240, 900), (64, 3600), (300, 3600))
     max_err = 0.0
-    for B, N in serve + train + fit + ((3, 7),):
+    for B, N in serve + train + fit + cli + ((3, 7),):
         for dtype in (torch.bfloat16, torch.float32):
             for strided in (False, True):
                 qkv = _qkv(B, N, dtype, strided, gen)
@@ -527,7 +539,7 @@ def phase_reference():
     7 sampler steps; the negative control shows the drop is caught. Smaller
     kernel errors are phase 3's to catch."""
     from dyffusion_tpu_torch.ops import linear_attention as la
-    from dyffusion_tpu_torch.serving import build_predict_fn
+    from dyffusion_tpu_torch.serving import build_experiment_predict_fn
 
     extra = [
         "datamodule.spatial=(24,24)", "datamodule.channels=1", "datamodule.horizon=3",
@@ -538,7 +550,7 @@ def phase_reference():
     outs = {}
     for device in ("cpu", "cuda"):
         exp, eval_fns, dm = _build_slice(extra, device)
-        predict, _, _ = build_predict_fn(exp, eval_fns, dm)
+        predict, _, _ = build_experiment_predict_fn(exp, eval_fns, dm, None)
         batch = next(dm.predict_batches())
         outs[device] = predict(batch, SEED).cpu()
         if device == "cpu":  # negative control: every linear attention dropped
@@ -752,14 +764,16 @@ def phase_fit(card):
         return n_attn * (4 * trainer.state.step + n_val * (2 * len(exp.engine._steps.s) + 1))
 
     t0 = time.perf_counter()
-    la.reset_launches()
-    tr1, best1 = run_experiment(get_config("synthetic_interpolation", extra))
-    _sync()
-    n1 = la.launches
-    la.reset_launches()
-    tr2, best2 = run_experiment(get_config("synthetic_dyffusion", extra), interpolator=tr1.experiment.model)
-    _sync()
-    n2 = la.launches
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fit_") as registry:
+        extra.append(f"registry_dir={registry}")
+        la.reset_launches()
+        tr1, best1 = run_experiment(get_config("synthetic_interpolation", extra))
+        _sync()
+        n1 = la.launches
+        la.reset_launches()
+        tr2, best2 = run_experiment(get_config("synthetic_dyffusion", extra), interpolator=tr1.experiment.model)
+        _sync()
+        n2 = la.launches
     print(f"[fit] stage 1: best val/crps {best1:.5f} after {tr1.state.step} steps, B1 launches {n1} "
           f"(expected {expected(tr1)}); stage 2: best val/crps {best2:.5f} after {tr2.state.step} steps, B1 launches "
           f"{n2} (expected {expected(tr2)}); {time.perf_counter() - t0:.1f} s; on {card}")
@@ -768,6 +782,122 @@ def phase_fit(card):
     if (n1, n2) != (expected(tr1), expected(tr2)):
         raise AssertionError(f"[fit] B1 launches {(n1, n2)} != {(expected(tr1), expected(tr2))}")
     return n1 + n2
+
+
+def phase_cli(card):
+    """The CLI at SST width, as a user runs it, in a temporary registry, in
+    this process through ``train.main`` (so the built kernels are reused):
+    stage 1 for 4 steps; stage 2 from the registry by
+    ``diffusion.interpolator_run_id`` for 4 steps; the same stage-2 command
+    with ``trainer.max_steps=8``, which must resume (its first logged step
+    is 5, ``meta.json`` reads ``last_step`` 8); ``mode=test`` with 50
+    members (finite ``test/crps``, curves written); then
+    ``serving.build_predict_fn(registry, run id)`` on one batch: the same
+    seed answers the same, the answer is the reloaded run's EMA-weights
+    eval, and (negative control) its live weights' eval differs. Both stages
+    train at batch 64 with the EMA on. The splits share one trajectory
+    length, so the 3 train trajectories' 72 rows (one batch per epoch) give
+    the val and test trajectories 24 rows each: 4 eval batches of 6 per
+    split, the path's eval shapes (120/240 rows at 20 members, 300/600 at
+    50). Validation runs once per command (at its last step). The B1 launch
+    count is set to 0 before each step and must read what the step's
+    forwards imply. Returns the B1 launches of all steps."""
+    import numpy as np
+    import torch
+
+    from dyffusion_tpu_torch import train
+    from dyffusion_tpu_torch.config import get_config
+    from dyffusion_tpu_torch.interface import reload_trainer
+    from dyffusion_tpu_torch.models.modules import LinearAttention
+    from dyffusion_tpu_torch.ops import linear_attention as la
+    from dyffusion_tpu_torch.serving import build_predict_fn
+    from dyffusion_tpu_torch.utils import registry_api
+    from dyffusion_tpu_torch.utils.naming import get_run_id
+    from dyffusion_tpu_torch.utils.workloads import SST_FAST_EVAL, sst_overrides
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_registry_") as reg:
+        common = sst_overrides([
+            "datamodule.n_traj=5", "datamodule.n_time=31", "datamodule.batch_size=64",
+            "datamodule.eval_batch_size=6", *SST_FAST_EVAL, "module.num_predictions_test=50", "module.use_ema=true",
+            "trainer.val_every_n_epochs=100", "trainer.log_every_n_steps=1", f"registry_dir={reg}",
+        ])
+        id1 = get_run_id(get_config("synthetic_interpolation", common))
+        stage2 = [f"diffusion.interpolator_run_id={id1}", *common]
+        id2 = get_run_id(get_config("synthetic_dyffusion", stage2))
+        steps = {}  # name -> (B1 launches, seconds)
+
+        def step(name, fn):
+            la.reset_launches()
+            t = time.perf_counter()
+            out = fn()
+            _sync()
+            steps[name] = (la.launches, time.perf_counter() - t)
+            print(f"[cli] {name}: {steps[name][1]:.1f} s, B1 launches {steps[name][0]}")
+            return out
+
+        def train_steps():
+            return [r["step"] for r in registry_api.get_run_metrics(reg, id2) if "train/loss" in r]
+
+        best1 = step("stage 1, 4 steps", lambda: train.main(
+            ["experiment=synthetic_interpolation", *common, "trainer.max_steps=4"]))
+        best2 = step("stage 2 from the registry, 4 steps", lambda: train.main(
+            ["experiment=synthetic_dyffusion", *stage2, "trainer.max_steps=4"]))
+        steps_before = train_steps()
+        best3 = step("stage 2 resumed to 8 steps", lambda: train.main(
+            ["experiment=synthetic_dyffusion", *stage2, "trainer.max_steps=8"]))
+        resumed_steps = train_steps()[len(steps_before):]
+        meta = registry_api.get_run_meta(reg, id2)
+        crps = step("mode=test, 50 members", lambda: train.main(["mode=test", f"run_id={id2}", f"registry_dir={reg}"]))
+        curves = sorted(os.listdir(os.path.join(reg, id2, "curves")))
+
+        def serve():
+            predict, _, info = build_predict_fn(reg, id2)
+            trainer = reload_trainer(reg, id2)
+            batch = next(trainer.datamodule.predict_batches())
+            a, b = predict(batch, SEED), predict(batch, SEED)
+
+            def members(params):
+                out = trainer.eval_fns["predict"](batch, torch.Generator(device=trainer.device).manual_seed(SEED), params)
+                return torch.stack([out[k] for k in sorted(out, key=lambda k: (len(k), k)) if k.endswith("_preds")], 2)
+
+            return info, trainer, a, b, members(trainer.state.eval_params()), members(None)
+
+        info, trainer, a, b, ema, live = step("serving by run id, 2 requests + EMA and live evals", serve)
+
+    exp = trainer.experiment
+    n_attn = sum(isinstance(m, LinearAttention) for m in exp.model.modules())
+    per_sample = n_attn * (2 * len(exp.engine._steps.s) + 1)  # one ensemble sampler call
+    n_eval = 4  # eval batches per split
+    h = exp.cfg.horizon
+    expected = {
+        "stage 1, 4 steps": n_attn * (4 + n_eval * (h - 1)),  # one Unet forward per step; one per i per val batch
+        "stage 2 from the registry, 4 steps": 4 * 4 * n_attn + n_eval * per_sample,  # 4 forwards per step
+        "stage 2 resumed to 8 steps": 4 * 4 * n_attn + n_eval * per_sample,
+        "mode=test, 50 members": n_eval * per_sample,
+        "serving by run id, 2 requests + EMA and live evals": 4 * per_sample,
+    }
+    repeat, vs_ema = float((a - b).abs().max()), float((a - ema).abs().max())
+    vs_live = float((a - live).abs().max())
+    print(f"[cli] best val/crps: stage 1 {best1:.5f}, stage 2 {best2:.5f}, resumed {best3:.5f}; test/crps (50 members) "
+          f"{crps:.5f}; steps logged after the restart {resumed_steps}, meta last_step {meta.get('last_step')}; "
+          f"curves {curves}")
+    print(f"[cli] served {tuple(a.shape)} ({info['ensemble_members']} members, slot {info['slot']}): same seed max "
+          f"diff {repeat:.3e}; vs the EMA eval {vs_ema:.3e}; vs the live weights' eval {vs_live:.3e} (must differ); "
+          f"EMA updates {trainer.state.ema_num_updates}; on {card}")
+    if not all(np.isfinite(x) for x in (best1, best2, best3, crps)):
+        raise AssertionError(f"[cli] a non-finite score: {best1}, {best2}, {best3}, {crps}")
+    if resumed_steps != [5, 6, 7, 8] or meta.get("last_step") != 8:
+        raise AssertionError(f"[cli] stage 2 did not resume from step 4 to 8: {resumed_steps}, meta {meta}")
+    if not {"test_crps.npz", "test_crps.json"} <= set(curves):
+        raise AssertionError(f"[cli] mode=test wrote no CRPS curve: {curves}")
+    if not bool(torch.isfinite(a).all()) or repeat != 0 or vs_ema != 0:
+        raise AssertionError("[cli] the served forecast is not the EMA weights' eval, or a seed did not repeat")
+    if not vs_live > 1e-3 * float(a.abs().max()):
+        raise AssertionError("[cli] the live weights give the served forecast: the EMA is not what is served")
+    counts = {name: n for name, (n, _) in steps.items()}
+    if counts != expected:
+        raise AssertionError(f"[cli] B1 launches {counts} != {expected}")
+    return sum(counts.values())
 
 
 def _sst_slice():
@@ -787,13 +917,13 @@ def phase_slice(card):
 
     from dyffusion_tpu_torch.models.modules import LinearAttention
     from dyffusion_tpu_torch.ops import linear_attention as la
-    from dyffusion_tpu_torch.serving import build_predict_fn
+    from dyffusion_tpu_torch.serving import build_experiment_predict_fn
     from dyffusion_tpu_torch.utils.evaluation import evaluate_ensemble_prediction
 
     t0 = time.perf_counter()
     exp, eval_fns, dm = _sst_slice()
-    predict, specs, info = build_predict_fn(exp, eval_fns, dm)
-    predict_ms, _, _ = build_predict_fn(exp, eval_fns, dm, reduce="mean_std")
+    predict, specs, info = build_experiment_predict_fn(exp, eval_fns, dm, None)  # random weights, no EMA
+    predict_ms, _, _ = build_experiment_predict_fn(exp, eval_fns, dm, None, reduce="mean_std")
     batch = next(dm.predict_batches())
     w, h = exp.cfg.window, exp.cfg.horizon
     targets = torch.as_tensor(batch["dynamics"][:, w:w + h], device="cuda")
@@ -881,10 +1011,10 @@ def phase_profile(card):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from dyffusion_tpu_torch.serving import build_predict_fn
+    from dyffusion_tpu_torch.serving import build_experiment_predict_fn
 
     exp, eval_fns, dm = _sst_slice()
-    predict, _, _ = build_predict_fn(exp, eval_fns, dm)
+    predict, _, _ = build_experiment_predict_fn(exp, eval_fns, dm, None)
     batch = next(dm.predict_batches())
 
     def timed(seed):
@@ -947,6 +1077,7 @@ def main(argv) -> int:
     serve = phase_slice(smi)
     train = phase_train(smi, b1["train_step"])
     fit = phase_fit(smi)
+    cli = phase_cli(smi)
     # B1's top-level numbers are the [train] path's (this slice's main path);
     # by_path keeps each path's own count, read after setting it to 0.
     # No single PyTorch call computes any of the three functions: library_ms is null
@@ -954,7 +1085,7 @@ def main(argv) -> int:
         {"name": "linear_attention_qkv", "route": "cuda", "source": la.SOURCE, "replaces": la.REPLACES,
          "launches": train, "max_abs_err": b1["max_abs_err"], **b1["train"], "bound_by": "bytes", "library_ms": None,
          "by_path": {"serve": {"launches": serve, **b1["serve"]}, "train": {"launches": train, **b1["train"]},
-                     "fit": {"launches": fit}}},
+                     "fit": {"launches": fit}, "cli": {"launches": cli}}},
         {"name": "fused_leaky_relu", "route": "cuda", "source": fa.SOURCE, "replaces": fa.REPLACES,
          "launches": op_launches["fused_leaky_relu"], **b2, "library_ms": None},
         {"name": "linear_attention_core", "route": "cuda", "source": la.CORE_SOURCE, "replaces": la.CORE_REPLACES,

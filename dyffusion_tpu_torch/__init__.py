@@ -1,11 +1,15 @@
 """dyffusion_tpu_torch: the PyTorch/CUDA port of dyffusion_tpu.
 
-Runs the DYffusion serving path (the folded, bf16, MC-dropout ensemble cold
-sampler over two ``Unet`` backbones) on an NVIDIA H100, with the linear
-attention as a hand-written CUDA kernel. Mirrors the JAX package's layout
-and module names; imports neither JAX nor ``dyffusion_tpu``.
+Trains the two DYffusion stages through the run registry and its CLI
+(``python -m dyffusion_tpu_torch.train``), and serves the folded, bf16,
+MC-dropout ensemble cold sampler over two ``Unet`` backbones, on an NVIDIA
+H100, with the linear attention as a hand-written CUDA kernel. Mirrors the
+JAX package's layout and module names; imports neither JAX nor
+``dyffusion_tpu``.
 
-Numerics: the package sets no global torch flags. TF32
+Numerics: the package sets no global torch flags, except where a config
+asks: ``run_experiment`` applies ``matmul_precision`` (torch's f32 matmul
+precision; cuDNN TF32 off for 'highest', on otherwise). TF32
 (``torch.backends.cuda.matmul.allow_tf32``, default False, and
 ``torch.backends.cudnn.allow_tf32``, default True) touches only f32 work on
 the GPU; on the bf16 serving path that is the small f32 time-embedding and

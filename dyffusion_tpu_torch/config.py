@@ -9,9 +9,15 @@ use the same ``a.b.c=value`` grammar (Python literals, ``true``/``false``/
 The training path reads ``module.{optimizer, scheduler, use_ema, ema_decay,
 train_dtype}``, ``trainer.{max_epochs, max_steps, gradient_clip_val,
 accumulate_grad_batches, fold_accumulation_into_batch, val_every_n_epochs,
-early_stopping_patience, log_every_n_steps, precision}``, ``model.remat``
-and ``diffusion.{lambda_reconstruction, lambda_reconstruction2,
-train_interpolator_dtype, loss_function}``.
+early_stopping_patience, log_every_n_steps, precision, save_checkpoints}``,
+``model.remat`` and ``diffusion.{lambda_reconstruction,
+lambda_reconstruction2, train_interpolator_dtype, loss_function,
+interpolator_run_id, interpolator_use_ema}``; the driver reads
+``registry_dir``, ``run_id``, ``use_wandb``, ``matmul_precision`` (or
+``torch_matmul_precision``) and ``jax_debug_nans`` (``debug=true`` sets it:
+autograd anomaly detection). ``perf=parity`` is accepted; ``perf=measured``
+(the JAX package's per-preset execution-layout recipes) is not ported.
+A config the port accepts resolves to the same dict as the JAX package's.
 """
 from __future__ import annotations
 
@@ -83,8 +89,10 @@ _METHODS: Dict[str, Dict[str, Any]] = {
 # closed namespaces: an unknown key there is a typo, not a pass-through
 _TOP_LEVEL_KEYS = {
     "seed", "registry_dir", "experiment", "preset", "datamodule", "model",
-    "diffusion", "module", "trainer", "run_id",
+    "diffusion", "module", "trainer", "debug", "run_id", "jax_debug_nans",
+    "matmul_precision", "torch_matmul_precision", "use_wandb", "perf",
 }
+_PERF_MODES = ("parity", "measured")
 _TRAINER_KEYS = {
     "max_epochs", "max_steps", "val_every_n_epochs", "save_checkpoints",
     "devices", "spatial_shards", "spatial_axis", "precision",
@@ -129,8 +137,22 @@ def get_config(preset: Optional[str] = None, overrides: Optional[List[str]] = No
         cfg = deep_merge(cfg, _DATASETS[dataset])
         cfg = deep_merge(cfg, _METHODS[method])
         cfg["preset"] = preset
-    extra_ok = set()
+    # perf=<mode> selects an execution-layout recipe; the last token wins
+    rest, perf = [], None
     for ov in overrides or []:
+        key, _, val = ov.partition("=")
+        if key.strip().lstrip("+") == "perf":
+            perf = val.strip()
+            if perf not in _PERF_MODES:
+                raise ValueError(f"unknown perf mode '{perf}' (choose from {list(_PERF_MODES)})")
+        else:
+            rest.append(ov)
+    if perf == "measured":
+        raise NotImplementedError("perf=measured (the per-preset execution-layout recipes) is not ported yet (ROADMAP A11)")
+    if perf:
+        cfg["perf"] = perf
+    extra_ok = set()
+    for ov in rest:
         key, was_plus = apply_override(cfg, ov)
         if was_plus:
             extra_ok.add(key)
@@ -190,8 +212,10 @@ def validate_config(cfg: Dict[str, Any], extra_ok=()) -> None:
 
 
 def resolve(cfg: Dict[str, Any], extra_ok=()) -> Dict[str, Any]:
-    """Resolve ``${a.b}`` interpolations and the consistency rules: DYffusion
-    timesteps == horizon; module window/horizon mirror the datamodule."""
+    """Resolve ``${a.b}`` interpolations and the consistency rules: debug
+    mode (a two-step run without checkpoints, two members, anomaly
+    detection); DYffusion timesteps == horizon; module window/horizon mirror
+    the datamodule."""
     validate_config(cfg, extra_ok=extra_ok)
 
     def lookup(path: str):
@@ -210,6 +234,13 @@ def resolve(cfg: Dict[str, Any], extra_ok=()) -> Dict[str, Any]:
         return node
 
     cfg = walk(cfg)
+    if cfg.get("debug"):
+        cfg["trainer"] = deep_merge(
+            cfg.get("trainer", {}),
+            {"max_epochs": 1, "max_steps": 2, "val_every_n_epochs": 1, "save_checkpoints": False},
+        )
+        cfg["module"] = deep_merge(cfg.get("module", {}), {"num_predictions": 2, "num_predictions_test": 2})
+        cfg["jax_debug_nans"] = True
     diff = cfg.get("diffusion")
     if diff and diff.get("name") == "dyffusion":
         diff["timesteps"] = cfg["datamodule"]["horizon"]

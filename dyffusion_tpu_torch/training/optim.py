@@ -177,6 +177,27 @@ class Optimizer:
         for p in self.params:
             p.grad = None
 
+    def state_dict(self) -> dict:
+        """The canonical state: the ``torch.optim`` state and the schedule's,
+        without the accumulation buffer and ``mini_step``. A checkpoint thus
+        loads under any accumulation layout (accumulated or folded), as the
+        JAX package's canonical optimizer state does."""
+        return {
+            "optimizer": self.optimizer.state_dict(),
+            "scheduler": self.scheduler.state_dict() if self.scheduler is not None else None,
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        """Load a canonical state (onto the parameters' device) and start a
+        fresh accumulation cycle."""
+        self.optimizer.load_state_dict(state["optimizer"])
+        if (self.scheduler is None) != (state["scheduler"] is None):
+            raise ValueError("the checkpoint's LR schedule does not match the config's (one has none)")
+        if self.scheduler is not None:
+            self.scheduler.load_state_dict(state["scheduler"])
+        self.mini_step = 0
+        self._acc = None
+
 
 def build_optimizer(named_params: Iterable[Tuple[str, nn.Parameter]], name: str = "adamw", **kwargs) -> Optimizer:
     """Adam/AdamW/SGD with optional clipping, schedule and accumulation over

@@ -7,7 +7,7 @@ replaces; here they are the live objects, updated in place by
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -59,3 +59,42 @@ class TrainState:
         """The weights to evaluate with: the EMA shadow if enabled, else
         ``None`` (the model's own)."""
         return self.ema if self.use_ema else None
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The checkpoint: step, the model's parameters and buffers, the EMA
+        and its update count, the canonical optimizer state and the step
+        generator's state, as plain CPU copies. The trainer's shuffle
+        generator is not part of it (nor is it in the JAX package's)."""
+        return _cpu_copy({
+            "step": int(self.step),
+            "model": self.model.state_dict(),
+            "ema": self.ema,
+            "ema_num_updates": int(self.ema_num_updates),
+            "optimizer": self.optimizer.state_dict(),
+            "generator": self.generator.get_state(),
+        })
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Copy a checkpoint into the live tensors (they keep their device)."""
+        self.model.load_state_dict(state["model"])
+        if self.use_ema:
+            if state["ema"] is None:
+                raise ValueError("module.use_ema is on, but the checkpoint holds no EMA weights")
+            with torch.no_grad():
+                for k, v in self.ema.items():
+                    v.copy_(state["ema"][k])
+        self.ema_num_updates = int(state["ema_num_updates"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.generator.set_state(state["generator"])
+        self.step = int(state["step"])
+
+
+def _cpu_copy(tree):
+    """``tree`` with every tensor replaced by a detached CPU copy."""
+    if torch.is_tensor(tree):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _cpu_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cpu_copy(v) for v in tree)
+    return tree

@@ -9,13 +9,15 @@ Counterpart of ``dyffusion_tpu/training/trainer.py`` on one device:
   the loss boundary (not ``torch.autocast``, which would keep softmaxes and
   norms in f32 and so compute something else than the JAX package).
 - :class:`Trainer`: ``fit`` (epochs, ``max_steps``, log cadence, validation
-  cadence, early stopping, the best monitored score) and ``evaluate`` (the
-  experiment's folded ensemble eval function over a split, CRPS/MSE/SSR
-  reduced as streamed per-batch sums on the device).
+  cadence, early stopping, the best monitored score, the ``best`` and
+  ``last`` checkpoints at each validation, resume by epoch), ``evaluate``
+  (the experiment's folded ensemble eval function over a split, CRPS/MSE/SSR
+  reduced as streamed per-batch sums on the device), ``predict`` and
+  ``test`` (which saves the per-horizon curves).
 
-Not ported yet: checkpoints and resume, data parallelism (and with it the
-padding of eval batches to the data axis, which off a mesh never pads),
-``watch_gradients``, the profiler.
+Not ported yet: data parallelism (and with it the padding of eval batches
+to the data axis, which off a mesh never pads), ``watch_gradients``, the
+profiler.
 """
 from __future__ import annotations
 
@@ -27,7 +29,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from dyffusion_tpu_torch.training.checkpoint import CheckpointManager
 from dyffusion_tpu_torch.training.state import TrainState
+from dyffusion_tpu_torch.utils.logging import save_arrays_as_line_plot
 
 # loss_fn(params, batch, generator) -> (loss, metrics); params replaces the
 # model's weights for the call (None: its own)
@@ -90,7 +94,10 @@ def metric_sums(preds: torch.Tensor, targets: torch.Tensor) -> Dict[str, torch.T
 
 
 class Trainer:
-    """Fit loop and evaluation over one experiment on its device."""
+    """Fit loop and evaluation over one experiment on its device. With a
+    ``run_dir`` (and ``save_checkpoints``) it keeps the run's ``best`` and
+    ``last`` checkpoints there (``self.ckpt``); without one it trains in
+    memory."""
 
     def __init__(
         self,
@@ -107,6 +114,9 @@ class Trainer:
         log_fn: Optional[Callable[[Dict[str, float], int], None]] = None,
         early_stopping_patience: Optional[int] = None,
         log_every_n_steps: int = 50,
+        run_dir: Optional[str] = None,
+        save_checkpoints: bool = True,
+        monitor_mode: str = "min",
     ):
         self.experiment = experiment
         self.datamodule = datamodule
@@ -117,7 +127,8 @@ class Trainer:
         self.max_epochs = max_epochs
         self.max_steps = max_steps
         self.seed = seed
-        self.monitor = monitor or experiment.monitor  # lower is better
+        self.monitor = monitor or experiment.monitor
+        self.monitor_mode = monitor_mode
         self.val_every_n_epochs = val_every_n_epochs
         self.log_fn = log_fn or (lambda metrics, step: None)
         self.early_stopping_patience = early_stopping_patience
@@ -125,6 +136,26 @@ class Trainer:
         self.history: List[Dict[str, float]] = []
         self._np_rng = np.random.default_rng(seed)
         self._epochs_without_improvement = 0
+        self.ckpt = CheckpointManager(run_dir, self.monitor, monitor_mode) if run_dir and save_checkpoints else None
+        # fully completed epochs, kept current by fit() so that a save from
+        # outside the loop (a signal, a crash) records a matching epochs_done
+        self.epochs_completed = 0
+        # per-horizon curves {metric: {"t": [...], "value": [...]}} of the last evaluate()
+        self.last_eval_curves: Dict[str, Dict[str, list]] = {}
+
+    def _state_tree(self) -> Dict[str, Any]:
+        """The checkpoint of the train state (``TrainState.state_dict``)."""
+        return self.state.state_dict()
+
+    def _load_state_tree(self, tree: Dict[str, Any]) -> None:
+        self.state.load_state_dict(tree)
+
+    def maybe_resume(self, slot: str = "last") -> bool:
+        """Load the ``slot`` checkpoint of the run directory, if it has one."""
+        if self.ckpt is None or not self.ckpt.has(slot):
+            return False
+        self._load_state_tree(self.ckpt.restore(slot))
+        return True
 
     def _put(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """A host batch as tensors on the device."""
@@ -137,13 +168,21 @@ class Trainer:
         step = self.state.step
         done = False
         step_units = self.state.fold_factor  # a folded batch is fold_factor micro-batches
-        for epoch in range(self.max_epochs):
+        # a resumed run continues at the epoch after its last checkpoint, and
+        # its best so far comes from the registry's meta
+        start_epoch = 0
+        if step > 0 and self.ckpt is not None:
+            start_epoch = self.ckpt.epochs_done
+            if self.ckpt.best_score is not None and np.isfinite(self.ckpt.best_score):
+                best = float(self.ckpt.best_score)
+        self.epochs_completed = start_epoch
+        for epoch in range(start_epoch, self.max_epochs):
             epoch_start = time.time()
             n_batches = 0
             loss_parts: List[torch.Tensor] = []  # device scalars; read once per epoch
             t_log, step_at_log = time.time(), step
             if self.max_steps and step >= self.max_steps:
-                break
+                break  # a resumed run already at the cap trains no more
             for batch in self.datamodule.train_batches(rng=self._np_rng):
                 metrics = self.train_step(self.state, self._put(batch))
                 loss_parts.append(metrics["loss"])
@@ -166,6 +205,8 @@ class Trainer:
                     f"rows={n_rows} (drop_last). Lower datamodule.batch_size or disable "
                     "trainer.fold_accumulation_into_batch."
                 )
+            if not done:  # a max_steps stop leaves its epoch partial
+                self.epochs_completed = epoch + 1
             loss_epoch = float(torch.stack(loss_parts).sum()) / n_batches if loss_parts else 0.0
             epoch_metrics = {"train/loss_epoch": loss_epoch, "time/train": time.time() - epoch_start, "epoch": epoch}
 
@@ -176,9 +217,14 @@ class Trainer:
                 epoch_metrics["time/validation"] = time.time() - val_start
                 score = val_metrics.get(self.monitor, np.nan)
                 improved = False
+                if self.ckpt is not None:
+                    tree = self._state_tree()
+                    improved = self.ckpt.save_best_if_improved(tree, score, step)
+                    self.ckpt.save_last(tree, step, epochs_done=self.epochs_completed)
                 if np.isfinite(score):
-                    improved = np.isnan(best) or score < best
-                    best = score if improved else best
+                    prev_best = best
+                    best = score if np.isnan(best) else (min if self.monitor_mode == "min" else max)(best, score)
+                    improved = improved or np.isnan(prev_best) or best != prev_best
                 if self.early_stopping_patience is not None:
                     self._epochs_without_improvement = 0 if improved else self._epochs_without_improvement + 1
                     if self._epochs_without_improvement >= self.early_stopping_patience:
@@ -222,6 +268,7 @@ class Trainer:
 
         metrics: Dict[str, float] = {}
         per_metric = defaultdict(list)
+        curves: Dict[str, Dict[str, list]] = defaultdict(lambda: {"t": [], "value": []})
         for prefix in sorted(sums_host, key=lambda p: (len(p), p)):
             s = sums_host[prefix]
             n = max(s["n"], 1.0)
@@ -231,9 +278,45 @@ class Trainer:
             for name, v in (("mse", mse), ("crps", crps), ("ssr", ssr)):
                 metrics[f"{split}/{prefix}/{name}"] = v
                 per_metric[name].append(v)
+                if prefix.startswith("t") and prefix[1:].isdigit():
+                    curves[name]["t"].append(int(prefix[1:]))
+                    curves[name]["value"].append(v)
         for name, vals in per_metric.items():
             metrics[f"{split}/avg/{name}"] = float(np.mean(vals))
             metrics[f"{split}/{name}"] = metrics[f"{split}/avg/{name}"]
+        self.last_eval_curves = dict(curves)
         if n_frames and sampling_time > 0:
             metrics[f"{split}/frames_per_sec_per_chip"] = n_frames / sampling_time
+        return metrics
+
+    def predict(self, split: str = "predict") -> Dict[str, np.ndarray]:
+        """The split's raw ensemble predictions and targets on the host,
+        concatenated over batches (``*_preds`` along the batch axis 1, the
+        rest along axis 0), with the train state's eval weights."""
+        eval_fn = self.eval_fns[split]
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(self.seed + {"val": 1, "test": 2, "predict": 3}[split])
+        params = self.state.eval_params()
+        acc: Dict[str, List[np.ndarray]] = defaultdict(list)
+        for batch in self._eval_batches(split):
+            for k, v in eval_fn(batch, generator, params).items():
+                acc[k].append(v.cpu().numpy())
+        return {k: np.concatenate(vs, axis=1 if k.endswith("_preds") else 0) for k, vs in acc.items()}
+
+    def test(self, save_curves: bool = True) -> Dict[str, float]:
+        """Evaluate the test split (its ensemble size is
+        ``module.num_predictions_test``) and save the per-horizon curves
+        under the run directory's ``curves/`` (``test_crps`` etc.)."""
+        metrics = self.evaluate("test")
+        if save_curves and self.ckpt is not None:
+            for name, curve in self.last_eval_curves.items():
+                if not curve["t"]:
+                    continue
+                order = np.argsort(curve["t"])
+                save_arrays_as_line_plot(
+                    self.ckpt.run_dir,
+                    np.asarray(curve["t"])[order],
+                    {name: np.asarray(curve["value"])[order]},
+                    key_stem=f"test_{name}",
+                )
         return metrics

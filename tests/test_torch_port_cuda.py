@@ -68,6 +68,18 @@ def test_kernel_matches_plain(dtype, strided):
                     _assert_close_to_scale(wrong, want, REL_TOL[dt])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [300, 600])
+@pytest.mark.parametrize("N", [3600, 900, 225])
+def test_kernel_matches_plain_at_the_test_ensemble_batch(N, B):
+    """B1 at the 50-member test ensemble's folded batches (eval batch 6:
+    300 forecaster rows, 600 interpolator rows), bf16, NCHW view."""
+    _require_cuda()
+    x = _qkv_wide_k(B, N, True, torch.bfloat16, seed=B + N)
+    got = la.linear_attention_qkv(x, HEADS, DIM_HEAD, SCALE)
+    _assert_close_with_controls(got, la.linear_attention_qkv_plain(x, HEADS, DIM_HEAD, SCALE), REL_TOL[torch.bfloat16])
+
+
 def _assert_close_with_controls(got, want, r):
     _assert_close_to_scale(got, want, r)
     for wrong in (want * 1.05, torch.zeros_like(want)):  # negative controls: the check rejects these
@@ -326,3 +338,53 @@ def test_fused_leaky_relu_kernel_rejects_what_it_does_not_take():
         fa.fused_leaky_relu(x[:, :, ::2], torch.zeros(4, device="cuda"))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.fused_leaky_relu(x.half())
+
+
+# one train row, dropout on, EMA and an LR schedule: each epoch is one step
+ONE_ROW = [
+    "datamodule.spatial=(8,8)", "datamodule.channels=1", "datamodule.horizon=3", "datamodule.n_traj=2",
+    "datamodule.n_time=4", "datamodule.batch_size=1", "datamodule.eval_batch_size=1", "model.dim=8",
+    "model.dim_mults=(1,)", "model.block_dropout=0.3", "module.num_predictions=2", "module.use_ema=true",
+    "module.optimizer.lr=1e-2",
+    "module.scheduler={'name': 'warmup_cosine', 'warm_up_steps': 1, 'lr_min': 0.1, 'lr_max': 1.0, "
+    "'lr_start': 0.5, 'max_decay_steps': 4}",
+]
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    before = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    yield
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = before
+
+
+@pytest.mark.cuda
+def test_resume_on_the_gpu(tmp_path, deterministic_cudnn):
+    """Save and resume on the card: the CUDA step generator's state comes
+    back, the optimizer's moments land on the card, and one epoch + a
+    restart + one epoch ends where two epochs in one run end, and takes the
+    same next step."""
+    _require_cuda()
+    from dyffusion_tpu_torch.config import get_config
+    from dyffusion_tpu_torch.interface import run_experiment
+
+    def run(registry, epochs):
+        return run_experiment(get_config("synthetic_interpolation", ONE_ROW + [
+            f"registry_dir={registry}", f"trainer.max_epochs={epochs}"]), device="cuda")[0]
+
+    whole = run(tmp_path / "whole", 2)
+    run(tmp_path / "split", 1)
+    resumed = run(tmp_path / "split", 2)
+    assert [h["epoch"] for h in resumed.history] == [1] and resumed.state.step == whole.state.step == 2
+    assert resumed.state.generator.device.type == "cuda"
+    assert torch.equal(resumed.state.generator.get_state(), whole.state.generator.get_state())
+    moments = [s["exp_avg"] for s in resumed.state.optimizer.optimizer.state.values()]
+    assert moments and all(m.device.type == "cuda" for m in moments)
+    for a, b in ((resumed.experiment.model.state_dict(), whole.experiment.model.state_dict()),
+                 (resumed.state.ema, whole.state.ema)):
+        for k in b:
+            torch.testing.assert_close(a[k], b[k], rtol=1e-5, atol=1e-6)
+    batch = next(whole.datamodule.train_batches())
+    losses = [float(t.train_step(t.state, t._put(batch))["loss"]) for t in (whole, resumed)]
+    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[0]), losses

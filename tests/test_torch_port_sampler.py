@@ -168,7 +168,7 @@ def test_eval_fn_and_serving_match_jax(split, extra):
         assert tuple(got[k].shape) == tuple(want[k].shape), k
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), **TOL, err_msg=k)
 
-    predict, specs, info = port_serving.build_predict_fn(exp, eval_fns, pdm, split=split)
+    predict, specs, info = port_serving.build_experiment_predict_fn(exp, eval_fns, pdm, None, split=split)
     assert specs["dynamics"].shape == (2, 1, 16, 16, 2) and info["ensemble_members"] == 3
     served = predict({"dynamics": pbatch["dynamics"][:, :1]}, 0)
     n_t = 6 if split == "predict" else 3
@@ -195,8 +195,8 @@ def test_bf16_eval_runs_and_stays_close_to_f32():
 def test_dropout_ensemble_is_seeded_and_diverse():
     overrides = SMALL + list(SST_FAST_EVAL) + ["model.block_dropout=0.3", "model.attn_dropout=0.1"]
     pdm, exp, eval_fns = _build_port(overrides)
-    predict, _, _ = port_serving.build_predict_fn(exp, eval_fns, pdm, split="val")
-    predict_ms, _, _ = port_serving.build_predict_fn(exp, eval_fns, pdm, split="val", reduce="mean_std")
+    predict, _, _ = port_serving.build_experiment_predict_fn(exp, eval_fns, pdm, None, split="val")
+    predict_ms, _, _ = port_serving.build_experiment_predict_fn(exp, eval_fns, pdm, None, split="val", reduce="mean_std")
     batch = next(pdm.val_batches())
     a, b, c = predict(batch, 1), predict(batch, 1), predict(batch, 2)
     assert torch.equal(a, b)

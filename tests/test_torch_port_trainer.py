@@ -73,9 +73,10 @@ def test_evaluate_matches_jax(evaluations, stage):
     assert got["val/crps"] > 0 and got["val/mse"] > 0
 
 
-def test_run_experiment_trains_both_stages_and_logs():
+def test_run_experiment_trains_both_stages_and_logs(tmp_path):
     logs = []
-    overrides = TINY + ["trainer.max_epochs=2", "trainer.log_every_n_steps=4", "module.use_ema=true"]
+    overrides = TINY + ["trainer.max_epochs=2", "trainer.log_every_n_steps=4", "module.use_ema=true",
+                        f"registry_dir={tmp_path}"]
     tr1, best1 = run_experiment(get_config("synthetic_interpolation", overrides), device="cpu",
                                 log_fn=lambda m, step: logs.append((step, m)))
     tr2, best2 = run_experiment(get_config("synthetic_dyffusion", overrides), interpolator=tr1.experiment.model,
@@ -86,8 +87,9 @@ def test_run_experiment_trains_both_stages_and_logs():
     assert tr1.state.ema_num_updates == 2 * BATCHES_PER_EPOCH
     assert [h["epoch"] for h in tr2.history] == [0, 1]
     assert {"val/t1/mse", "val/t3/crps", "val/avg/ssr", "val/crps"} <= set(tr2.history[-1])
-    # the interpolator stays frozen through stage 2
-    assert all(not p.requires_grad for p in tr1.experiment.model.parameters())
+    # stage 2 trains against a frozen copy of the interpolator; stage 1's own model stays trainable
+    assert all(not p.requires_grad for p in tr2.experiment.engine.interpolator.parameters())
+    assert all(p.requires_grad for p in tr1.experiment.model.parameters())
     # in-epoch logs at every 4th step, and one epoch line per epoch
     assert [s for s, m in logs if "train/loss" in m] == [4, 8, 12]
     assert [s for s, m in logs if "train/loss_epoch" in m] == [7, 14]
