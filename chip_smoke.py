@@ -63,8 +63,27 @@ non-zero:
    weights (the live weights' answer, a negative control, must differ);
    prints each command's wall time and checks its B1 launches.
 
-Each path (slice, train, fit, each cli command) sets the launch counts to 0
-before it runs and reads them after. The line before the last is the kernel summary as JSON
+11. physical reference: for UNetSimple (NS) and SimpleConvNet (spring), small
+   and f32, the forecaster's eval forward and a stage-2 loss with every
+   forecaster gradient and the BatchNorm running-statistics updates, GPU
+   against CPU; negative controls: the running statistics reset, and the
+   forecaster's first pass on its running averages.
+12. ns, spring: the Navier-Stokes and spring-mesh paths through the CLI at
+   their canonical widths (NS: 221x42, C=3+2, horizon 16, UNetSimple dim 64
+   at 256x256, dropout 0.15, batch 32 x accumulate 2, refinement,
+   forward_conditioning=none, bf16 eval; spring: 10x10, C=4+1, horizon 134,
+   SimpleConvNet dim 64 with BatchNorm, dropout 0.2, batch 64, refinement)
+   on fake archives at the real grids, in a temporary registry: stage 1,
+   stage 2 from the registry, ``mode=test`` over one full test trajectory
+   (4 and 6 autoregressive windows, 20 members), serving by run id. Checks
+   falling finite losses, running statistics moved by training and kept by
+   evaluation and serving, the boundary conditions in every served frame
+   (with a negative control), seeds; prints wall times, request times and
+   peak memory. No kernel of the port lies on these paths: their launch
+   counts must read 0.
+
+Each path (slice, train, fit, each cli command, ns, spring) sets the launch
+counts to 0 before it runs and reads them after. The line before the last is the kernel summary as JSON
 (B1's top-level launches and times are the train path's; ``by_path`` has
 each path's count); the last line is ``{"ok": true, "device": {...}}``.
 
@@ -72,8 +91,14 @@ each path's count); the last line is ``{"ok": true, "device": {...}}``.
 
 runs phases 1 and 2, then profiles one SST request with ``torch.profiler``:
 the unprofiled request times, the profiled request's wall time, its summed
-kernel time and busy share, and kernel time by category. It prints no
-``ok`` line.
+kernel time and busy share, and kernel time by category; then one NS and
+one spring request and stage-2 train step at their canonical widths. It
+prints no ``ok`` line.
+
+    python3 chip_smoke.py --physical
+
+runs phases 1, 2, 11 and 12 (the physical-systems paths) and stops, with
+no ``ok`` line.
 
     python3 chip_smoke.py --kernels
 
@@ -900,6 +925,297 @@ def phase_cli(card):
     return sum(counts.values())
 
 
+# the physical-systems paths at their canonical widths (utils/workloads.py:
+# NS_CORE, SPRING_CORE), through their presets on fake archives at the real
+# grids. One trajectory per split: the test trajectory spans the prediction
+# horizon (NS 64 = 4 windows of 16, spring 804 = 6 windows of 134), and the
+# shared trajectory length gives train and val 49 (NS) or 671 (spring) rows.
+# NS evaluates in bf16 (module.eval_dtype), spring in f32.
+PHYSICAL = {
+    "navier_stokes": {"label": "ns", "system": "navier-stokes", "n_time": 65, "steps": 12,
+                      "extra": ["module.eval_dtype=bfloat16"]},
+    "spring_mesh": {"label": "spring", "system": "spring-mesh", "n_time": 805, "steps": 8,
+                    "extra": ["model.dropout=0.2"]},
+}
+
+
+def _physical_archive(root, key, n_time=None):
+    from dyffusion_tpu_torch.data import write_fake_benchmark_dir
+
+    spec = PHYSICAL[key]
+    return write_fake_benchmark_dir(root, spec["system"], n_traj={"train": 1, "val": 1, "test": 1},
+                                    n_time=n_time or spec["n_time"], seed=SEED)
+
+
+def _running_stats(model):
+    return {k: v.clone() for k, v in model.state_dict().items() if "running" in k}
+
+
+def _boundary_error(key, frames, batch, time):
+    """Largest deviation of frames (N, B, H, W, C) from the boundary
+    conditions at simulation time ``time`` (B,): NS fixed cells 0 and the
+    inflow in row 0 of channel 0, spring pinned nodes at (p=0, q=base_q)."""
+    import numpy as np
+
+    fixed = batch["metadata_fixed_mask"]
+    if key == "spring_mesh":
+        pinned = np.concatenate([np.zeros_like(batch["metadata_base_q"]), batch["metadata_base_q"]], -1)
+        return float(np.abs(np.where(fixed, frames - pinned, 0.0)).max())
+    v, vy = batch["metadata_in_velocity"], batch["metadata_vertex_y"]
+    inflow = v[:, None] * 4 * vy * (0.41 - vy) / 0.41**2 * (1 - np.exp(-5 * time))[:, None]
+    inflow_cells = np.zeros(fixed.shape[1:], bool)
+    inflow_cells[0, :, 0] = True
+    return max(float(np.abs(np.where(fixed & ~inflow_cells, frames, 0.0)).max()),
+               float(np.abs(frames[..., 0, :, 0] - inflow).max()))
+
+
+def phase_physical(card, key):
+    """The NS or spring path through the CLI (``train.main``) as a user runs
+    it, at the canonical width, in a temporary registry: stage 1 for a few
+    steps and one validation; stage 2 from the registry by run id for a few
+    steps and one validation; ``mode=test`` over the full test trajectory
+    through the autoregressive chain with 20 members; serving by run id.
+    Checks: finite losses that fall; running statistics moved by training
+    and left as they are by evaluation and serving; the boundary conditions
+    in every served frame of every window (the sampler's output without the
+    hook fails the same check); a seed repeats its answer, another does not.
+    Prints each command's wall time and peak memory, and the request time.
+    The launch counts are set to 0 before the path and read after it: no
+    kernel of the port lies on these paths. Returns them."""
+    import numpy as np
+    import torch
+
+    from dyffusion_tpu_torch import train
+    from dyffusion_tpu_torch.config import get_config
+    from dyffusion_tpu_torch.interface import reload_trainer
+    from dyffusion_tpu_torch.ops import fused_act as fa
+    from dyffusion_tpu_torch.ops import linear_attention as la
+    from dyffusion_tpu_torch.serving import build_predict_fn
+    from dyffusion_tpu_torch.training.checkpoint import CheckpointManager
+    from dyffusion_tpu_torch.utils import registry_api
+    from dyffusion_tpu_torch.utils.naming import get_run_id
+
+    spec = PHYSICAL[key]
+    tag = f"[{spec['label']}]"
+    la.reset_launches()
+    fa.reset_launches()
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{spec['label']}_") as tmp:
+        data = _physical_archive(os.path.join(tmp, "data"), key)
+        reg = os.path.join(tmp, "runs")
+        common = [f"datamodule.data_dir={data}", f"registry_dir={reg}", "module.num_predictions_test=20",
+                  f"trainer.max_steps={spec['steps']}", "trainer.val_every_n_epochs=100",
+                  "trainer.log_every_n_steps=1", *spec["extra"]]
+        id1 = get_run_id(get_config(f"{key}_interpolation", common))
+        stage2 = [f"diffusion.interpolator_run_id={id1}", *common]
+        id2 = get_run_id(get_config(f"{key}_dyffusion", stage2))
+
+        def command(name, fn):
+            torch.cuda.reset_peak_memory_stats()
+            _sync()
+            t = time.perf_counter()
+            out = fn()
+            _sync()
+            print(f"{tag} {name}: {time.perf_counter() - t:.1f} s wall, peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {card}")
+            return out
+
+        def losses(run_id):
+            vals = [r["train/loss"] for r in registry_api.get_run_metrics(reg, run_id) if "train/loss" in r]
+            vals = np.asarray(vals)
+            half = len(vals) // 2
+            print(f"{tag} {run_id}: {len(vals)} train losses {np.round(vals, 5).tolist()}")
+            if len(vals) != spec["steps"] or not np.isfinite(vals).all() or not vals[half:].mean() < vals[:half].mean():
+                raise AssertionError(f"{tag} losses not finite or not falling: {vals}")
+
+        best1 = command(f"stage 1, {spec['steps']} steps + validation", lambda: train.main(
+            [f"experiment={key}_interpolation", *common]))
+        losses(id1)
+        best2 = command(f"stage 2 from the registry, {spec['steps']} steps + validation", lambda: train.main(
+            [f"experiment={key}_dyffusion", *stage2]))
+        losses(id2)
+        for run_id in (id1, id2):  # fresh BatchNorm: mean 0, var 1
+            saved = CheckpointManager(os.path.join(reg, run_id), "val/crps").restore("last")["model"]
+            moved = [k for k, v in saved.items() if "running_mean" in k and float(v.abs().max()) > 0]
+            if not moved:
+                raise AssertionError(f"{tag} training left the running statistics of {run_id} at their init")
+        crps = command("mode=test, 20 members, one full trajectory", lambda: train.main(
+            ["mode=test", f"run_id={id2}", f"registry_dir={reg}"]))
+
+        def serve():
+            trainer = reload_trainer(reg, id2)
+            nets = (trainer.experiment.model, trainer.experiment.engine.interpolator)
+            before = [_running_stats(m) for m in nets]
+            test_metrics = trainer.evaluate("test")
+            predict, _, info = build_predict_fn(reg, id2)
+            batch = next(trainer.datamodule.predict_batches())
+            answers, times = [], []
+            for seed in (SEED, SEED, SEED + 1):
+                _sync()
+                t = time.perf_counter()
+                answers.append(predict(batch, seed))
+                _sync()
+                times.append(time.perf_counter() - t)
+            after = [_running_stats(m) for m in nets]
+            trainer.experiment.boundary_fn = None  # negative control: the sampler's output as it comes
+            raw = trainer.eval_fns["predict"](batch, torch.Generator(device=trainer.device).manual_seed(SEED),
+                                              trainer.state.eval_params())
+            return trainer, before, after, test_metrics, info, batch, answers, times, raw
+
+        trainer, before, after, test_metrics, info, batch, (a, b, other), times, raw = command(
+            "serving by run id: test eval + 3 requests + the raw sampler", serve)
+    counts = {"linear_attention_qkv": la.launches, "linear_attention_core": la.core_launches,
+              "fused_leaky_relu": fa.launches}
+    n_frames = a.shape[2]
+    errs = [_boundary_error(key, a[:, :, i - 1].cpu().numpy(), batch, batch["metadata_t0"] + batch["metadata_dt"] * i)
+            for i in range(1, n_frames + 1)]
+    raw_err = _boundary_error(key, raw[f"t{n_frames}_preds"].cpu().numpy(), batch,
+                              batch["metadata_t0"] + batch["metadata_dt"] * n_frames)
+    repeat, apart = float((a - b).abs().max()), float((a - other).abs().max())
+    unchanged = all(torch.equal(v, was[k]) for now, was in zip(after, before) for k, v in now.items())
+    windows = n_frames // trainer.experiment.cfg.horizon
+    print(f"{tag} best val/crps: stage 1 {best1:.5f}, stage 2 {best2:.5f}; test/crps {crps:.5f} (reloaded: "
+          f"{test_metrics['test/crps']:.5f}); served {tuple(a.shape)} ({info['ensemble_members']} members, "
+          f"{windows} windows of {trainer.experiment.cfg.horizon}); request times {[round(x, 3) for x in times]} s")
+    print(f"{tag} boundary conditions: worst error over {n_frames} served frames {max(errs):.3e}; the sampler "
+          f"without the hook: {raw_err:.3e}; same seed max diff {repeat:.3e}, other seed {apart:.3e}; running "
+          f"statistics unchanged by evaluation and serving: {unchanged}; kernel launches on this path {counts}; "
+          f"on {card}")
+    if not all(np.isfinite(x) for x in (best1, best2, crps)) or not bool(torch.isfinite(a).all()):
+        raise AssertionError(f"{tag} a non-finite score or forecast: {best1}, {best2}, {crps}")
+    if max(errs) > 1e-5 or raw_err <= 1e-3:
+        raise AssertionError(f"{tag} the boundary conditions do not hold (or the check cannot fail): {errs}, {raw_err}")
+    if repeat != 0 or not apart > 1e-3 * float(a.abs().max()):
+        raise AssertionError(f"{tag} a seed did not repeat ({repeat}) or another seed gave the same forecast ({apart})")
+    if not unchanged:
+        raise AssertionError(f"{tag} evaluation or serving changed the running statistics")
+    if any(counts.values()):
+        raise AssertionError(f"{tag} a kernel launched on a path without linear attention or B2: {counts}")
+    return counts
+
+
+def _randomize_running_stats(net, gen):
+    """Random running statistics (mean ~ 0.3 N(0, 1), var ~ U(0.5, 1.5))
+    drawn from ``gen`` (a CPU generator), so that eval-mode BatchNorm is not
+    the identity."""
+    import torch
+
+    with torch.no_grad():
+        for name, buf in net.named_buffers():
+            if "running_mean" in name:
+                buf.copy_(0.3 * torch.randn(buf.shape, generator=gen))
+            elif "running_var" in name:
+                buf.copy_(0.5 + torch.rand(buf.shape, generator=gen))
+
+
+def _physical_reference_run(c1, c2, dm, batch, device, control, dtype=None):
+    """(eval forward, loss, forecaster gradients, running-statistics
+    updates) of the small physical slice on ``device`` (in ``dtype``, f32 by
+    default); ``control`` names a negative control or is None."""
+    import torch
+
+    from dyffusion_tpu_torch.diffusion import dyffusion as dyff
+    from dyffusion_tpu_torch.experiments import stack_window
+    from dyffusion_tpu_torch.interface import build_experiment
+    from dyffusion_tpu_torch.models.base import MODEL_STATE_UPDATES, apply_model
+
+    gen = torch.Generator().manual_seed(SEED + 5)  # the same statistics on every device
+    _, ip, _, _, _ = build_experiment(c1, dm, device=device)
+    _randomize_running_stats(ip, gen)
+    exp, fc, _, _, engine = build_experiment(c2, dm, interpolator=ip, device=device)
+    _randomize_running_stats(fc, gen)
+    if control == "fresh statistics":
+        for m in fc.modules():
+            if hasattr(m, "reset_running_stats"):
+                m.reset_running_stats()
+    dtype = dtype or torch.float32
+    engine.forecaster.to(dtype)
+    engine.interpolator.to(dtype)
+    dyn = exp.to_device(batch["dynamics"]).to(dtype)
+    x0, static = stack_window(dyn, 1), exp.static_condition(batch).to(dtype)
+    ones = torch.ones((dyn.shape[0],), device=dyn.device)
+    with torch.no_grad():
+        fcond = engine._forecaster_condition(x0, ones, static, None)
+        fwd = apply_model(fc, None, dyn[:, 1].permute(0, 3, 1, 2), ones, fcond)
+    n = engine.num_timesteps
+    t = torch.tensor(([0, 1, n // 2, n - 1] * dyn.shape[0])[: dyn.shape[0]], device=dyn.device)
+    train_apply = dyff.apply_model_train
+    if control == "eval first pass":
+        dyff.apply_model_train = lambda m, p, *a: (apply_model(m, p, *a), {})
+    try:
+        loss, aux = engine.p_losses(None, None, None, dyn[:, -1].permute(0, 3, 1, 2), x0, t, static)
+    finally:
+        dyff.apply_model_train = train_apply
+    loss.backward()
+    return (fwd.cpu().float(), float(loss.detach()), {k: p.grad.cpu().float() for k, p in fc.named_parameters()},
+            {k: v.cpu() for k, v in aux.get(MODEL_STATE_UPDATES, {}).items()})
+
+
+def _worst_grad(got, want):
+    """(largest error over its scale, its name): each gradient's scale is
+    the larger of its own largest |value| and 0.1 of the model's largest
+    (as in :func:`_grads_within`)."""
+    top = max(float(w.abs().max()) for w in want.values())
+    return max((float((got[k] - w).abs().max()) / max(float(w.abs().max()), 0.1 * top), k) for k, w in want.items())
+
+
+def phase_physical_reference():
+    """For each backbone, small and f32 with dropout off, GPU against CPU
+    from the same seeded weights and random running statistics: the
+    forecaster's eval forward (tolerance 1e-4 of max|CPU|), and a stage-2
+    ``p_losses`` over 8 rows at fixed t over every branch (t = 0, 1, the
+    middle, N-1) with the running-statistics updates (1e-4) and every
+    forecaster gradient. Negative controls: the forward with the running
+    statistics reset, and the loss with the forecaster's first pass on its
+    running averages (eval mode), must each fail their check.
+
+    UNetSimple's gradients are ill-conditioned in f32 (its DCGAN-initialized
+    features are tiny and BatchNorm divides by their spread): at a 64x64
+    working grid and 4 rows the CPU's own f32 gradients lie 3.8e-3 of their
+    scale from the f64 ones, at 128x128 and 8 rows 3.4e-4. So the check
+    runs at the latter and holds the GPU's f32 gradients to the CPU's f64
+    ones: within 1e-3 of each gradient's scale, or 3 times the CPU's own
+    f32 error, whichever is larger."""
+    import torch
+
+    from dyffusion_tpu_torch.config import get_config
+    from dyffusion_tpu_torch.interface import get_datamodule
+
+    small = {"navier_stokes": ["model.dim=8", "model.upsample_dims=(128,128)"], "spring_mesh": ["model.dim=32"]}
+    for key, widths in small.items():
+        tag = f"[{PHYSICAL[key]['label']}-ref]"
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_ref_") as tmp:
+            extra = widths + [f"datamodule.data_dir={_physical_archive(tmp, key, n_time=12)}", "datamodule.horizon=4",
+                              "datamodule.prediction_horizon=8", "model.dropout=0.0", "trainer.save_checkpoints=False"]
+            c1, c2 = get_config(f"{key}_interpolation", extra), get_config(f"{key}_dyffusion", extra)
+            dm = get_datamodule(c1)
+            dm.setup()
+            batch = next(dm.split("train").batches(8))
+            runs = {(d, c): _physical_reference_run(c1, c2, dm, batch, d, c) for d, c in (
+                ("cpu", None), ("cuda", None), ("cuda", "fresh statistics"), ("cuda", "eval first pass"))}
+            f64 = _physical_reference_run(c1, c2, dm, batch, "cpu", None, torch.float64)
+        cpu, gpu = runs[("cpu", None)], runs[("cuda", None)]
+        worst_f64, key_f64 = _worst_grad(cpu[2], f64[2])
+        worst_gpu, key_gpu = _worst_grad(gpu[2], f64[2])
+        ok_fwd, e_fwd, lim_fwd = _within(gpu[0], cpu[0], 1e-4)
+        ok_fresh = _within(runs[("cuda", "fresh statistics")][0], cpu[0], 1e-4)[0]
+        rel_loss = abs(gpu[1] - cpu[1]) / abs(cpu[1])
+        rel_eval = abs(runs[("cuda", "eval first pass")][1] - cpu[1]) / abs(cpu[1])
+        grad_limit = max(1e-3, 3 * worst_f64)
+        ok_grads = worst_gpu <= grad_limit
+        stats_err = max(float((gpu[3][k] - v).abs().max() / v.abs().max()) for k, v in cpu[3].items() if "running" in k)
+        print(f"{tag} eval forward f32, GPU vs CPU: max_abs_err {e_fwd:.3e} (limit {lim_fwd:.3e}); with the running "
+              f"statistics reset: rejected {not ok_fresh}")
+        print(f"{tag} stage-2 loss f32: GPU {gpu[1]:.7f} vs CPU {cpu[1]:.7f} (rel {rel_loss:.2e}, limit 1e-4); "
+              f"first pass in eval mode: rel {rel_eval:.2e}; {len(cpu[2])} gradients against the CPU's f64 ones: "
+              f"GPU worst {worst_gpu:.2e} of its scale ({key_gpu}), CPU f32 worst {worst_f64:.2e} ({key_f64}), limit "
+              f"{grad_limit:.2e}; "
+              f"{len(cpu[3])} running-statistics updates: worst rel {stats_err:.2e} (limit 1e-4)")
+        if not ok_fwd or rel_loss > 1e-4 or not ok_grads or stats_err > 1e-4 or set(gpu[3]) != set(cpu[3]):
+            raise AssertionError(f"{tag} the GPU disagrees with the CPU")
+        if ok_fresh or rel_eval <= 1e-4:
+            raise AssertionError(f"{tag} a negative control passed its check")
+
+
 def _sst_slice():
     """The SST-width serving slice on the GPU (section 4 of PERF.md)."""
     from dyffusion_tpu_torch.utils.workloads import SST_FAST_EVAL, sst_overrides
@@ -990,27 +1306,63 @@ def phase_slice(card):
 _CATEGORIES = (
     ("B1 linear attention", ("linear_attention",)),
     ("cuDNN NCHW<->NHWC layout transposes", ("nchwtonhwc", "nhwctonchw")),
-    ("convolutions", ("fprop", "conv")),
+    ("BatchNorm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
+    ("bilinear resize", ("bilinear",)),
+    ("convolutions", ("fprop", "dgrad", "wgrad", "conv")),
     ("matmuls (mid-block attention, 1x1 projections)", ("gemm", "nvjet", "xmma")),
     ("GroupNorm", ("groupnorm", "rowwisemoments")),
     ("dropout RNG + mask", ("uniform", "compare_scalar", "where")),
     ("reductions (ChannelLayerNorm, weight standardization)", ("reduce_kernel", "welford")),
     ("softmax", ("softmax",)),
     ("SiLU", ("silu",)),
+    ("GELU", ("gelu",)),
+    ("ReLU, LeakyReLU", ("relu", "leaky", "threshold")),
     ("concat", ("cat",)),
     ("nearest upsample", ("upsample",)),
 )
 
 
-def phase_profile(card):
-    """One SST request under ``torch.profiler`` (CUDA activity only, so the
-    host records no operators). Its busy share is that request's summed
-    kernel time over its own wall time; the profiler's host work can only
-    lower it."""
-    import torch
+def _profile(tag, fn, card):
+    """Run ``fn`` once under ``torch.profiler`` (CUDA activity only, so the
+    host records no operators) and print its wall time, summed kernel time,
+    busy share (kernel time over wall time; the profiler's host work can
+    only lower it), kernel time by category and the top kernels. Returns
+    {category: ms}."""
+    import torch  # noqa: F401
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _sync()
+        t = time.perf_counter()
+        fn()
+        _sync()
+        wall = time.perf_counter() - t
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    key = "self_device_time_total" if kernels and hasattr(kernels[0], "self_device_time_total") else "self_cuda_time_total"
+    ms = {e.key: getattr(e, key) / 1e3 for e in kernels}
+    total = sum(ms.values())
+    if not total > 0:
+        raise AssertionError(f"{tag} the profiler recorded no kernel time on the device")
+    print(f"{tag} profiled {wall:.4f} s wall, {total / 1e3:.4f} s of kernels "
+          f"({sum(e.count for e in kernels)} launches): busy share {total / 1e3 / wall:.3f}; on {card}")
+    cats = {}
+    for name, t in ms.items():
+        n = name.lower()
+        cat = next((c for c, subs in _CATEGORIES if any(sub in n for sub in subs)), "other elementwise")
+        cats[cat] = cats.get(cat, 0.0) + t
+    print(f"{tag} category | ms | share of kernel time")
+    for cat, t in sorted(cats.items(), key=lambda x: -x[1]):
+        print(f"{tag} {cat} | {t:.1f} | {t / total:.3f}")
+    print(f"{tag} top kernels: ms | launches | name")
+    for e in sorted(kernels, key=lambda e: -ms[e.key])[:20]:
+        print(f"{tag} {ms[e.key]:.1f} | {e.count} | {e.key[:120]}")
+    return ms
+
+
+def phase_profile(card):
+    """One SST request under the profiler (:func:`_profile`), after a
+    warm-up and two unprofiled requests; then B1's kernels alone."""
     from dyffusion_tpu_torch.serving import build_experiment_predict_fn
 
     exp, eval_fns, dm = _sst_slice()
@@ -1026,41 +1378,59 @@ def phase_profile(card):
 
     timed(SEED)  # warm-up
     print(f"[profile] unprofiled requests {[round(timed(SEED + 1 + j), 4) for j in range(2)]} s")
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        wall = timed(SEED + 3)
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    key = "self_device_time_total" if kernels and hasattr(kernels[0], "self_device_time_total") else "self_cuda_time_total"
-    ms = {e.key: getattr(e, key) / 1e3 for e in kernels}
-    total = sum(ms.values())
-    if not total > 0:
-        raise AssertionError("the profiler recorded no kernel time on the device")
-    print(f"[profile] profiled request {wall:.4f} s wall, {total / 1e3:.4f} s of kernels "
-          f"({sum(e.count for e in kernels)} launches): busy share {total / 1e3 / wall:.3f}; on {card}")
-    cats = {}
-    for name, t in ms.items():
-        n = name.lower()
-        cat = next((c for c, subs in _CATEGORIES if any(sub in n for sub in subs)), "other elementwise")
-        cats[cat] = cats.get(cat, 0.0) + t
-    print("[profile] category | ms per request | share of kernel time")
-    for cat, t in sorted(cats.items(), key=lambda x: -x[1]):
-        print(f"[profile] {cat} | {t:.1f} | {t / total:.3f}")
-    print("[profile] top kernels: ms | launches | name")
-    for e in sorted(kernels, key=lambda e: -ms[e.key])[:20]:
-        print(f"[profile] {ms[e.key]:.1f} | {e.count} | {e.key[:120]}")
-    print("[profile] B1 kernels: ms | launches | ms per launch | name")
-    for e in sorted((e for e in kernels if "linear_attention_qkv" in e.key), key=lambda e: -ms[e.key]):
-        print(f"[profile] {ms[e.key]:.2f} | {e.count} | {ms[e.key] / e.count:.4f} | {e.key[:110]}")
+    ms = _profile("[profile] one SST request:", lambda: predict(batch, SEED + 3), card)
+    print("[profile] B1 kernels: ms | name")
+    for name, t in sorted(((n, t) for n, t in ms.items() if "linear_attention_qkv" in n), key=lambda x: -x[1]):
+        print(f"[profile] {t:.2f} | {name[:110]}")
+
+
+def phase_profile_physical(card, key):
+    """The NS or spring path at its canonical width (seeded random weights,
+    no registry) under the profiler: one served request (the AR chain over
+    the full test trajectory, 20 members) and one stage-2 train step, each
+    after a warm-up."""
+    import numpy as np
+
+    from dyffusion_tpu_torch.config import get_config
+    from dyffusion_tpu_torch.interface import build_experiment, build_trainer, get_datamodule
+    from dyffusion_tpu_torch.serving import build_experiment_predict_fn
+
+    spec = PHYSICAL[key]
+    tag = f"[profile-{spec['label']}]"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_profile_") as tmp:
+        extra = [f"datamodule.data_dir={_physical_archive(tmp, key)}", "trainer.save_checkpoints=False", *spec["extra"]]
+        c1, c2 = get_config(f"{key}_interpolation", extra), get_config(f"{key}_dyffusion", extra)
+        dm = get_datamodule(c1)
+        dm.setup()
+        _, ip, _, _, _ = build_experiment(c1, dm)
+        exp, _, _, eval_fns, _ = build_experiment(c2, dm, interpolator=ip)
+        predict, _, _ = build_experiment_predict_fn(exp, eval_fns, dm, None)
+        batch = next(dm.predict_batches())
+        predict(batch, SEED)  # warm-up
+        _profile(f"{tag} one request ({exp.num_autoregressive_steps + 1} windows):", lambda: predict(batch, SEED + 1), card)
+        trainer = build_trainer(c2, dm, interpolator=ip)
+        train_batch = trainer._put(next(dm.train_batches(rng=np.random.default_rng(SEED))))
+        trainer.train_step(trainer.state, train_batch)  # warm-up
+        _profile(f"{tag} one stage-2 train step (batch {dm.batch_size}):",
+                 lambda: trainer.train_step(trainer.state, train_batch), card)
 
 
 def main(argv) -> int:
     import torch
 
-    if argv not in ([], ["--profile"], ["--kernels"]):
-        raise SystemExit("usage: python3 chip_smoke.py [--profile | --kernels]")
+    if argv not in ([], ["--profile"], ["--kernels"], ["--physical"]):
+        raise SystemExit("usage: python3 chip_smoke.py [--profile | --kernels | --physical]")
     name, smi = phase_device()
     phase_build()
     if argv == ["--profile"]:
         phase_profile(smi)
+        for key in PHYSICAL:
+            phase_profile_physical(smi, key)
+        return 0
+    if argv == ["--physical"]:
+        phase_physical_reference()
+        for key in PHYSICAL:
+            phase_physical(smi, key)
         return 0
     if argv == ["--kernels"]:
         phase_kernel()
@@ -1078,6 +1448,8 @@ def main(argv) -> int:
     train = phase_train(smi, b1["train_step"])
     fit = phase_fit(smi)
     cli = phase_cli(smi)
+    phase_physical_reference()
+    physical = {spec["label"]: phase_physical(smi, key) for key, spec in PHYSICAL.items()}
     # B1's top-level numbers are the [train] path's (this slice's main path);
     # by_path keeps each path's own count, read after setting it to 0.
     # No single PyTorch call computes any of the three functions: library_ms is null
@@ -1085,11 +1457,14 @@ def main(argv) -> int:
         {"name": "linear_attention_qkv", "route": "cuda", "source": la.SOURCE, "replaces": la.REPLACES,
          "launches": train, "max_abs_err": b1["max_abs_err"], **b1["train"], "bound_by": "bytes", "library_ms": None,
          "by_path": {"serve": {"launches": serve, **b1["serve"]}, "train": {"launches": train, **b1["train"]},
-                     "fit": {"launches": fit}, "cli": {"launches": cli}}},
+                     "fit": {"launches": fit}, "cli": {"launches": cli},
+                     **{p: {"launches": c["linear_attention_qkv"]} for p, c in physical.items()}}},
         {"name": "fused_leaky_relu", "route": "cuda", "source": fa.SOURCE, "replaces": fa.REPLACES,
-         "launches": op_launches["fused_leaky_relu"], **b2, "library_ms": None},
+         "launches": op_launches["fused_leaky_relu"], **b2, "library_ms": None,
+         "by_path": {p: {"launches": c["fused_leaky_relu"]} for p, c in physical.items()}},
         {"name": "linear_attention_core", "route": "cuda", "source": la.CORE_SOURCE, "replaces": la.CORE_REPLACES,
-         "launches": op_launches["linear_attention_core"], **b3, "library_ms": None},
+         "launches": op_launches["linear_attention_core"], **b3, "library_ms": None,
+         "by_path": {p: {"launches": c["linear_attention_core"]} for p, c in physical.items()}},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

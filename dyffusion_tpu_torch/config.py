@@ -1,8 +1,10 @@
 """Config system: experiment presets + dotted overrides.
 
 Counterpart of ``dyffusion_tpu/config.py`` for the presets the port runs:
-``synthetic_interpolation`` and ``synthetic_dyffusion``. A preset is the
-base layer deep-merged with a dataset layer and a method layer; overrides
+``{synthetic, navier_stokes, spring_mesh}_{interpolation, dyffusion}``. A
+preset is the base layer deep-merged with a dataset layer, a method layer
+and the preset's own tweaks; the physical systems read their archives from
+``datamodule.data_dir`` (a free key of the datamodule section). Overrides
 use the same ``a.b.c=value`` grammar (Python literals, ``true``/``false``/
 ``null``, a ``+`` prefix for intentionally new keys).
 
@@ -53,6 +55,30 @@ _DATASETS: Dict[str, Dict[str, Any]] = {
         "datamodule": {"name": "synthetic", "horizon": 8, "window": 1, "batch_size": 16},
         "model": {"name": "unet_resnet", "dim": 32, "dim_mults": [1, 2]},
     },
+    # the physical systems read their archives from datamodule.data_dir
+    "spring_mesh": {
+        "datamodule": {
+            "name": "physical-systems", "physical_system": "spring-mesh",
+            "batch_size": 64, "eval_batch_size": 16, "horizon": 134,
+            "prediction_horizon": 804, "window": 1,
+        },
+        "model": {"name": "cnn_simple", "dim": 64, "net_normalization": "batch_norm"},
+        "module": {"optimizer": {"name": "adamw", "lr": 4e-4, "weight_decay": 1e-4}},
+        "trainer": {"max_epochs": 300, "gradient_clip_val": 1.0, "accumulate_grad_batches": 1},
+    },
+    "navier_stokes": {
+        "datamodule": {
+            "name": "physical-systems", "physical_system": "navier-stokes",
+            "batch_size": 32, "eval_batch_size": 4, "horizon": 16,
+            "prediction_horizon": 64, "window": 1,
+        },
+        "model": {
+            "name": "unet_simple", "dim": 64, "outer_sample_mode": "bilinear",
+            "upsample_dims": [256, 256], "dropout": 0.15,
+        },
+        "module": {"optimizer": {"name": "adamw", "lr": 3e-4, "weight_decay": 1e-4}},
+        "trainer": {"max_epochs": 200, "gradient_clip_val": 1.0, "accumulate_grad_batches": 2},
+    },
 }
 
 _METHODS: Dict[str, Dict[str, Any]] = {
@@ -84,6 +110,21 @@ _METHODS: Dict[str, Dict[str, Any]] = {
             "timesteps": "${datamodule.horizon}",
         },
     },
+}
+
+# dataset x method tweaks of the presets above (the JAX package's _COMBO)
+_COMBO: Dict[str, Dict[str, Any]] = {
+    "navier_stokes_dyffusion": {
+        "diffusion": {"refine_intermediate_predictions": True, "forward_conditioning": "none"},
+    },
+    "spring_mesh_dyffusion": {
+        "diffusion": {
+            "refine_intermediate_predictions": True,
+            "forward_conditioning": "data",
+            "use_cold_sampling_for_last_step": False,
+        },
+    },
+    "spring_mesh_interpolation": {"model": {"dropout": 0.05}},
 }
 
 # closed namespaces: an unknown key there is a typo, not a pass-through
@@ -136,6 +177,7 @@ def get_config(preset: Optional[str] = None, overrides: Optional[List[str]] = No
             raise ValueError(f"Unknown method '{method}' in preset '{preset}'. Methods: {sorted(_METHODS)}")
         cfg = deep_merge(cfg, _DATASETS[dataset])
         cfg = deep_merge(cfg, _METHODS[method])
+        cfg = deep_merge(cfg, _COMBO.get(preset, {}))
         cfg["preset"] = preset
     # perf=<mode> selects an execution-layout recipe; the last token wins
     rest, perf = [], None

@@ -90,8 +90,9 @@ class DataModule:
     """Datamodule protocol (ref ``BaseDataModule``, ``abstract_datamodule.py:19-175``).
 
     Concrete datamodules implement :meth:`setup` and fill ``self._splits``
-    with train/val/test/predict :class:`DatasetSplit`s. The boundary-condition
-    hooks of ``abstract_datamodule.py:164-175`` are not ported yet.
+    with train/val/test/predict :class:`DatasetSplit`s. A datamodule with
+    physics re-imposes its boundary conditions on predictions through
+    :meth:`boundary_conditions` (an identity here).
     """
 
     def __init__(
@@ -153,3 +154,12 @@ class DataModule:
     def predict_batches(self):
         split = self.split("predict")
         return split.batches(self._balanced_eval_batch_size(len(split)))
+
+    # -- physics hooks ----------------------------------------------------
+    def boundary_conditions(self, preds, metadata=None, time=None):
+        """Re-impose physical boundary conditions on predictions; the
+        identity here."""
+        return preds
+
+    def get_boundary_condition_kwargs(self, batch: Dict[str, np.ndarray], batch_idx: int, split: str) -> Dict[str, Any]:
+        return {"t0": 0.0, "dt": 1.0}

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from dyffusion_tpu_torch.models.base import apply_model
+from dyffusion_tpu_torch.models.base import MODEL_STATE_UPDATES, apply_model, apply_model_train
 from dyffusion_tpu_torch.utils.loss import mse_loss
 
 Params = Optional[Mapping[str, torch.Tensor]]
@@ -293,10 +293,20 @@ class DyffusionEngine:
         noise_generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """Forecaster forward F(x_t, t) with conditioning."""
+        fcond = self._forecaster_condition(condition, t, static_condition, noise_generator)
+        return apply_model(self.forecaster, fc_params, x_t, self._encode_time(t), fcond, generator)
+
+    def _forecaster_condition(
+        self,
+        condition: Optional[torch.Tensor],
+        t: torch.Tensor,
+        static_condition: Optional[torch.Tensor],
+        noise_generator: Optional[torch.Generator],
+    ) -> Optional[torch.Tensor]:
         fcond = self._forward_condition(condition, t, noise_generator)
         if static_condition is not None:
             fcond = static_condition if fcond is None else torch.cat([fcond, static_condition], dim=1)
-        return apply_model(self.forecaster, fc_params, x_t, self._encode_time(t), fcond, generator)
+        return fcond
 
     def interpolate(
         self,
@@ -345,7 +355,10 @@ class DyffusionEngine:
         weights are frozen, but its second call is differentiated (as in
         the JAX package, which has no stop_gradient there). Dropout is live
         in both networks whenever ``generator`` is given; the draws come
-        from it in a fixed order."""
+        from it in a fixed order. A BatchNorm forecaster runs its first pass
+        on the batch statistics, and the returned metrics carry its
+        running-statistics updates under ``MODEL_STATE_UPDATES``; its l2
+        pass and the interpolator read their running averages."""
         cfg = self.cfg
         lam1, lam2 = cfg.lambda_reconstruction, cfg.lambda_reconstruction2
         if condition.shape[1] != xt_last.shape[1]:
@@ -375,9 +388,12 @@ class DyffusionEngine:
         # 1) forecaster input: the interpolated frame for t > 0, the condition for t == 0
         x_interpolated = run_q_sample(xt_last, condition, torch.clamp(t, min=1.0))
         x_t = torch.where((t > 0).reshape(row), x_interpolated.to(condition.dtype), condition)
-        # 2) forward loss
-        xt_last_pred = self.predict_x_last(
-            fc_params, condition, x_t, t, static_condition, generator=generator, noise_generator=generator
+        # 2) forward loss, the forecaster in train mode: a BatchNorm
+        #    forecaster normalizes with the batch statistics and returns its
+        #    running-statistics updates (the l2 pass reads the old averages)
+        fcond = self._forecaster_condition(condition, t, static_condition, generator)
+        xt_last_pred, updates = apply_model_train(
+            self.forecaster, fc_params, x_t, self._encode_time(t), fcond, generator
         )
         loss_forward = self.criterion(xt_last_pred, xt_last)
         # 3) one-step diffusion-emulation loss (the l2 term)
@@ -393,7 +409,10 @@ class DyffusionEngine:
         else:
             loss_forward2 = torch.zeros((), dtype=loss_forward.dtype, device=loss_forward.device)
         loss = lam1 * loss_forward + lam2 * loss_forward2
-        return loss, {"loss": loss, "loss_forward": loss_forward, "loss_forward2": loss_forward2}
+        aux = {"loss": loss, "loss_forward": loss_forward, "loss_forward2": loss_forward2}
+        if updates:
+            aux[MODEL_STATE_UPDATES] = updates
+        return loss, aux
 
     def loss(
         self,

@@ -43,12 +43,16 @@ def cast_params(
     module: nn.Module, dtype: torch.dtype, params: Optional[Mapping[str, torch.Tensor]] = None
 ) -> Optional[Dict[str, torch.Tensor]]:
     """Weights for ``functional_call`` at ``dtype``: ``params`` (or the
-    module's own state) as ``dtype`` copies; ``None`` (the module's own
-    weights) when there is nothing to substitute or cast."""
+    module's own parameters) with the module's buffers (BatchNorm running
+    statistics), as ``dtype`` copies (the JAX package casts every floating
+    variable); ``None`` (the module's own weights) when there is nothing to
+    substitute or cast."""
     if params is None:
         if dtype == torch.float32:
             return None
         params = module.state_dict()
+    else:
+        params = {**dict(module.named_buffers()), **params}
     return {k: v.to(dtype) if v.is_floating_point() else v for k, v in params.items()}
 
 

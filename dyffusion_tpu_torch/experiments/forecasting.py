@@ -9,8 +9,11 @@ run as one (N*B)-batch sampler call; ``eval_dtype=bfloat16`` runs the
 sampler on bf16 copies of both networks' weights and bf16 inputs, and casts
 predictions back to f32. Autoregressive windows chain
 ceil(prediction_horizon / horizon) sampler calls, each member continuing its
-own trajectory. The member-vmap layout and boundary conditions are not
-ported yet.
+own trajectory, from the boundary-adjusted predictions of the window
+before: a datamodule with physics (``boundary_fn``, its
+``boundary_conditions``) re-imposes its boundary conditions on every
+predicted frame at that frame's simulation time. The member-vmap layout is
+not ported yet.
 """
 from __future__ import annotations
 
@@ -24,9 +27,27 @@ from dyffusion_tpu_torch.experiments.base import Experiment, cast_params, stack_
 class ForecastingExperiment(Experiment):
     """Shared multi-horizon machinery."""
 
-    def __init__(self, cfg, dims, model=None, device="cuda"):
+    def __init__(self, cfg, dims, model=None, boundary_fn=None, device="cuda"):
         super().__init__(cfg, dims, device)
         self.model = model
+        # the datamodule's hook re-imposing physics boundary conditions on
+        # predictions: (preds, metadata=, time=) -> preds
+        self.boundary_fn = boundary_fn
+
+    def metadata(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """The batch's ``metadata_*`` arrays as tensors on the device, read
+        once per batch by the boundary conditions."""
+        return {k: self.to_device(v) for k, v in batch.items() if k.startswith("metadata_")}
+
+    def apply_boundary(self, preds: torch.Tensor, meta: Dict[str, torch.Tensor], total_horizon: float) -> torch.Tensor:
+        """``boundary_fn`` on predictions (..., B, H, W, C) of the frame
+        ``total_horizon`` steps after the window, at simulation time
+        ``t0 + dt * total_horizon``; without a hook, ``preds``."""
+        if self.boundary_fn is None:
+            return preds
+        t0, dt = meta.get("metadata_t0"), meta.get("metadata_dt")
+        time = None if t0 is None else t0 + (dt if dt is not None else 1.0) * total_horizon
+        return self.boundary_fn(preds, metadata=meta, time=time)
 
     @property
     def horizon_range(self):
@@ -40,18 +61,25 @@ class ForecastingExperiment(Experiment):
             return 0
         return max(1, -(-ph // self.cfg.horizon)) - 1
 
-    def record_window(self, out: Dict[str, torch.Tensor], preds: torch.Tensor, ar: int, dynamics: torch.Tensor) -> None:
-        """Record one window's per-t predictions (N, B, H, W, C) and, where
-        the batch has them, targets (B, H, W, C) into ``out``. (The JAX
-        package also applies a datamodule's boundary conditions here; no
-        datamodule of the port has any yet.)"""
+    def record_window(
+        self, out: Dict[str, torch.Tensor], preds: torch.Tensor, meta: Dict[str, torch.Tensor], ar: int,
+        dynamics: torch.Tensor,
+    ) -> torch.Tensor:
+        """Record one window's per-t predictions (N, B, H, W, C), boundary
+        conditions applied, and, where the batch has them, targets
+        (B, H, W, C) into ``out``. Returns the adjusted (N, B, h, H, W, C)
+        predictions: the next window continues from them."""
         h, w = self.cfg.horizon, self.cfg.window
+        adjusted = []
         for i in self.horizon_range:
             total = ar * h + i
-            out[f"t{total}_preds"] = preds[:, :, i - 1]
+            p = self.apply_boundary(preds[:, :, i - 1], meta, float(total))
+            adjusted.append(p)
+            out[f"t{total}_preds"] = p
             t_idx = w + total - 1
             if t_idx < dynamics.shape[1]:
                 out[f"t{total}_targets"] = dynamics[:, t_idx]
+        return torch.stack(adjusted, dim=2)
 
     def next_window_inputs(self, preds: torch.Tensor) -> torch.Tensor:
         """Last ``window`` predictions -> next stacked inputs:
@@ -67,9 +95,9 @@ class DyffusionForecastingExperiment(ForecastingExperiment):
 
     def __init__(
         self, cfg, dims, model=None, engine=None, interpolator=None, forward_conditioning: str = "data",
-        device="cuda",
+        boundary_fn=None, device="cuda",
     ):
-        super().__init__(cfg, dims, model, device=device)
+        super().__init__(cfg, dims, model, boundary_fn=boundary_fn, device=device)
         self.engine = engine  # DyffusionEngine over forecaster + interpolator
         self.interpolator = interpolator  # frozen interpolator module
         self.forward_conditioning = forward_conditioning
@@ -136,13 +164,14 @@ class DyffusionForecastingExperiment(ForecastingExperiment):
                     cond_flat.shape, generator=generator, device=cond_flat.device, dtype=cond_flat.dtype
                 )
             out: Dict[str, torch.Tensor] = {}
+            meta = self.metadata(batch) if self.boundary_fn is not None else {}
             preds = _unfold(engine.sample(fc_params, ip_params, generator, cond_flat, sc_flat), B)
-            self.record_window(out, preds, 0, dynamics)
+            preds = self.record_window(out, preds, meta, 0, dynamics)
             for ar in range(1, n_windows):
                 ar_inputs = self.next_window_inputs(preds)  # (N, B, w*C, H, W)
                 ar_flat = ar_inputs.reshape((n_members * B,) + tuple(ar_inputs.shape[2:])).to(dtype)
                 preds = _unfold(engine.sample(fc_params, ip_params, generator, ar_flat, sc_flat), B)
-                self.record_window(out, preds, ar, dynamics)
+                preds = self.record_window(out, preds, meta, ar, dynamics)
             return out
 
         return eval_fn

@@ -12,7 +12,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from dyffusion_tpu_torch.experiments.base import Experiment, cast_params, stack_window
-from dyffusion_tpu_torch.models.base import apply_model
+from dyffusion_tpu_torch.models.base import MODEL_STATE_UPDATES, apply_model, apply_model_train
 from dyffusion_tpu_torch.utils.loss import get_loss_fn
 
 
@@ -42,7 +42,9 @@ class InterpolationExperiment(Experiment):
     def make_loss_fn(self) -> Callable:
         """``loss_fn(params, batch, generator) -> (loss, metrics)``: i ~
         U{1..h-1} per row from ``generator``, target ``dynamics[:, w+i-1]``.
-        ``params`` replaces the model's weights (``None``: its own)."""
+        ``params`` replaces the model's weights (``None``: its own). The
+        model runs in train mode: a BatchNorm backbone's running-statistics
+        updates come back in the metrics under ``MODEL_STATE_UPDATES``."""
         w, h = self.cfg.window, self.cfg.horizon
 
         def loss_fn(params, batch: Dict[str, Any], generator: Optional[torch.Generator]):
@@ -50,11 +52,11 @@ class InterpolationExperiment(Experiment):
             B = dynamics.shape[0]
             t = torch.randint(1, h, (B,), generator=generator, device=dynamics.device)
             targets = dynamics[torch.arange(B, device=dynamics.device), w + t - 1].permute(0, 3, 1, 2)
-            preds = apply_model(
+            preds, updates = apply_model_train(
                 self.model, params, self.get_inputs(dynamics), t.float(), self.static_condition(batch), generator
             )
             loss = self.criterion(preds, targets)
-            return loss, {"loss": loss}
+            return loss, ({"loss": loss, MODEL_STATE_UPDATES: updates} if updates else {"loss": loss})
 
         return loss_fn
 

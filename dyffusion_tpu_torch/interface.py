@@ -2,7 +2,8 @@
 experiment, engine, train state, trainer; the run registry.
 
 Counterpart of ``dyffusion_tpu/interface.py`` on one device:
-``get_datamodule`` (synthetic data), ``load_interpolator_from_registry``,
+``get_datamodule`` (synthetic and physical-systems data),
+``load_interpolator_from_registry`` (weights and BatchNorm statistics),
 ``build_experiment`` for the ``interpolation`` experiment and for
 ``dyffusion`` (its interpolator loaded from the registry by
 ``diffusion.interpolator_run_id``, or passed in memory),
@@ -24,7 +25,7 @@ import torch
 from torch import nn
 
 from dyffusion_tpu_torch.config import apply_override
-from dyffusion_tpu_torch.data import DataModule, SyntheticDataModule
+from dyffusion_tpu_torch.data import DataModule, PhysicalSystemsDataModule, SyntheticDataModule
 from dyffusion_tpu_torch.diffusion.dyffusion import DyffusionConfig, DyffusionEngine
 from dyffusion_tpu_torch.experiments import (
     DyffusionForecastingExperiment,
@@ -42,11 +43,14 @@ from dyffusion_tpu_torch.utils.naming import get_run_id
 
 
 def get_datamodule(config: Dict[str, Any]) -> DataModule:
-    """Instantiate the datamodule (synthetic only in the port so far)."""
+    """Instantiate the datamodule: ``synthetic``, or ``physical-systems``
+    (Navier-Stokes / spring-mesh archives under ``datamodule.data_dir``)."""
     dm_cfg = dict(config["datamodule"])
     name = dm_cfg.pop("name")
     if name == "synthetic":
         return SyntheticDataModule(**dm_cfg)
+    if name == "physical-systems":
+        return PhysicalSystemsDataModule(**dm_cfg)
     raise ValueError(f"Unknown or not yet ported datamodule: {name}")
 
 
@@ -129,8 +133,11 @@ def build_experiment(
         else:
             interpolator = copy.deepcopy(interpolator).to(device).requires_grad_(False)
             ip_horizon = exp_cfg.horizon
+        # the datamodule's physics hook, where it overrides the identity
+        has_boundary = type(datamodule).boundary_conditions is not DataModule.boundary_conditions
         exp = DyffusionForecastingExperiment(
-            exp_cfg, dims, forward_conditioning=diff_cfg.get("forward_conditioning", "data"), device=device,
+            exp_cfg, dims, forward_conditioning=diff_cfg.get("forward_conditioning", "data"),
+            boundary_fn=datamodule.boundary_conditions if has_boundary else None, device=device,
         )
         model = init_model(exp)
         fields = set(DyffusionConfig.__dataclass_fields__)

@@ -2,10 +2,16 @@
 import inspect
 
 from dyffusion_tpu_torch.models.base import BackboneSpec, concat_condition
-from dyffusion_tpu_torch.models.convert import unet_state_dict_from_jax
+from dyffusion_tpu_torch.models.convert import (
+    simple_conv_net_state_dict_from_jax,
+    unet_simple_state_dict_from_jax,
+    unet_state_dict_from_jax,
+)
+from dyffusion_tpu_torch.models.simple_conv_net import SimpleConvNet
 from dyffusion_tpu_torch.models.unet import Unet
+from dyffusion_tpu_torch.models.unet_simple import UNetSimple
 
-MODEL_REGISTRY = {"unet_resnet": Unet}
+MODEL_REGISTRY = {"unet_resnet": Unet, "unet_simple": UNetSimple, "cnn_simple": SimpleConvNet}
 
 
 def build_backbone(model_cfg, spec: BackboneSpec):
@@ -26,4 +32,15 @@ def build_backbone(model_cfg, spec: BackboneSpec):
     )
 
 
-__all__ = ["BackboneSpec", "MODEL_REGISTRY", "Unet", "build_backbone", "concat_condition", "unet_state_dict_from_jax"]
+__all__ = [
+    "BackboneSpec",
+    "MODEL_REGISTRY",
+    "SimpleConvNet",
+    "UNetSimple",
+    "Unet",
+    "build_backbone",
+    "concat_condition",
+    "simple_conv_net_state_dict_from_jax",
+    "unet_simple_state_dict_from_jax",
+    "unet_state_dict_from_jax",
+]

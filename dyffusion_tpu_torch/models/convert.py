@@ -1,14 +1,18 @@
-"""JAX ``Unet`` params -> the port's ``Unet`` state dict.
+"""JAX backbone variables -> the port's state dicts (``Unet``,
+``UNetSimple``, ``SimpleConvNet``).
 
-The exact inverse of the torch->flax porter the JAX package's parity tests
+The exact inverse of the torch->flax porters the JAX package's parity tests
 use for the original reference: flax Conv kernels (kh, kw, I, O) become
-(O, I, kh, kw); Dense kernels (I, O) become 1x1 convs (O, I, 1, 1) or Linear
-weights (O, I); GroupNorm ``scale`` becomes ``weight``; the channel-norm gain
-(C,) becomes (1, C, 1, 1).
+(O, I, kh, kw); ConvTranspose kernels (kh, kw, I, O) become torch's
+(I, O, kh, kw) with the taps flipped (flax correlates, torch's transposed
+conv convolves); Dense kernels (I, O) become 1x1 convs (O, I, 1, 1) or
+Linear weights (O, I); norm ``scale`` becomes ``weight``; the channel-norm
+gain (C,) becomes (1, C, 1, 1); BatchNorm's ``batch_stats`` ``mean``/``var``
+become ``running_mean``/``running_var`` (``num_batches_tracked`` 0).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -88,3 +92,79 @@ def unet_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
             conv, key = params[f"up{i}_conv"], f"ups.{i}.3"
         out[f"{key}.weight"], out[f"{key}.bias"] = _conv(conv["kernel"]), np.asarray(conv["bias"])
     return {k: torch.tensor(np.asarray(v, dtype=np.float32)) for k, v in out.items()}
+
+
+def _conv_transpose(w) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(np.asarray(w), (2, 3, 0, 1))[:, :, ::-1, ::-1])
+
+
+def _time_emb(out: Dict[str, Any], params: Mapping[str, Any]) -> None:
+    if "time_emb" in params:
+        for j, idx in ((0, 1), (1, 3)):
+            out[f"time_emb_mlp.{idx}.weight"] = _linear(params["time_emb"][f"Dense_{j}"]["kernel"])
+            out[f"time_emb_mlp.{idx}.bias"] = np.asarray(params["time_emb"][f"Dense_{j}"]["bias"])
+
+
+def _norm(out: Dict[str, Any], p: Mapping[str, Any], stats: Optional[Mapping[str, Any]], prefix: str) -> None:
+    out[f"{prefix}.weight"] = np.asarray(p["scale"])
+    out[f"{prefix}.bias"] = np.asarray(p["bias"])
+    if stats is not None:
+        out[f"{prefix}.running_mean"] = np.asarray(stats["mean"])
+        out[f"{prefix}.running_var"] = np.asarray(stats["var"])
+        out[f"{prefix}.num_batches_tracked"] = np.asarray(0, np.int64)
+
+
+def _to_torch(out: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    return {
+        k: torch.tensor(np.asarray(v)) if np.asarray(v).dtype == np.int64 else torch.tensor(np.asarray(v, np.float32))
+        for k, v in out.items()
+    }
+
+
+def unet_simple_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Convert JAX ``UNetSimple`` variables (``{'params', 'batch_stats'}``,
+    nested dicts of arrays) into a state dict for
+    :class:`dyffusion_tpu_torch.models.unet_simple.UNetSimple`."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    out: Dict[str, Any] = {
+        "init_conv.weight": _conv(params["init_conv"]["kernel"]),
+        "init_conv.bias": np.asarray(params["init_conv"]["bias"]),
+        "readout.0.weight": _conv_transpose(params["readout"]["kernel"]),
+        "readout.0.bias": np.asarray(params["readout"]["bias"]),
+    }
+    _time_emb(out, params)
+    for side, lst, conv_idx in (("enc", "input_ops", 0), ("dec", "output_ops", 1)):
+        for i in range(6):
+            p, prefix = params[f"{side}{i}"], f"{lst}.{i}"
+            out[f"{prefix}.ops.{conv_idx}.weight"] = _conv(p["conv"]["kernel"])
+            out[f"{prefix}.ops.{conv_idx}.bias"] = np.asarray(p["conv"]["bias"])
+            block_stats = stats.get(f"{side}{i}", {}).get("norm")
+            _norm(out, p["norm"], block_stats, f"{prefix}.ops.{conv_idx + 1}")
+            if "time_mlp" in p:
+                out[f"{prefix}.time_mlp.1.weight"] = _linear(p["time_mlp"]["kernel"])
+                out[f"{prefix}.time_mlp.1.bias"] = np.asarray(p["time_mlp"]["bias"])
+    return _to_torch(out)
+
+
+def simple_conv_net_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Convert JAX ``SimpleConvNet`` variables (``{'params',
+    'batch_stats'?}``) into a state dict for
+    :class:`dyffusion_tpu_torch.models.simple_conv_net.SimpleConvNet`."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    out: Dict[str, Any] = {
+        "head.weight": _dense_1x1(params["head"]["kernel"]),
+        "head.bias": np.asarray(params["head"]["bias"]),
+    }
+    _time_emb(out, params)
+    n_blocks = sum(1 for k in params if k.startswith("conv") and k[4:].isdigit())
+    for i in range(n_blocks):
+        p, prefix = params[f"conv{i}"], f"convs.{i}"
+        out[f"{prefix}.conv.weight"] = _conv(p["conv"]["kernel"])
+        out[f"{prefix}.conv.bias"] = np.asarray(p["conv"]["bias"])
+        norm_name = next((k for k in p if k.split("_")[0] in ("BatchNorm", "LayerNorm", "GroupNorm")), None)
+        if norm_name is not None:
+            _norm(out, p[norm_name], stats.get(f"conv{i}", {}).get(norm_name), f"{prefix}.norm")
+        if "time_mlp" in p:
+            out[f"{prefix}.time_mlp.1.weight"] = _linear(p["time_mlp"]["kernel"])
+            out[f"{prefix}.time_mlp.1.bias"] = np.asarray(p["time_mlp"]["bias"])
+    return _to_torch(out)

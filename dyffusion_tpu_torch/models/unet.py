@@ -89,8 +89,9 @@ def remat_call(block: nn.Module, generator: Optional[torch.Generator], *args) ->
     here and the recompute draws from a copy of it: the same dropout masks,
     and the live generator is left as the forward left it. The recompute
     also runs after any ``functional_call`` that substituted the block's
-    weights has returned, so it substitutes the tensors the forward used."""
-    params = dict(block.named_parameters())
+    weights (and buffers) has returned, so it substitutes the tensors the
+    forward used."""
+    params = {**dict(block.named_buffers()), **dict(block.named_parameters())}
     state = None if generator is None else generator.get_state()
     calls = []
 

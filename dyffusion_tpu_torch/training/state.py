@@ -12,6 +12,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
+from dyffusion_tpu_torch.models.base import load_model_state_updates
 from dyffusion_tpu_torch.training.ema import ema_update, init_ema
 from dyffusion_tpu_torch.training.optim import Optimizer
 
@@ -44,8 +45,11 @@ class TrainState:
         self.ema_num_updates = 0
         self.step = 0  # micro-batches
 
-    def apply_gradients(self) -> None:
-        """One optimizer step from the weights' ``.grad``, then the EMA."""
+    def apply_gradients(self, model_state_updates: Optional[Dict[str, torch.Tensor]] = None) -> None:
+        """One optimizer step from the weights' ``.grad``, then the EMA
+        (over the parameters only), then the model-state updates of the step
+        (BatchNorm running statistics, :func:`~dyffusion_tpu_torch.models.
+        base.apply_model_train`) into the model's buffers."""
         if self.use_ema:
             # folded: the k-1 micro-batch updates against the not-yet-stepped weights
             for _ in range(self.fold_factor - 1):
@@ -53,11 +57,14 @@ class TrainState:
         self.optimizer.step()
         if self.use_ema:
             self.ema_num_updates = ema_update(self.ema, self.params.values(), self.ema_num_updates, self.ema_decay)
+        if model_state_updates:
+            load_model_state_updates(self.model, model_state_updates)
         self.step += self.fold_factor
 
     def eval_params(self) -> Optional[Dict[str, torch.Tensor]]:
         """The weights to evaluate with: the EMA shadow if enabled, else
-        ``None`` (the model's own)."""
+        ``None`` (the model's own). Either way the buffers (BatchNorm
+        running statistics) are the model's live ones."""
         return self.ema if self.use_ema else None
 
     def state_dict(self) -> Dict[str, Any]:

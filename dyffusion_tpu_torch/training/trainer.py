@@ -29,6 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from dyffusion_tpu_torch.models.base import MODEL_STATE_UPDATES
 from dyffusion_tpu_torch.training.checkpoint import CheckpointManager
 from dyffusion_tpu_torch.training.state import TrainState
 from dyffusion_tpu_torch.utils.logging import save_arrays_as_line_plot
@@ -39,16 +40,19 @@ LossFn = Callable[[Optional[Dict[str, torch.Tensor]], Dict[str, Any], Optional[t
 
 
 def mixed_precision_loss(loss_fn: LossFn, model: nn.Module, dtype: torch.dtype = torch.bfloat16) -> LossFn:
-    """Run ``loss_fn`` on ``dtype`` copies of the model's weights and of the
-    batch's float arrays. The f32 master weights, optimizer state and EMA
-    are untouched; gradients come back f32 through the casts, and the loss
-    reductions stay f32 (``utils/loss.py``)."""
+    """Run ``loss_fn`` on ``dtype`` copies of the model's weights and
+    buffers (BatchNorm running statistics, as the JAX package casts every
+    variable) and of the batch's float arrays. The f32 master weights,
+    optimizer state, EMA and buffers are untouched; gradients come back f32
+    through the casts, the loss reductions stay f32 (``utils/loss.py``), and
+    so do the BatchNorm updates (computed in f32, copied into f32 buffers)."""
 
     def cast(v):
         return v.to(dtype) if torch.is_tensor(v) and v.is_floating_point() else v
 
     def wrapped(params, batch, generator):
         source = params if params is not None else dict(model.named_parameters())
+        source = {**dict(model.named_buffers()), **source}
         return loss_fn({k: cast(v) for k, v in source.items()}, {k: cast(v) for k, v in batch.items()}, generator)
 
     return wrapped
@@ -57,10 +61,13 @@ def mixed_precision_loss(loss_fn: LossFn, model: nn.Module, dtype: torch.dtype =
 def make_train_step(loss_fn: LossFn) -> Callable[[TrainState, Dict[str, Any]], Dict]:
     """``train_step(state, batch) -> metrics``: gradients of ``loss_fn`` with
     respect to the model's trainable weights, then
-    :meth:`TrainState.apply_gradients`. ``state`` is updated in place."""
+    :meth:`TrainState.apply_gradients` with the BatchNorm updates the loss
+    returned under ``MODEL_STATE_UPDATES``. ``state`` is updated in place."""
 
     def train_step(state: TrainState, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         loss, metrics = loss_fn(None, batch, state.generator)
+        metrics = dict(metrics)
+        updates = metrics.pop(MODEL_STATE_UPDATES, None)
         loss.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         with torch.no_grad():
@@ -70,7 +77,7 @@ def make_train_step(loss_fn: LossFn) -> Callable[[TrainState, Dict[str, Any]], D
             # zero-gradient fraction; a weight the loss does not reach counts as zeros
             n_unreached = n_total - sum(g.numel() for g in grads)
             metrics["zero_grad_frac"] = (sum((g == 0).sum() for g in grads) + n_unreached) / n_total
-        state.apply_gradients()
+        state.apply_gradients(updates)
         return metrics
 
     return train_step

@@ -1,5 +1,5 @@
-"""The SST-scale DYffusion workload, defined once for the port, and the
-train-step timing idiom.
+"""The SST-scale, Navier-Stokes and spring-mesh DYffusion workloads,
+defined once for the port, and the train-step timing idiom.
 
 The same overrides as ``dyffusion_tpu/utils/workloads.py`` (reference
 ``configs/experiment/oisst_pacific_dyffusion.yaml``): 60x60 grid, C=1,
@@ -40,6 +40,67 @@ def sst_overrides(extra: Optional[Sequence[str]] = None) -> List[str]:
     """The SST workload plus caller-specific ``extra`` overrides (later
     entries win)."""
     return list(SST_CORE) + list(extra or ())
+
+
+# The Navier-Stokes workload's model and physics (reference
+# configs/experiment/navier_stokes.yaml and model/unet_simple_navier_stokes.yaml):
+# 221x42 grid, C=3 plus 2 static condition channels, horizon 16, UNetSimple
+# dim 64 with the 256x256 internal bilinear resample, dropout 0.15, 20
+# members, stage 2 with refinement and forward_conditioning=none. The same
+# overrides as the JAX package's (they address the synthetic datamodule; the
+# navier_stokes presets set the same shapes).
+NS_CORE: Tuple[str, ...] = (
+    "datamodule.spatial=(221,42)",
+    "datamodule.channels=3",
+    "datamodule.conditional_channels=2",
+    "datamodule.horizon=16",
+    "model.name=unet_simple",
+    "model.dim=64",
+    "model.outer_sample_mode=bilinear",
+    "model.upsample_dims=(256,256)",
+    "model.dropout=0.15",
+    "module.num_predictions=20",
+    "diffusion.refine_intermediate_predictions=True",
+    "diffusion.forward_conditioning=none",
+)
+
+NS_TRAIN: Tuple[str, ...] = (
+    "datamodule.batch_size=32",
+    "trainer.accumulate_grad_batches=2",
+)
+
+
+def ns_overrides(extra: Optional[Sequence[str]] = None) -> List[str]:
+    """The Navier-Stokes workload (:data:`NS_CORE`) plus ``extra``."""
+    return list(NS_CORE) + list(extra or ())
+
+
+# The spring-mesh workload (reference configs/experiment/spring_mesh.yaml and
+# model/cnn_simple.yaml): 10x10 grid, C=4 plus 1 condition channel, horizon
+# 134, SimpleConvNet dim 64 with BatchNorm, dropout 0.2, 20 members, train
+# batch 64, stage 2 with refinement.
+SPRING_CORE: Tuple[str, ...] = (
+    "datamodule.spatial=(10,10)",
+    "datamodule.channels=4",
+    "datamodule.conditional_channels=1",
+    "datamodule.horizon=134",
+    "model.name=cnn_simple",
+    "model.dim=64",
+    "model.net_normalization=batch_norm",
+    "model.dropout=0.2",
+    "module.num_predictions=20",
+    "diffusion.refine_intermediate_predictions=True",
+)
+
+SPRING_TRAIN: Tuple[str, ...] = (
+    "datamodule.batch_size=64",
+    "trainer.accumulate_grad_batches=1",
+)
+
+
+def spring_overrides(extra: Optional[Sequence[str]] = None) -> List[str]:
+    """The spring-mesh workload (:data:`SPRING_CORE`) plus ``extra``."""
+    return list(SPRING_CORE) + list(extra or ())
 
 
 def time_train_steps(step_fn, state, batch, steps: int = 20) -> float:

@@ -388,3 +388,78 @@ def test_resume_on_the_gpu(tmp_path, deterministic_cudnn):
     batch = next(whole.datamodule.train_batches())
     losses = [float(t.train_step(t.state, t._put(batch))["loss"]) for t in (whole, resumed)]
     assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[0]), losses
+
+
+def _physical_backbone(name, seed):
+    """A small UNetSimple (NS grid, 64x64 working grid) or SimpleConvNet
+    (spring grid) with random running statistics, and NCHW inputs."""
+    from dyffusion_tpu_torch.models import build_backbone
+    from dyffusion_tpu_torch.models.base import BackboneSpec
+
+    torch.manual_seed(seed)
+    if name == "unet_simple":
+        cfg, (C, Cc, H, W) = {"name": name, "dim": 8, "upsample_dims": (128, 128), "with_time_emb": True}, (3, 2, 221, 42)
+    else:
+        cfg, (C, Cc, H, W) = {"name": name, "dim": 64, "with_time_emb": True}, (4, 1, 10, 10)
+    model = build_backbone(cfg, BackboneSpec(C, C, Cc))
+    with torch.no_grad():
+        for k, buf in model.named_buffers():
+            if "running_mean" in k:
+                buf.copy_(0.3 * torch.randn(buf.shape))
+            elif "running_var" in k:
+                buf.copy_(0.5 + torch.rand(buf.shape))
+    g = np.random.default_rng(seed)
+    x, c = (torch.from_numpy(g.normal(size=(8, n, H, W)).astype(np.float32)) for n in (C, Cc))
+    return model, x, c, torch.arange(1.0, 9.0)
+
+
+@pytest.fixture
+def full_f32():
+    """f32 convs and matmuls without TF32 (cuDNN's convs default to it)."""
+    before = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["unet_simple", "cnn_simple"])
+def test_physical_backbones_on_the_gpu_match_the_cpu(name, deterministic_cudnn, full_f32):
+    """The NS and spring backbones: the eval forward, the train-mode forward
+    and its running-statistics updates in f32, GPU against CPU (1e-4 of the
+    largest value); the gradients of the train-mode forward against the
+    CPU's f64 ones. UNetSimple's f32 gradients are ill-conditioned (its
+    tiny DCGAN-initialized features meet BatchNorm): here the CPU's own lie
+    up to ~2e-3 of their scale from f64. So the GPU's are held to 1e-3 of
+    each gradient's scale, or 3 times the CPU's f32 error, whichever is
+    larger (the scale: the larger of its own largest |value| and 0.1 of the
+    model's largest; conv biases feeding a BatchNorm get only float noise)."""
+    _require_cuda()
+    import copy
+
+    from dyffusion_tpu_torch.models.base import apply_model, apply_model_train
+
+    model, x, c, t = _physical_backbone(name, seed=0)
+    out = {}
+    for device, dtype in (("cpu", torch.float64), ("cpu", torch.float32), ("cuda", torch.float32)):
+        m = copy.deepcopy(model).to(device, dtype)
+        args = (x.to(device, dtype), t.to(device), c.to(device, dtype))
+        with torch.no_grad():
+            eval_out = apply_model(m, None, *args)
+        m.zero_grad()
+        train_out, updates = apply_model_train(m, None, *args)
+        train_out.square().mean().backward()
+        out[device, dtype] = (eval_out.cpu(), train_out.detach().cpu(), {k: v.cpu() for k, v in updates.items()},
+                              {k: p.grad.cpu().double() for k, p in m.named_parameters()})
+    f64, cpu, gpu = out["cpu", torch.float64], out["cpu", torch.float32], out["cuda", torch.float32]
+    _assert_close_to_scale(gpu[0], cpu[0], 1e-4)
+    _assert_close_to_scale(gpu[1], cpu[1], 1e-4)
+    assert sorted(gpu[2]) == sorted(cpu[2])
+    for k, v in cpu[2].items():
+        _assert_close_to_scale(gpu[2][k], v, 1e-4)
+    top = max(float(v.abs().max()) for v in f64[3].values())
+
+    def worst(grads):
+        return max(float((grads[k] - v).abs().max()) / max(float(v.abs().max()), 0.1 * top) for k, v in f64[3].items())
+
+    assert worst(gpu[3]) <= max(1e-3, 3 * worst(cpu[3])), (worst(gpu[3]), worst(cpu[3]))
