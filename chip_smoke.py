@@ -1075,7 +1075,8 @@ def phase_physical(card, key):
     windows = n_frames // trainer.experiment.cfg.horizon
     print(f"{tag} best val/crps: stage 1 {best1:.5f}, stage 2 {best2:.5f}; test/crps {crps:.5f} (reloaded: "
           f"{test_metrics['test/crps']:.5f}); served {tuple(a.shape)} ({info['ensemble_members']} members, "
-          f"{windows} windows of {trainer.experiment.cfg.horizon}); request times {[round(x, 3) for x in times]} s")
+          f"{windows} windows of {trainer.experiment.cfg.horizon}); request times {[round(x, 3) for x in times]} s; "
+          f"on {card}")
     print(f"{tag} boundary conditions: worst error over {n_frames} served frames {max(errs):.3e}; the sampler "
           f"without the hook: {raw_err:.3e}; same seed max diff {repeat:.3e}, other seed {apart:.3e}; running "
           f"statistics unchanged by evaluation and serving: {unchanged}; kernel launches on this path {counts}; "
@@ -1165,8 +1166,9 @@ def phase_physical_reference():
     ``p_losses`` over 8 rows at fixed t over every branch (t = 0, 1, the
     middle, N-1) with the running-statistics updates (1e-4) and every
     forecaster gradient. Negative controls: the forward with the running
-    statistics reset, and the loss with the forecaster's first pass on its
-    running averages (eval mode), must each fail their check.
+    statistics reset, and the loss, gradients and updates with the
+    forecaster's first pass on its running averages (eval mode), must each
+    fail their check.
 
     UNetSimple's gradients are ill-conditioned in f32 (its DCGAN-initialized
     features are tiny and BatchNorm divides by their spread): at a 64x64
@@ -1202,17 +1204,20 @@ def phase_physical_reference():
         rel_eval = abs(runs[("cuda", "eval first pass")][1] - cpu[1]) / abs(cpu[1])
         grad_limit = max(1e-3, 3 * worst_f64)
         ok_grads = worst_gpu <= grad_limit
+        eval_run = runs[("cuda", "eval first pass")]
+        worst_eval = _worst_grad(eval_run[2], f64[2])[0]
         stats_err = max(float((gpu[3][k] - v).abs().max() / v.abs().max()) for k, v in cpu[3].items() if "running" in k)
         print(f"{tag} eval forward f32, GPU vs CPU: max_abs_err {e_fwd:.3e} (limit {lim_fwd:.3e}); with the running "
               f"statistics reset: rejected {not ok_fresh}")
         print(f"{tag} stage-2 loss f32: GPU {gpu[1]:.7f} vs CPU {cpu[1]:.7f} (rel {rel_loss:.2e}, limit 1e-4); "
-              f"first pass in eval mode: rel {rel_eval:.2e}; {len(cpu[2])} gradients against the CPU's f64 ones: "
+              f"first pass in eval mode: rel {rel_eval:.2e}, gradients {worst_eval:.2e}, updates {len(eval_run[3])}; "
+              f"{len(cpu[2])} gradients against the CPU's f64 ones: "
               f"GPU worst {worst_gpu:.2e} of its scale ({key_gpu}), CPU f32 worst {worst_f64:.2e} ({key_f64}), limit "
               f"{grad_limit:.2e}; "
               f"{len(cpu[3])} running-statistics updates: worst rel {stats_err:.2e} (limit 1e-4)")
         if not ok_fwd or rel_loss > 1e-4 or not ok_grads or stats_err > 1e-4 or set(gpu[3]) != set(cpu[3]):
             raise AssertionError(f"{tag} the GPU disagrees with the CPU")
-        if ok_fresh or rel_eval <= 1e-4:
+        if ok_fresh or rel_eval <= 1e-4 or worst_eval <= grad_limit or set(eval_run[3]) == set(cpu[3]):
             raise AssertionError(f"{tag} a negative control passed its check")
 
 
