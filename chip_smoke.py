@@ -82,8 +82,21 @@ non-zero:
    peak memory. No kernel of the port lies on these paths: their launch
    counts must read 0.
 
-Each path (slice, train, fit, each cli command, ns, spring) sets the launch
-counts to 0 before it runs and reads them after. The line before the last is the kernel summary as JSON
+13. baselines: the five baselines (time-conditioned, simultaneous, DDPM,
+   MCVD, LDM-DDPM) through the CLI at SST width (``synthetic_<method>``,
+   f32, 20 members) in a temporary registry: a few train steps and one
+   validation, ``mode=test`` (50 members), serving by run id (a seed
+   repeats, another does not, the members differ; a sampler whose members
+   share their noise fails that check), and for each diffusion engine one
+   request with its preset's full sampler (1000 / 1001 / 1000 forwards).
+   B1 is checked against its plain version at the path's rows in f32 first,
+   and one DDPM and one MCVD step of the trained SST denoiser GPU against
+   CPU. B1 launches per command and per request (42 / 6 / 6,000 / 6,006 /
+   6,000) are asserted.
+
+Each path (slice, train, fit, each cli command, ns, spring, each baseline
+command and request) sets the launch counts to 0 before it runs and reads
+them after. The line before the last is the kernel summary as JSON
 (B1's top-level launches and times are the train path's; ``by_path`` has
 each path's count); the last line is ``{"ok": true, "device": {...}}``.
 
@@ -99,6 +112,11 @@ prints no ``ok`` line.
 
 runs phases 1, 2, 11 and 12 (the physical-systems paths) and stops, with
 no ``ok`` line.
+
+    python3 chip_smoke.py --baselines
+
+runs phases 1, 2 and 13 (the baselines) and stops, with no ``ok`` line.
+``--profile`` also profiles one full-sampler DDPM request.
 
     python3 chip_smoke.py --kernels
 
@@ -1306,6 +1324,227 @@ def phase_slice(card):
     return launches
 
 
+# The baselines at SST width (section 4 of PERF.md): the presets
+# synthetic_<method> with the SST workload (utils/workloads.py), f32, 20
+# members. 5 trajectories of 9 frames: 2 rows each, so one train batch of 4
+# per epoch, and one eval batch of 2 rows per split (40 rows at 20 members,
+# 100 at the test ensemble's 50). Validation, mode=test and serving's seed
+# checks (on one row: 20 rows per forward) subsample DDPM (DDIM) and MCVD to
+# BASELINE_EVAL_STEPS steps; the LDM-DDPM has no subsampling and runs its
+# 1000 steps everywhere. The full-sampler requests serve the predict split's
+# eval batch of 2 (40 rows per forward): the largest that keeps the phase
+# within its share of the run's time.
+BASELINES = ("time_conditioned", "simultaneous", "ddpm", "mcvd", "ddpm_v2")
+BASELINE_DIFFUSION = ("ddpm", "mcvd", "ddpm_v2")
+BASELINE_EVAL_STEPS = 10
+BASELINE_TRAIN_STEPS = 4
+BASELINE_DATA = ["datamodule.n_traj=5", "datamodule.n_time=9", "datamodule.batch_size=4",
+                 "datamodule.eval_batch_size=2"]
+
+
+def _sampler_forwards(exp):
+    """Network forwards of one eval window of a baseline experiment (its
+    engine as configured): h for the time-conditioned forecaster, 1 for the
+    simultaneous one, the sampler's steps (+ MCVD's final denoise)."""
+    from dyffusion_tpu_torch.diffusion import GaussianDiffusionEngine, McvdEngine
+    from dyffusion_tpu_torch.experiments import TimeConditionedForecastingExperiment
+
+    engine = getattr(exp, "diffusion_engine", None)
+    if engine is None:
+        return exp.cfg.horizon if isinstance(exp, TimeConditionedForecastingExperiment) else 1
+    if isinstance(engine, GaussianDiffusionEngine):
+        return len(engine.ddim_steps()) if engine.is_ddim_sampling else engine.num_timesteps
+    if isinstance(engine, McvdEngine):
+        return len(engine.subsampled_schedule()[0]) + int(engine.cfg.sampling_denoise)
+    return engine.num_timesteps
+
+
+def _baseline_one_step_vs_cpu(model, spatial):
+    """One f32 DDPM step and one MCVD step of the trained SST denoiser
+    (``model``, on the GPU, samples of ``spatial`` (H, W)) against its copy
+    on the CPU, on one row with the
+    same noise: each engine at T = 2 runs its two denoiser forwards (MCVD
+    then its final denoise). Tolerance 1e-4 of the largest output (f32 both
+    sides, TF32 off). Negative control: the CPU step without its noise.
+    Returns the worst relative error."""
+    import copy
+
+    import torch
+
+    from dyffusion_tpu_torch.diffusion import GaussianDiffusionConfig, GaussianDiffusionEngine, McvdConfig, McvdEngine
+
+    c_in, c_out = model.init_conv.in_channels, model.final_conv.out_channels
+    shape = (c_out,) + tuple(spatial)
+    gen = torch.Generator().manual_seed(SEED)
+    cond = torch.randn((1, c_in - c_out) + tuple(spatial), generator=gen)
+    draws = [torch.randn((1,) + shape, generator=gen) for _ in range(2)]
+    cpu_model = copy.deepcopy(model).cpu()
+    worst = 0.0
+    for name, make in (("DDPM", lambda m: GaussianDiffusionEngine(GaussianDiffusionConfig(timesteps=2), m, shape)),
+                       ("MCVD", lambda m: McvdEngine(McvdConfig(timesteps=2), m, shape))):
+        outs = {}
+        for tag, m, dev, queue in (("gpu", model, "cuda", list(draws)), ("cpu", cpu_model, "cpu", list(draws)),
+                                   ("no noise", cpu_model, "cpu", [draws[0], torch.zeros_like(draws[1])])):
+            engine = make(m)
+            engine.draw = lambda shape, g, d, concentration=None, q=queue: q.pop(0).to(d)
+            with torch.no_grad():
+                outs[tag] = engine.sample(None, None, cond.to(dev)).cpu()
+        ok, err, limit = _within(outs["gpu"], outs["cpu"], 1e-4)
+        ok_neg, err_neg, _ = _within(outs["no noise"], outs["cpu"], 1e-4)
+        print(f"[baselines] one {name} step f32, GPU vs CPU: max_abs_err={err:.3e} (limit {limit:.3e}); "
+              f"the CPU step without its noise: {err_neg:.3e}")
+        if not ok:
+            raise AssertionError(f"[baselines] the GPU {name} step disagrees with the CPU: {err} > {limit}")
+        if ok_neg:
+            raise AssertionError(f"[baselines] the {name} step check accepts a step without its noise")
+        worst = max(worst, err / (limit / 1e-4))
+    return worst
+
+
+def phase_baselines(card):
+    """The five baselines through the CLI (``train.main``) at SST width, in a
+    temporary registry, each: a few train steps and one validation,
+    ``mode=test`` (50 members), serving by run id (a seed repeats its
+    answer, another does not, the members differ), and for the diffusion
+    engines one request with the preset's full sampler (DDPM 1000, MCVD
+    1000 + the final denoise, LDM-DDPM 1000 forwards) at 20 members. B1's
+    launches are set to 0 before each command and request and must read
+    what its forwards imply (6 per ``Unet`` forward). B1 is first held
+    against its plain version at the path's rows (train 4, eval 20, 40 and
+    100) and dtype (f32); then one DDPM and one MCVD step GPU against CPU; a
+    negative control shows that a sampler whose members share their noise
+    fails the members-differ check. Returns {method: B1 launches of all its
+    commands and requests} and the per-request counts."""
+    import numpy as np
+    import torch
+
+    from dyffusion_tpu_torch import train
+    from dyffusion_tpu_torch.config import get_config
+    from dyffusion_tpu_torch.interface import reload_trainer
+    from dyffusion_tpu_torch.models.modules import LinearAttention
+    from dyffusion_tpu_torch.ops import linear_attention as la
+    from dyffusion_tpu_torch.serving import build_predict_fn
+    from dyffusion_tpu_torch.utils import registry_api
+    from dyffusion_tpu_torch.utils.naming import get_run_id
+    from dyffusion_tpu_torch.utils.workloads import sst_baseline_overrides
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    max_err = 0.0
+    for B in (4, 20, 40, 100):  # train batch; 20 members x 1 (seed checks), x 2 (eval); 50 x 2 (test)
+        for N in (3600, 900, 225):
+            qkv = _qkv(B, N, torch.float32, True, gen)
+            got = la.linear_attention_qkv(qkv, 4, 32, 32**-0.5)
+            _sync()
+            want = la.linear_attention_qkv_plain(qkv, 4, 32, 32**-0.5)
+            e = _check_vs_plain(f"B1 B={B} N={N} float32 nchw-view (baselines)", got, want, REL_TOL["float32"],
+                                negative_controls=N == 3600)
+            max_err = max(max_err, e)
+
+    totals, per_request, timings = {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_baselines_") as reg:
+        common = sst_baseline_overrides([*BASELINE_DATA, f"trainer.max_steps={BASELINE_TRAIN_STEPS}",
+                                         "trainer.val_every_n_epochs=100", "trainer.log_every_n_steps=1",
+                                         f"registry_dir={reg}"])
+        for method in BASELINES:
+            tag = f"[baselines-{method}]"
+            args = list(common)
+            if method in ("ddpm", "mcvd"):
+                args.append(f"diffusion.sampling_timesteps={BASELINE_EVAL_STEPS}")
+            run_id = get_run_id(get_config(f"synthetic_{method}", args))
+            counts, seconds = {}, {}
+
+            def step(name, fn):
+                la.reset_launches()
+                _sync()
+                t = time.perf_counter()
+                out = fn()
+                _sync()
+                counts[name], seconds[name] = la.launches, time.perf_counter() - t
+                print(f"{tag} {name}: {seconds[name]:.2f} s, B1 launches {counts[name]}; on {card}")
+                return out
+
+            best = step("train + validation", lambda: train.main([f"experiment=synthetic_{method}", *args]))
+            losses = [r["train/loss"] for r in registry_api.get_run_metrics(reg, run_id) if "train/loss" in r]
+            crps = step("mode=test, 50 members", lambda: train.main(["mode=test", f"run_id={run_id}", f"registry_dir={reg}"]))
+
+            def serve():
+                predict, _, info = build_predict_fn(reg, run_id)
+                trainer = reload_trainer(reg, run_id)
+                batch = next(trainer.datamodule.predict_batches())
+                one = {k: v[:1] for k, v in batch.items()}
+                return trainer, info, batch, [predict(one, s) for s in (SEED, SEED, SEED + 1)]
+
+            trainer, info, batch, (a, b, other) = step("serving by run id, 3 requests", serve)
+            exp = trainer.experiment
+            n_attn = sum(isinstance(m, LinearAttention) for m in exp.model.modules())
+            fwd = _sampler_forwards(exp)
+            n_eval = 1  # one val and one test batch
+            expected = {"train + validation": n_attn * (BASELINE_TRAIN_STEPS + n_eval * fwd),
+                        "mode=test, 50 members": n_attn * n_eval * fwd, "serving by run id, 3 requests": 3 * n_attn * fwd}
+            repeat, apart = float((a - b).abs().max()), float((a - other).abs().max())
+            spread = float(a.std(dim=0).max())
+            print(f"{tag} losses {np.round(losses, 5).tolist()}; best val/crps {best:.5f}; test/crps {crps:.5f}; "
+                  f"served {tuple(a.shape)} ({info['ensemble_members']} members, {fwd} forwards per request): "
+                  f"same seed max diff {repeat:.3e}, other seed {apart:.3e}, member spread {spread:.3e}")
+            if len(losses) != BASELINE_TRAIN_STEPS or not np.isfinite(losses).all() or not np.isfinite([best, crps]).all():
+                raise AssertionError(f"{tag} a non-finite loss or score: {losses}, {best}, {crps}")
+            if not bool(torch.isfinite(a).all()) or repeat != 0 or not apart > 1e-3 * float(a.abs().max()):
+                raise AssertionError(f"{tag} a seed did not repeat ({repeat}) or another gave the same answer ({apart})")
+            if not spread > 0:
+                raise AssertionError(f"{tag} the members do not differ")
+
+            if method in BASELINE_DIFFUSION:
+                engine = exp.diffusion_engine
+                if method == "ddpm":
+                    with torch.no_grad():  # negative control: members sharing their noise
+                        def shared(shape, g, d, concentration=None, draw=engine.draw):
+                            n = exp.num_members("predict")
+                            one = draw((shape[0] // n,) + tuple(shape[1:]), g, d)
+                            return one.repeat((n,) + (1,) * (len(shape) - 1))
+                        engine.draw = shared
+                        one = {k: v[:1] for k, v in batch.items()}
+                        same = trainer.eval_fns["predict"](one, torch.Generator(device="cuda").manual_seed(SEED),
+                                                           trainer.state.eval_params())["t1_preds"]
+                        del engine.draw
+                    if float(same.std(dim=0).max()) > 0:
+                        raise AssertionError(f"{tag} members sharing their noise still differ: the check cannot fail")
+                    print(f"{tag} negative control: members sharing their noise spread "
+                          f"{float(same.std(dim=0).max()):.3e} (must be 0)")
+                full = ["diffusion.sampling_timesteps=null"] if method in ("ddpm", "mcvd") else []
+
+                def full_request():
+                    predict, _, info = build_predict_fn(reg, run_id, overrides=full)
+                    la.reset_launches()
+                    _sync()
+                    t = time.perf_counter()
+                    out = predict(batch, SEED)
+                    _sync()
+                    return out, time.perf_counter() - t, la.launches
+
+                trainer_full = reload_trainer(reg, run_id, full)
+                fwd_full = _sampler_forwards(trainer_full.experiment)
+                out, latency, launches = step(f"full sampler request ({fwd_full} forwards)", full_request)
+                expected[f"full sampler request ({fwd_full} forwards)"] = n_attn * fwd_full
+                rows = out.shape[0] * out.shape[1]
+                print(f"{tag} full-sampler request: {latency:.3f} s for {out.shape[0]} members x eval batch "
+                      f"{out.shape[1]} ({rows} rows per forward), {fwd_full} forwards, "
+                      f"{latency / fwd_full * 1e3:.2f} ms per forward, B1 {launches}; on {card}")
+                if not bool(torch.isfinite(out).all()) or not float(out.std(dim=0).max()) > 0:
+                    raise AssertionError(f"{tag} the full-sampler request is not finite or its members do not differ")
+                per_request[method] = launches
+                timings[method] = latency
+                if method == "ddpm":
+                    _baseline_one_step_vs_cpu(exp.model, batch["dynamics"].shape[2:4])
+            else:
+                per_request[method] = counts["serving by run id, 3 requests"] // 3
+            if counts != expected:
+                raise AssertionError(f"{tag} B1 launches {counts} != {expected}")
+            totals[method] = sum(counts.values())
+    print(f"[baselines] B1 launches per request {per_request}; full-sampler request times "
+          f"{ {m: round(t, 3) for m, t in timings.items()} } s; B1 max_abs_err {max_err:.3e}; on {card}")
+    return totals, per_request
+
+
 # kernel categories of the profile, by a substring of the kernel's name;
 # the first match wins, and what matches nothing is "other elementwise"
 _CATEGORIES = (
@@ -1420,17 +1659,45 @@ def phase_profile_physical(card, key):
                  lambda: trainer.train_step(trainer.state, train_batch), card)
 
 
+def phase_profile_baseline(card):
+    """One DDPM request with the preset's full sampler (1000 forwards, SST
+    width, f32, 20 members x eval batch 2, seeded random weights) under the
+    profiler, after a warm-up request."""
+    from dyffusion_tpu_torch.config import get_config
+    from dyffusion_tpu_torch.interface import build_experiment, get_datamodule
+    from dyffusion_tpu_torch.serving import build_experiment_predict_fn
+    from dyffusion_tpu_torch.utils.workloads import sst_baseline_overrides
+
+    config = get_config("synthetic_ddpm", sst_baseline_overrides([*BASELINE_DATA, "trainer.save_checkpoints=False"]))
+    dm = get_datamodule(config)
+    dm.setup()
+    exp, _, _, eval_fns, _ = build_experiment(config, dm)
+    predict, _, _ = build_experiment_predict_fn(exp, eval_fns, dm, None)
+    batch = next(dm.predict_batches())
+    _sync()
+    t = time.perf_counter()
+    predict(batch, SEED)  # warm-up
+    _sync()
+    print(f"[profile-ddpm] unprofiled request {time.perf_counter() - t:.4f} s ({_sampler_forwards(exp)} forwards)")
+    _profile(f"[profile-ddpm] one DDPM request ({_sampler_forwards(exp)} forwards, "
+             f"{exp.num_members('predict') * batch['dynamics'].shape[0]} rows):", lambda: predict(batch, SEED + 1), card)
+
+
 def main(argv) -> int:
     import torch
 
-    if argv not in ([], ["--profile"], ["--kernels"], ["--physical"]):
-        raise SystemExit("usage: python3 chip_smoke.py [--profile | --kernels | --physical]")
+    if argv not in ([], ["--profile"], ["--kernels"], ["--physical"], ["--baselines"]):
+        raise SystemExit("usage: python3 chip_smoke.py [--profile | --kernels | --physical | --baselines]")
     name, smi = phase_device()
     phase_build()
     if argv == ["--profile"]:
         phase_profile(smi)
         for key in PHYSICAL:
             phase_profile_physical(smi, key)
+        phase_profile_baseline(smi)
+        return 0
+    if argv == ["--baselines"]:
+        phase_baselines(smi)
         return 0
     if argv == ["--physical"]:
         phase_physical_reference()
@@ -1455,6 +1722,7 @@ def main(argv) -> int:
     cli = phase_cli(smi)
     phase_physical_reference()
     physical = {spec["label"]: phase_physical(smi, key) for key, spec in PHYSICAL.items()}
+    baselines, baseline_requests = phase_baselines(smi)
     # B1's top-level numbers are the [train] path's (this slice's main path);
     # by_path keeps each path's own count, read after setting it to 0.
     # No single PyTorch call computes any of the three functions: library_ms is null
@@ -1463,7 +1731,9 @@ def main(argv) -> int:
          "launches": train, "max_abs_err": b1["max_abs_err"], **b1["train"], "bound_by": "bytes", "library_ms": None,
          "by_path": {"serve": {"launches": serve, **b1["serve"]}, "train": {"launches": train, **b1["train"]},
                      "fit": {"launches": fit}, "cli": {"launches": cli},
-                     **{p: {"launches": c["linear_attention_qkv"]} for p, c in physical.items()}}},
+                     **{p: {"launches": c["linear_attention_qkv"]} for p, c in physical.items()},
+                     **{f"baselines_{m}": {"launches": n, "per_request": baseline_requests[m]}
+                        for m, n in baselines.items()}}},
         {"name": "fused_leaky_relu", "route": "cuda", "source": fa.SOURCE, "replaces": fa.REPLACES,
          "launches": op_launches["fused_leaky_relu"], **b2, "library_ms": None,
          "by_path": {p: {"launches": c["fused_leaky_relu"]} for p, c in physical.items()}},

@@ -1,7 +1,8 @@
 """Config system: experiment presets + dotted overrides.
 
 Counterpart of ``dyffusion_tpu/config.py`` for the presets the port runs:
-``{synthetic, navier_stokes, spring_mesh}_{interpolation, dyffusion}``. A
+``{synthetic, navier_stokes, spring_mesh}_{interpolation, dyffusion,
+time_conditioned, simultaneous, ddpm, ddpm_v2, mcvd}``. A
 preset is the base layer deep-merged with a dataset layer, a method layer
 and the preset's own tweaks; the physical systems read their archives from
 ``datamodule.data_dir`` (a free key of the datamodule section). Overrides
@@ -110,6 +111,71 @@ _METHODS: Dict[str, Dict[str, Any]] = {
             "timesteps": "${datamodule.horizon}",
         },
     },
+    # the baselines: a direct forecaster conditioned on the lead time, one
+    # that predicts the h frames at once, and three diffusion engines that
+    # generate the h stacked frames under the simultaneous experiment
+    "time_conditioned": {
+        "experiment": "time_conditioned",
+        "model": {"with_time_emb": True},
+    },
+    "simultaneous": {
+        "experiment": "simultaneous",
+        "model": {"with_time_emb": False},
+    },
+    "ddpm": {
+        "experiment": "simultaneous",
+        "model": {"with_time_emb": True},
+        "diffusion": {
+            "name": "ddpm",
+            "loss_function": "l1",
+            "hardcode_betaN": False,
+            "timesteps": 1000,
+            "sampling_timesteps": None,
+            "objective": "pred_noise",
+            "beta_schedule": "cosine",
+            "ddim_sampling_eta": 1.0,
+        },
+    },
+    # the LDM-style DDPM
+    "ddpm_v2": {
+        "experiment": "simultaneous",
+        "model": {"with_time_emb": True},
+        "diffusion": {
+            "name": "ddpm_v2",
+            "loss_function": "l1",
+            "timesteps": 1000,
+            "beta_schedule": "linear",
+            "parameterization": "pred_noise",
+            "linear_start": 0.0015,
+            "linear_end": 0.0195,
+            "cosine_s": 8e-3,
+            "original_elbo_weight": 0.0,
+            "v_posterior": 0.0,
+            "l_simple_weight": 1.0,
+            "learn_logvar": False,
+            "logvar_init": 0.0,
+            "hardcode_betaN": False,
+        },
+    },
+    # MCVD on the dataset's own backbone; it samples with all its steps
+    # unless diffusion.sampling_timesteps subsamples them
+    "mcvd": {
+        "experiment": "simultaneous",
+        "model": {"with_time_emb": True},
+        "diffusion": {
+            "name": "mcvd",
+            "loss_function": "l1",
+            "version": "DDPM",
+            "timesteps": 1000,
+            "beta_schedule": "linear",
+            "sigma_begin": 0.02,
+            "sigma_end": 0.0001,
+            "gamma": False,
+            "noise_in_cond": False,
+            "sampling_denoise": True,
+            "sampling_timesteps": None,
+        },
+    },
 }
 
 # dataset x method tweaks of the presets above (the JAX package's _COMBO)
@@ -125,6 +191,13 @@ _COMBO: Dict[str, Dict[str, Any]] = {
         },
     },
     "spring_mesh_interpolation": {"model": {"dropout": 0.05}},
+    "navier_stokes_time_conditioned": {"model": {"dropout": 0.2}},
+    "spring_mesh_time_conditioned": {"model": {"dropout": 0.05}},
+    # kept as the JAX package composes them: these two experiments never set
+    # model.with_time_emb back to True after the method layer turns it off,
+    # so their denoisers run without the time embedding
+    "spring_mesh_ddpm": {"model": {"with_time_emb": False}},
+    "spring_mesh_mcvd": {"model": {"with_time_emb": False}},
 }
 
 # closed namespaces: an unknown key there is a typo, not a pass-through

@@ -1,0 +1,311 @@
+"""MCVD video-diffusion engine and its DDPM, DDIM and F-PNDM samplers.
+
+Counterpart of ``dyffusion_tpu/diffusion/mcvd.py`` (``get_sigmas`` and
+``McvdEngine``):
+
+- the schedules run big-noise to small-noise (MCVD's index convention:
+  step 0 is the noisiest); the buffers are computed in numpy f32, as the
+  JAX package computes them, because the samplers' 1/(1 - alpha)
+  coefficients amplify an f64 cumprod's difference to about 1e-3;
+- optional Gamma noise (``k_cum``/``theta_t``) and noise in the condition;
+- the noise-prediction loss at per-row steps t;
+- the DDPM sampler with ``sampling_timesteps`` subsampling, ``frac_steps``,
+  ``just_beta``, ``clip_before`` and the final denoise, which is conditioned
+  on the step COUNT n-1, not on the last step's index (as the JAX package
+  and its reference do); DDIM; F-PNDM, whose Runge-Kutta warm-up and
+  4th-order Adams-Bashforth steps become a Python branch per step.
+
+The samplers are Python loops over f32 scalar coefficients computed on the
+host in the JAX package's order of f32 operations. The score network is a
+backbone called as ``(x, time, condition, generator)`` with time the step
+index as a float; in training its dropout is live when a generator is
+given and BatchNorm reads its running averages; the samplers call it
+without a generator. Every random tensor comes from
+:meth:`McvdEngine.draw`, in the JAX package's order: the loss draws its
+noise, then the condition's; a sampler draws its initial sample, then one
+noise per step but the last. The annealed-Langevin samplers are not
+reachable from any config and are not ported.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from dyffusion_tpu_torch.diffusion.ddpm import BufferTable
+from dyffusion_tpu_torch.models.base import apply_model
+from dyffusion_tpu_torch.utils.loss import mse_loss
+
+Params = Optional[Mapping[str, torch.Tensor]]
+f32 = np.float32
+
+
+def get_sigmas(schedule: str, sigma_begin: float, sigma_end: float, timesteps: int) -> np.ndarray:
+    """MCVD's noise schedules: 'geometric', 'linear' or 'cosine' (f64)."""
+    T = timesteps
+    if schedule == "geometric":
+        return np.logspace(np.log10(sigma_begin), np.log10(sigma_end), T)
+    if schedule == "linear":
+        return np.linspace(sigma_begin, sigma_end, T)
+    if schedule == "cosine":
+        t = np.linspace(T, 0, T + 1) / T
+        s = 0.008
+        f = np.cos((t + s) / (1 + s) * np.pi / 2) ** 2
+        return f[:-1] / f[-1]
+    raise NotImplementedError(f"sigma schedule {schedule} not supported")
+
+
+@dataclass(frozen=True)
+class McvdConfig:
+    version: str = "DDPM"  # 'DDPM' | 'DDIM' | 'FPNDM'
+    timesteps: int = 1000
+    beta_schedule: str = "linear"
+    sigma_begin: float = 0.02
+    sigma_end: float = 0.0001
+    gamma: bool = False
+    noise_in_cond: bool = False
+    sampling_timesteps: Optional[int] = None  # subsample the sampler's steps
+    frac_steps: Optional[float] = None
+    just_beta: bool = False
+    sampling_denoise: bool = True
+    clip_before: bool = False
+
+    def __post_init__(self):
+        assert self.version.upper() in ("DDPM", "DDIM", "FPNDM")
+
+
+class McvdEngine:
+    """MCVD over a score-network module. ``sample_shape`` is (C, H, W) of
+    one sample; ``params`` arguments replace the network's weights for the
+    call (``None``: its own). The buffers live on ``device`` (default: the
+    network's)."""
+
+    def __init__(
+        self,
+        config: McvdConfig,
+        scorenet: nn.Module,
+        sample_shape: Sequence[int],
+        criterion: Optional[Callable] = None,
+        device: Optional[torch.device] = None,
+    ):
+        self.cfg = config
+        self.scorenet = scorenet
+        self.sample_shape = tuple(sample_shape)
+        self.criterion = criterion or mse_loss
+        device = device if device is not None else next(scorenet.parameters()).device
+
+        T = config.timesteps
+        if config.beta_schedule == "linear":
+            betas = get_sigmas("linear", config.sigma_begin, config.sigma_end, T).astype(np.float32)
+            alphas = np.cumprod((1.0 - betas)[::-1])[::-1]
+            alphas_prev = np.concatenate([alphas[1:], np.ones(1, np.float32)])
+        elif config.beta_schedule == "cosine":
+            alphas = get_sigmas("cosine", config.sigma_begin, config.sigma_end, T).astype(np.float32)
+            alphas_prev = np.concatenate([alphas[1:], np.ones(1, np.float32)])
+            betas = 1.0 - alphas / alphas_prev
+        else:
+            raise ValueError(f"beta_schedule {config.beta_schedule} not supported")
+        self.num_timesteps = len(betas)
+        self.buffers = b = BufferTable(device)
+        b.add("betas", betas)
+        b.add("alphas", alphas)
+        b.add("alphas_prev", alphas_prev)
+        if config.gamma:
+            theta_0 = f32(0.001)
+            k = betas / (alphas * theta_0**2)
+            b.add("k_cum", np.cumsum(k[::-1])[::-1])
+            b.add("theta_t", np.sqrt(alphas) * theta_0)
+
+    def draw(
+        self,
+        shape: Sequence[int],
+        generator: Optional[torch.Generator],
+        device: torch.device,
+        concentration: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Every random tensor of the engine: standard normal (f32), or,
+        with ``concentration`` (broadcast to ``shape``), standard Gamma
+        draws of that shape parameter (scale 1)."""
+        if concentration is None:
+            return torch.randn(tuple(shape), generator=generator, device=device)
+        return torch._standard_gamma(concentration.expand(tuple(shape)).contiguous(), generator=generator)
+
+    def draw_steps(self, n: int, generator: Optional[torch.Generator], device: torch.device) -> torch.Tensor:
+        """The loss's per-row steps t ~ U{0..T-1}: the engine's only other random draw."""
+        return torch.randint(0, self.num_timesteps, (n,), generator=generator, device=device)
+
+    # ---- building blocks ----
+    def _noise_like(self, shape, t: torch.Tensor, generator, device) -> torch.Tensor:
+        """Standard normal noise, or Gamma noise normalized to mean 0 and
+        variance 1 at the per-row steps ``t``."""
+        if not self.cfg.gamma:
+            return self.draw(shape, generator, device)
+        c = self.buffers.coef
+        k, theta, alpha = (c(n, t, len(shape)) for n in ("k_cum", "theta_t", "alphas"))
+        z = self.draw(shape, generator, device, concentration=k) * theta
+        return (z - k * theta) / torch.sqrt(1.0 - alpha)
+
+    def _net(self, params: Params, x, t: Union[float, torch.Tensor], condition, generator=None) -> torch.Tensor:
+        t_in = t.float() if isinstance(t, torch.Tensor) else torch.full((x.shape[0],), float(t), device=x.device)
+        return apply_model(self.scorenet, params, x, t_in, condition, generator)
+
+    # ---- training ----
+    def p_losses(
+        self,
+        params: Params,
+        generator: Optional[torch.Generator],
+        x: torch.Tensor,
+        condition: Optional[torch.Tensor],
+        t: torch.Tensor,
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The noise-prediction loss at per-row steps ``t``."""
+        used = self.buffers.coef("alphas", t, x.ndim)
+        z = self._noise_like(x.shape, t, generator, x.device)  # f32 whatever x's dtype, as in JAX
+        perturbed = torch.sqrt(used) * x + torch.sqrt(1.0 - used) * z
+        if self.cfg.noise_in_cond and condition is not None:
+            ca = self.buffers.coef("alphas", t, condition.ndim)
+            zc = self._noise_like(condition.shape, t, generator, condition.device)
+            condition = torch.sqrt(ca) * condition + torch.sqrt(1.0 - ca) * zc
+        z_pred = self._net(params, perturbed, t, condition, generator)
+        loss = self.criterion(z_pred, z)
+        return loss, {"loss": loss}
+
+    def loss(self, params: Params, generator: Optional[torch.Generator], x: torch.Tensor, condition):
+        """t ~ U{0..T-1} per row from ``generator``, then :meth:`p_losses`."""
+        t = self.draw_steps(x.shape[0], generator, x.device)
+        return self.p_losses(params, generator, x, condition, t)
+
+    # ---- sampling ----
+    def subsampled_schedule(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """(steps, alphas, alphas_prev, betas) after ``sampling_timesteps``
+        subsampling (recomputed in f32) and ``frac_steps``."""
+        cfg = self.cfg
+        h = self.buffers.host
+        alphas, alphas_prev, betas = h["alphas"], h["alphas_prev"], h["betas"]
+        steps = np.arange(len(betas))
+        if cfg.sampling_timesteps is not None and cfg.sampling_timesteps < len(alphas):
+            skip = len(alphas) // cfg.sampling_timesteps
+            steps = np.arange(0, len(alphas), skip)
+            alphas = alphas[steps]
+            alphas_prev = np.concatenate([alphas[1:], np.ones(1, np.float32)])
+            betas = (f32(1.0) - alphas / alphas_prev).astype(np.float32)
+        else:
+            alphas, alphas_prev, betas = alphas[steps], alphas_prev[steps], betas[steps]
+        if cfg.frac_steps is not None:
+            keep = slice(int((1 - cfg.frac_steps) * len(steps)), None)
+            steps, alphas, alphas_prev, betas = steps[keep], alphas[keep], alphas_prev[keep], betas[keep]
+        return steps, alphas, alphas_prev, betas
+
+    def _init_sample(self, generator, condition) -> torch.Tensor:
+        shape = (condition.shape[0],) + self.sample_shape
+        if self.cfg.gamma:  # shifted to mean 0, not scaled
+            k0 = float(self.buffers.host["k_cum"][0])
+            th0 = float(self.buffers.host["theta_t"][0])
+            conc = torch.full((), k0, dtype=torch.float32, device=condition.device)
+            z = self.draw(shape, generator, condition.device, concentration=conc) * th0
+            return z - k0 * th0
+        return self.draw(shape, generator, condition.device)
+
+    def ddpm_sample(self, params: Params, generator: Optional[torch.Generator], condition: torch.Tensor) -> torch.Tensor:
+        """The ancestral MCVD sampler, then the final denoise."""
+        cfg = self.cfg
+        B = condition.shape[0]
+        steps, alphas, alphas_prev, betas = self.subsampled_schedule()
+        n = len(steps)
+        one = f32(1.0)
+        x = self._init_sample(generator, condition)
+        for i in range(n):
+            step, a, a_prev, beta = f32(steps[i]), alphas[i], alphas_prev[i], betas[i]
+            grad = self._net(params, x, float(step), condition)
+            x0 = (x - float(np.sqrt(one - a)) * grad) / float(np.sqrt(a))
+            if cfg.clip_before:
+                x0 = torch.clamp(x0, -1.0, 1.0)
+            c0 = np.sqrt(a_prev) * beta / (one - a)
+            c1 = np.sqrt(one - beta) * (one - a_prev) / (one - a)
+            x_new = float(c0) * x0 + float(c1) * x
+            if i + 1 < n:  # no noise at the last step
+                t_b = torch.full((B,), int(step), dtype=torch.long, device=x.device)
+                noise = self._noise_like(x.shape, t_b, generator, x.device)
+                sigma = np.sqrt(beta) if cfg.just_beta else np.sqrt((one - a_prev) / (one - a) * beta)
+                x_new = x_new + float(sigma) * noise
+            x = x_new
+        if cfg.sampling_denoise:
+            x = x - float(np.sqrt(one - alphas[-1])) * self._net(params, x, float(n - 1), condition)
+        return x
+
+    def ddim_sample(self, params: Params, generator: Optional[torch.Generator], condition: torch.Tensor) -> torch.Tensor:
+        """The MCVD DDIM sampler, then the final denoise (conditioned on
+        the step count - 1, as in :meth:`ddpm_sample`)."""
+        cfg = self.cfg
+        steps, alphas, alphas_prev, _ = self.subsampled_schedule()
+        one = f32(1.0)
+        x = self._init_sample(generator, condition)
+        for step, a, a_prev in zip(steps, alphas, alphas_prev):
+            grad = self._net(params, x, float(f32(step)), condition)
+            x0 = (x - float(np.sqrt(one - a)) * grad) / float(np.sqrt(a))
+            if cfg.clip_before:
+                x0 = torch.clamp(x0, -1.0, 1.0)
+            x = float(np.sqrt(a_prev)) * x0 + float(np.sqrt(one - a_prev)) * grad
+        if cfg.sampling_denoise:
+            x = x - float(np.sqrt(one - alphas[-1])) * self._net(params, x, float(len(steps) - 1), condition)
+        return x
+
+    def fpndm_steps(self) -> List[Tuple[float, float]]:
+        """F-PNDM's (t, t_next) pairs."""
+        sub = self.cfg.sampling_timesteps or self.num_timesteps
+        skip = max(self.num_timesteps // sub, 1)
+        steps = list(range(0, self.num_timesteps, skip))
+        return list(zip(steps, [-1] + steps[:-1]))
+
+    def fpndm_sample(self, params: Params, generator: Optional[torch.Generator], condition: torch.Tensor) -> torch.Tensor:
+        """F-PNDM: Runge-Kutta for the first three steps, then 4th-order
+        Adams-Bashforth on the noise history."""
+        cfg = self.cfg
+        # alphas indexed by t + 1 over the small-to-big order
+        alphas_old = np.ascontiguousarray(self.buffers.host["alphas"][::-1])
+        one = f32(1.0)
+
+        def model(xv, t):
+            return self._net(params, xv, float(t), condition)
+
+        last = len(alphas_old) - 1
+
+        def transfer(xv, t, t_next, et):
+            # t truncates toward zero BEFORE the + 1 (a midpoint t = -0.5 reads
+            # index 1); t = T-1 reads past the end, which JAX's gather clamps
+            at, at_next = alphas_old[min(int(t) + 1, last)], alphas_old[min(int(t_next) + 1, last)]
+            sa, sn = np.sqrt(at), np.sqrt(at_next)
+            cx = one / (sa * (sa + sn))
+            ce = one / (sa * (np.sqrt((one - at_next) * at) + np.sqrt((one - at) * at_next)))
+            out = xv + float(at_next - at) * (float(cx) * xv - float(ce) * et)
+            return torch.clamp(out, -1.0, 1.0) if cfg.clip_before else out
+
+        x = self._init_sample(generator, condition)
+        ets: List[Optional[torch.Tensor]] = [None] * 4  # the last four noise estimates
+        for count, (step, step_next) in enumerate(self.fpndm_steps()):
+            t, t_next = f32(step), f32(step_next)
+            if count > 2:
+                e_new = model(x, t)
+                et = (55 * e_new - 59 * ets[3] + 37 * ets[2] - 9 * ets[1]) / 24.0
+            else:
+                t_mid = (t + t_next) / f32(2.0)
+                e1 = model(x, t)
+                e2 = model(transfer(x, t, t_mid, e1), t_mid)
+                e3 = model(transfer(x, t, t_mid, e2), t_mid)
+                e4 = model(transfer(x, t, t_next, e3), t_next)
+                et, e_new = (e1 + 2 * e2 + 2 * e3 + e4) / 6.0, e1
+            ets = ets[1:] + [e_new]
+            x = transfer(x, t, t_next, et)
+        return x
+
+    def sample(self, params: Params, generator: Optional[torch.Generator], condition: torch.Tensor) -> torch.Tensor:
+        """The configured sampler: (B, C, H, W)."""
+        v = self.cfg.version.upper()
+        if v == "DDPM":
+            return self.ddpm_sample(params, generator, condition)
+        if v == "DDIM":
+            return self.ddim_sample(params, generator, condition)
+        return self.fpndm_sample(params, generator, condition)

@@ -1,5 +1,10 @@
 from dyffusion_tpu_torch.experiments.base import Experiment, ExperimentConfig, stack_window
-from dyffusion_tpu_torch.experiments.forecasting import DyffusionForecastingExperiment, ForecastingExperiment
+from dyffusion_tpu_torch.experiments.forecasting import (
+    DyffusionForecastingExperiment,
+    ForecastingExperiment,
+    SimultaneousForecastingExperiment,
+    TimeConditionedForecastingExperiment,
+)
 from dyffusion_tpu_torch.experiments.interpolation import InterpolationExperiment
 
 __all__ = [
@@ -8,5 +13,7 @@ __all__ = [
     "ExperimentConfig",
     "ForecastingExperiment",
     "InterpolationExperiment",
+    "SimultaneousForecastingExperiment",
+    "TimeConditionedForecastingExperiment",
     "stack_window",
 ]

@@ -1,19 +1,29 @@
-"""Multi-horizon DYffusion forecasting: the stage-2 loss and the ensemble
-evaluation path.
+"""Multi-horizon forecasting experiments: DYffusion's stage 2 and the
+baselines.
 
-Counterpart of ``dyffusion_tpu/experiments/forecasting.py`` for
-``DyffusionForecastingExperiment``: the training loss (the engine's two-term
-``p_losses`` on the stacked window and the last frame) and the eval function
-in the FOLDED layout: the N ensemble members are folded into the batch and
-run as one (N*B)-batch sampler call; ``eval_dtype=bfloat16`` runs the
-sampler on bf16 copies of both networks' weights and bf16 inputs, and casts
-predictions back to f32. Autoregressive windows chain
-ceil(prediction_horizon / horizon) sampler calls, each member continuing its
-own trajectory, from the boundary-adjusted predictions of the window
-before: a datamodule with physics (``boundary_fn``, its
-``boundary_conditions``) re-imposes its boundary conditions on every
-predicted frame at that frame's simulation time. The member-vmap layout is
-not ported yet.
+Counterpart of ``dyffusion_tpu/experiments/forecasting.py``:
+
+- ``DyffusionForecastingExperiment``: the training loss (the engine's
+  two-term ``p_losses`` on the stacked window and the last frame) and the
+  cold sampler's eval; ``eval_dtype=bfloat16`` runs the sampler on bf16
+  copies of both networks' weights and bf16 inputs.
+- ``TimeConditionedForecastingExperiment``: a direct forecaster given the
+  lead time t ~ U{1..h} as its time input; its eval runs one forward per t.
+- ``SimultaneousForecastingExperiment``: all h frames at once, stacked on
+  the channels (time-major); with a diffusion engine (DDPM, LDM-DDPM, MCVD)
+  the engine generates the stacked frames, conditioned on the window.
+
+Every eval runs in the FOLDED layout: the N ensemble members are folded
+into the batch, one (N*B)-row call per forward. The baselines' evals cast
+no input: under ``eval_dtype=bfloat16`` their networks compute in f32 on
+bf16-rounded weights, as the JAX package's do (its trainer casts only the
+weights, and flax promotes). Predictions come back in f32.
+Autoregressive windows chain ceil(prediction_horizon / horizon) windows,
+each member continuing its own trajectory, from the boundary-adjusted
+predictions of the window before: a datamodule with physics
+(``boundary_fn``, its ``boundary_conditions``) re-imposes its boundary
+conditions on every predicted frame at that frame's simulation time. The
+member-vmap layout is not ported yet.
 """
 from __future__ import annotations
 
@@ -22,6 +32,8 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from dyffusion_tpu_torch.experiments.base import Experiment, cast_params, stack_window
+from dyffusion_tpu_torch.models.base import MODEL_STATE_UPDATES, apply_model, apply_model_train
+from dyffusion_tpu_torch.utils.loss import get_loss_fn
 
 
 class ForecastingExperiment(Experiment):
@@ -30,6 +42,7 @@ class ForecastingExperiment(Experiment):
     def __init__(self, cfg, dims, model=None, boundary_fn=None, device="cuda"):
         super().__init__(cfg, dims, device)
         self.model = model
+        self.criterion = get_loss_fn(cfg.loss_function)  # the baselines' loss (DYffusion's engine has its own)
         # the datamodule's hook re-imposing physics boundary conditions on
         # predictions: (preds, metadata=, time=) -> preds
         self.boundary_fn = boundary_fn
@@ -88,6 +101,44 @@ class ForecastingExperiment(Experiment):
         tail = preds[..., -w:, :, :, :]  # (..., w, H, W, C)
         tail = tail.movedim(-1, -3)  # (..., w, C, H, W)
         return tail.reshape(tail.shape[:-4] + (w * tail.shape[-3],) + tail.shape[-2:])
+
+    def folded_rollout(
+        self,
+        batch: Dict[str, Any],
+        generator: Optional[torch.Generator],
+        split: str,
+        autoregressive: bool,
+        window_fn: Callable[[torch.Tensor, Optional[torch.Tensor]], torch.Tensor],
+    ) -> Dict[str, torch.Tensor]:
+        """The baselines' ensemble eval: the window's stacked inputs tiled
+        to N*B rows (member-major), ``prediction_inputs_noise`` added in every
+        window, ``window_fn(inputs, static_condition) -> (N*B, h, C, H, W)``,
+        and the autoregressive chain. Returns {'t{i}_preds': (N, B, H, W, C),
+        't{i}_targets': (B, H, W, C)}, f32 tensors on the device."""
+        n_members = self.num_members(split)
+        noise = self.cfg.prediction_inputs_noise
+        n_windows = (self.num_autoregressive_steps + 1) if autoregressive else 1
+
+        def tile(x):  # (B, ...) -> (N*B, ...)
+            return x.unsqueeze(0).expand((n_members,) + tuple(x.shape)).reshape((-1,) + tuple(x.shape[1:]))
+
+        dynamics = self.to_device(batch["dynamics"]).float()
+        B = dynamics.shape[0]
+        static = self.static_condition(batch)
+        sc_flat = None if static is None else tile(static)
+        meta = self.metadata(batch) if self.boundary_fn is not None else {}
+        x = tile(stack_window(dynamics, self.cfg.window))
+        out: Dict[str, torch.Tensor] = {}
+        for ar in range(n_windows):
+            if ar > 0:
+                nxt = self.next_window_inputs(preds)  # (N, B, w*C, H, W)
+                x = nxt.reshape((n_members * B,) + tuple(nxt.shape[2:]))
+            if noise > 0:
+                x = x + noise * torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+            p = window_fn(x, sc_flat).float()
+            p = p.reshape((n_members, B) + tuple(p.shape[1:])).permute(0, 1, 2, 4, 5, 3)  # (N, B, h, H, W, C)
+            preds = self.record_window(out, p, meta, ar, dynamics)
+        return out
 
 
 class DyffusionForecastingExperiment(ForecastingExperiment):
@@ -173,5 +224,165 @@ class DyffusionForecastingExperiment(ForecastingExperiment):
                 preds = _unfold(engine.sample(fc_params, ip_params, generator, ar_flat, sc_flat), B)
                 preds = self.record_window(out, preds, meta, ar, dynamics)
             return out
+
+        return eval_fn
+
+
+class TimeConditionedForecastingExperiment(ForecastingExperiment):
+    """The time-conditioned direct forecaster: the stacked window in, the
+    frame t steps ahead out, t the network's time input."""
+
+    def actual_num_input_channels(self) -> int:
+        return self.dims["input"] * self.cfg.window
+
+    def p_losses(self, params, batch: Dict[str, Any], t: torch.Tensor, generator: Optional[torch.Generator]):
+        """The loss at per-row lead times ``t`` in [1, h]: the network in
+        train mode (dropout live with ``generator``; a BatchNorm backbone's
+        running-statistics updates in the metrics under
+        ``MODEL_STATE_UPDATES``)."""
+        dynamics = self.to_device(batch["dynamics"])
+        B = dynamics.shape[0]
+        inputs = stack_window(dynamics, self.cfg.window)
+        targets = dynamics[torch.arange(B, device=dynamics.device), self.cfg.window + t - 1].permute(0, 3, 1, 2)
+        preds, updates = apply_model_train(
+            self.model, params, inputs, t.float(), self.static_condition(batch), generator
+        )
+        loss = self.criterion(preds, targets)
+        return loss, ({"loss": loss, MODEL_STATE_UPDATES: updates} if updates else {"loss": loss})
+
+    def make_loss_fn(self) -> Callable:
+        """``loss_fn(params, batch, generator) -> (loss, metrics)``: t ~
+        U{1..h} per row from ``generator``, then :meth:`p_losses`."""
+        h = self.cfg.horizon
+
+        def loss_fn(params, batch: Dict[str, Any], generator: Optional[torch.Generator]):
+            B = int(batch["dynamics"].shape[0])
+            t = torch.randint(1, h + 1, (B,), generator=generator, device=self.device)
+            return self.p_losses(params, batch, t, generator)
+
+        return loss_fn
+
+    def make_eval_fn(self, split: str = "val", autoregressive: bool = False) -> Callable:
+        """``eval_fn(batch, generator=None, params=None)``: one (N*B)-row
+        forward per lead time t = 1..h, MC dropout on under
+        ``enable_inference_dropout`` (see :meth:`folded_rollout`)."""
+        if not self.cfg.fold_members_into_batch:
+            raise NotImplementedError("only the folded ensemble layout is ported (fold_members_into_batch=True)")
+        h = self.cfg.horizon
+        use_dropout = self.cfg.enable_inference_dropout
+        dtype = self.eval_dtype()
+
+        @torch.no_grad()
+        def eval_fn(batch: Dict[str, Any], generator: Optional[torch.Generator] = None, params=None):
+            p = cast_params(self.model, dtype, params)
+            g = generator if use_dropout else None
+
+            def window(x, sc):
+                preds = []
+                for t in range(1, h + 1):
+                    t_b = torch.full((x.shape[0],), float(t), dtype=torch.float32, device=x.device)
+                    preds.append(apply_model(self.model, p, x, t_b, sc, g))
+                return torch.stack(preds, dim=1)
+
+            return self.folded_rollout(batch, generator, split, autoregressive, window)
+
+        return eval_fn
+
+
+class SimultaneousForecastingExperiment(ForecastingExperiment):
+    """All h frames at once, stacked on the channels, time-major. With
+    ``diffusion_engine`` it hosts the DDPM, LDM-DDPM and MCVD baselines: the
+    engine generates the (h*C)-channel stack, conditioned on the window
+    (and the static condition behind it). ``is_diffusion`` fixes the channel
+    arithmetic before the engine exists (it needs the built backbone)."""
+
+    def __init__(
+        self, cfg, dims, model=None, diffusion_engine=None, boundary_fn=None, is_diffusion=None, device="cuda"
+    ):
+        super().__init__(cfg, dims, model, boundary_fn=boundary_fn, device=device)
+        self.diffusion_engine = diffusion_engine
+        self.is_diffusion = bool(is_diffusion) if is_diffusion is not None else diffusion_engine is not None
+
+    def actual_num_input_channels(self) -> int:
+        if self.is_diffusion:  # the denoiser's input is output-shaped
+            return self.actual_num_output_channels()
+        return self.dims["input"] * self.cfg.window
+
+    def actual_num_output_channels(self) -> int:
+        return self.dims["output"] * self.cfg.horizon
+
+    def num_conditional_channels(self) -> int:
+        base = self.dims.get("conditional", 0)
+        return base + self.dims["input"] * self.cfg.window if self.is_diffusion else base
+
+    def unstack(self, preds: torch.Tensor) -> torch.Tensor:
+        """(..., h*C, H, W) -> (..., h, C, H, W), time-major channels."""
+        h = self.cfg.horizon
+        return preds.reshape(tuple(preds.shape[:-3]) + (h, preds.shape[-3] // h) + tuple(preds.shape[-2:]))
+
+    def stacked_targets(self, dynamics: torch.Tensor) -> torch.Tensor:
+        """Frames w..w+h-1 of (B, T, H, W, C) stacked: (B, h*C, H, W)."""
+        return stack_window(dynamics[:, self.cfg.window:], self.cfg.horizon)
+
+    def diffusion_condition(self, inputs: torch.Tensor, static: Optional[torch.Tensor]) -> torch.Tensor:
+        """The denoiser's condition: the stacked window, then the static condition."""
+        return inputs if static is None else torch.cat([inputs, static], dim=1)
+
+    def logvar(self, params) -> Optional[torch.Tensor]:
+        """The LDM engine's learned logvar (the model's ``_diffusion_logvar``
+        parameter, or its entry in ``params``), else ``None``."""
+        if not hasattr(self.model, "_diffusion_logvar"):
+            return None
+        return params["_diffusion_logvar"] if params is not None else self.model._diffusion_logvar
+
+    def make_loss_fn(self) -> Callable:
+        """``loss_fn(params, batch, generator) -> (loss, metrics)``. Without
+        an engine: the network in train mode on the stacked window against
+        the stacked targets (BatchNorm updates under ``MODEL_STATE_UPDATES``).
+        With one: the engine's loss (t and noise drawn from ``generator``),
+        the denoiser called as the engine calls it (BatchNorm on its running
+        averages, no updates: kept from the JAX package)."""
+
+        def loss_fn(params, batch: Dict[str, Any], generator: Optional[torch.Generator]):
+            dynamics = self.to_device(batch["dynamics"])
+            inputs = stack_window(dynamics, self.cfg.window)
+            targets = self.stacked_targets(dynamics)
+            static = self.static_condition(batch)
+            engine = self.diffusion_engine
+            if engine is not None:
+                cond = self.diffusion_condition(inputs, static)
+                logvar = self.logvar(params)
+                if logvar is not None:
+                    return engine.loss(params, generator, targets, cond, logvar=logvar)
+                return engine.loss(params, generator, targets, cond)
+            preds, updates = apply_model_train(self.model, params, inputs, None, static, generator)
+            loss = self.criterion(preds, targets)
+            return loss, ({"loss": loss, MODEL_STATE_UPDATES: updates} if updates else {"loss": loss})
+
+        return loss_fn
+
+    def make_eval_fn(self, split: str = "val", autoregressive: bool = False) -> Callable:
+        """``eval_fn(batch, generator=None, params=None)``: one (N*B)-row
+        forward of the network (MC dropout on under
+        ``enable_inference_dropout``), or the engine's sampler, whose
+        denoiser runs without dropout: its members differ by their noise
+        (see :meth:`folded_rollout`)."""
+        if not self.cfg.fold_members_into_batch:
+            raise NotImplementedError("only the folded ensemble layout is ported (fold_members_into_batch=True)")
+        use_dropout = self.cfg.enable_inference_dropout
+        dtype = self.eval_dtype()
+
+        @torch.no_grad()
+        def eval_fn(batch: Dict[str, Any], generator: Optional[torch.Generator] = None, params=None):
+            p = cast_params(self.model, dtype, params)
+
+            def window(x, sc):
+                if self.diffusion_engine is not None:
+                    out = self.diffusion_engine.sample(p, generator, self.diffusion_condition(x, sc))
+                else:
+                    out = apply_model(self.model, p, x, None, sc, generator if use_dropout else None)
+                return self.unstack(out)
+
+            return self.folded_rollout(batch, generator, split, autoregressive, window)
 
         return eval_fn

@@ -4,9 +4,11 @@ experiment, engine, train state, trainer; the run registry.
 Counterpart of ``dyffusion_tpu/interface.py`` on one device:
 ``get_datamodule`` (synthetic and physical-systems data),
 ``load_interpolator_from_registry`` (weights and BatchNorm statistics),
-``build_experiment`` for the ``interpolation`` experiment and for
+``build_experiment`` for the ``interpolation`` experiment, for
 ``dyffusion`` (its interpolator loaded from the registry by
-``diffusion.interpolator_run_id``, or passed in memory),
+``diffusion.interpolator_run_id``, or passed in memory) and for the
+baselines (``time_conditioned``; ``simultaneous``, alone or hosting the
+``ddpm``, ``ddpm_v2`` or ``mcvd`` engine),
 ``accumulation_layout``, ``create_train_state``, ``build_trainer``,
 ``run_experiment`` (run directory, checkpoints, resume, metrics log),
 ``reload_trainer`` and ``reload_and_test``. Everything runs on the CUDA
@@ -26,12 +28,23 @@ from torch import nn
 
 from dyffusion_tpu_torch.config import apply_override
 from dyffusion_tpu_torch.data import DataModule, PhysicalSystemsDataModule, SyntheticDataModule
-from dyffusion_tpu_torch.diffusion.dyffusion import DyffusionConfig, DyffusionEngine
+from dyffusion_tpu_torch.diffusion import (
+    DyffusionConfig,
+    DyffusionEngine,
+    GaussianDiffusionConfig,
+    GaussianDiffusionEngine,
+    LatentDDPMConfig,
+    LatentDDPMEngine,
+    McvdConfig,
+    McvdEngine,
+)
 from dyffusion_tpu_torch.experiments import (
     DyffusionForecastingExperiment,
     Experiment,
     ExperimentConfig,
     InterpolationExperiment,
+    SimultaneousForecastingExperiment,
+    TimeConditionedForecastingExperiment,
 )
 from dyffusion_tpu_torch.experiments.base import resolve_device
 from dyffusion_tpu_torch.models import build_backbone
@@ -85,12 +98,42 @@ def load_interpolator_from_registry(
     return model.to(device).requires_grad_(False), s1_config
 
 
+def _config_fields(cls, section: Dict[str, Any]) -> Dict[str, Any]:
+    """The keys of a config section that the dataclass ``cls`` takes."""
+    fields = set(cls.__dataclass_fields__)
+    return {k: v for k, v in section.items() if k in fields}
+
+
+def build_diffusion_engine(diff_cfg: Dict[str, Any], model: nn.Module, sample_shape, device: torch.device):
+    """The baseline engine ``diffusion.name`` (``ddpm``, ``ddpm_v2`` or
+    ``mcvd``) over ``model``, for samples of ``sample_shape`` (C, H, W).
+    Its loss is ``diffusion.loss_function`` (l1 in the presets). With
+    ``ddpm_v2``'s ``learn_logvar`` the (T,) logvar becomes the model's
+    parameter ``_diffusion_logvar``: trained, decayed, EMA'd and
+    checkpointed as one of its weights; the forward never reads it."""
+    name = diff_cfg.get("name")
+    criterion = get_loss_fn(diff_cfg.get("loss_function", "mse"))
+    if name == "ddpm":
+        cfg = GaussianDiffusionConfig(**_config_fields(GaussianDiffusionConfig, diff_cfg))
+        return GaussianDiffusionEngine(cfg, model, sample_shape, criterion=criterion, device=device)
+    if name == "ddpm_v2":
+        cfg = LatentDDPMConfig(**_config_fields(LatentDDPMConfig, diff_cfg))
+        engine = LatentDDPMEngine(cfg, model, sample_shape, device=device)
+        if cfg.learn_logvar:
+            model.register_parameter("_diffusion_logvar", nn.Parameter(engine.init_logvar().to(device)))
+        return engine
+    if name == "mcvd":
+        cfg = McvdConfig(**_config_fields(McvdConfig, diff_cfg))
+        return McvdEngine(cfg, model, sample_shape, criterion=criterion, device=device)
+    raise ValueError(f"Unknown diffusion engine for the simultaneous experiment: {name}")
+
+
 def build_experiment(
     config: Dict[str, Any],
     datamodule: DataModule,
     interpolator: Optional[nn.Module] = None,
     device: torch.device | str = "cuda",
-) -> Tuple[Experiment, nn.Module, Callable, Dict[str, Callable], Optional[DyffusionEngine]]:
+) -> Tuple[Experiment, nn.Module, Callable, Dict[str, Callable], Optional[Any]]:
     """Build ``(experiment, model, loss_fn, eval_fns, engine)`` on ``device``.
 
     The backbone's weights are drawn from ``config['seed']`` (the global RNG
@@ -98,12 +141,27 @@ def build_experiment(
     ``interpolator`` (the ``model`` of an ``interpolation`` build; the
     engine freezes a copy of it and leaves the caller's module as it was),
     or, without one, the run ``diffusion.interpolator_run_id`` of the
-    registry ``config['registry_dir']``."""
+    registry ``config['registry_dir']``. ``time_conditioned`` and
+    ``simultaneous`` build no engine unless ``diffusion.name`` names one
+    (``ddpm``, ``ddpm_v2``, ``mcvd``: the simultaneous experiment hosts it)."""
     device = resolve_device(device)
     kind = config["experiment"]
     exp_cfg = _experiment_cfg(config)
     dims = datamodule.dims
     diff_cfg = config.get("diffusion") or {}
+    # the datamodule's physics hook, where it overrides the identity
+    has_boundary = type(datamodule).boundary_conditions is not DataModule.boundary_conditions
+    boundary_fn = datamodule.boundary_conditions if has_boundary else None
+    ar = bool(exp_cfg.prediction_horizon and exp_cfg.prediction_horizon > exp_cfg.horizon)
+
+    def forecast_eval_fns(exp) -> Dict[str, Callable]:
+        """val, and test/predict chaining autoregressive windows when the
+        prediction horizon exceeds the horizon."""
+        return {
+            "val": exp.make_eval_fn(split="val"),
+            "test": exp.make_eval_fn(split="test", autoregressive=ar),
+            "predict": exp.make_eval_fn(split="predict", autoregressive=ar),
+        }
 
     def init_model(exp: Experiment) -> nn.Module:
         spec = exp.backbone_spec()
@@ -133,11 +191,9 @@ def build_experiment(
         else:
             interpolator = copy.deepcopy(interpolator).to(device).requires_grad_(False)
             ip_horizon = exp_cfg.horizon
-        # the datamodule's physics hook, where it overrides the identity
-        has_boundary = type(datamodule).boundary_conditions is not DataModule.boundary_conditions
         exp = DyffusionForecastingExperiment(
             exp_cfg, dims, forward_conditioning=diff_cfg.get("forward_conditioning", "data"),
-            boundary_fn=datamodule.boundary_conditions if has_boundary else None, device=device,
+            boundary_fn=boundary_fn, device=device,
         )
         model = init_model(exp)
         fields = set(DyffusionConfig.__dataclass_fields__)
@@ -154,13 +210,26 @@ def build_experiment(
             criterion=get_loss_fn(diff_cfg.get("loss_function", "mse")),
         )
         exp.model, exp.engine, exp.interpolator = model, engine, interpolator
-        ar = bool(exp_cfg.prediction_horizon and exp_cfg.prediction_horizon > exp_cfg.horizon)
-        eval_fns = {
-            "val": exp.make_eval_fn(split="val"),
-            "test": exp.make_eval_fn(split="test", autoregressive=ar),
-            "predict": exp.make_eval_fn(split="predict", autoregressive=ar),
-        }
-        return exp, model, exp.make_loss_fn(), eval_fns, engine
+        return exp, model, exp.make_loss_fn(), forecast_eval_fns(exp), engine
+
+    if kind == "time_conditioned":
+        exp = TimeConditionedForecastingExperiment(exp_cfg, dims, boundary_fn=boundary_fn, device=device)
+        exp.model = init_model(exp)
+        return exp, exp.model, exp.make_loss_fn(), forecast_eval_fns(exp), None
+
+    if kind == "simultaneous":
+        is_diffusion = diff_cfg.get("name") in ("ddpm", "ddpm_v2", "mcvd")
+        exp = SimultaneousForecastingExperiment(
+            exp_cfg, dims, boundary_fn=boundary_fn, is_diffusion=is_diffusion, device=device
+        )
+        model = init_model(exp)
+        exp.model = model
+        engine = None
+        if is_diffusion:
+            H, W = dims["spatial"]
+            engine = build_diffusion_engine(diff_cfg, model, (dims["output"] * exp_cfg.horizon, H, W), device)
+            exp.diffusion_engine = engine
+        return exp, model, exp.make_loss_fn(), forecast_eval_fns(exp), engine
 
     raise ValueError(f"Unknown or not yet ported experiment type: {kind}")
 

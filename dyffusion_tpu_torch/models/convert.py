@@ -8,7 +8,9 @@ use for the original reference: flax Conv kernels (kh, kw, I, O) become
 conv convolves); Dense kernels (I, O) become 1x1 convs (O, I, 1, 1) or
 Linear weights (O, I); norm ``scale`` becomes ``weight``; the channel-norm
 gain (C,) becomes (1, C, 1, 1); BatchNorm's ``batch_stats`` ``mean``/``var``
-become ``running_mean``/``running_var`` (``num_batches_tracked`` 0).
+become ``running_mean``/``running_var`` (``num_batches_tracked`` 0). The
+LDM-DDPM's learned logvar, a ``_diffusion_logvar`` leaf beside the
+``Unet``'s params, keeps its key (the port's parameter of that name).
 """
 from __future__ import annotations
 
@@ -91,6 +93,8 @@ def unet_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
         else:
             conv, key = params[f"up{i}_conv"], f"ups.{i}.3"
         out[f"{key}.weight"], out[f"{key}.bias"] = _conv(conv["kernel"]), np.asarray(conv["bias"])
+    if "_diffusion_logvar" in params:
+        out["_diffusion_logvar"] = np.asarray(params["_diffusion_logvar"])
     return {k: torch.tensor(np.asarray(v, dtype=np.float32)) for k, v in out.items()}
 
 

@@ -42,6 +42,14 @@ def sst_overrides(extra: Optional[Sequence[str]] = None) -> List[str]:
     return list(SST_CORE) + list(extra or ())
 
 
+def sst_baseline_overrides(extra: Optional[Sequence[str]] = None) -> List[str]:
+    """The SST workload for the baselines (time-conditioned, simultaneous,
+    DDPM, LDM-DDPM, MCVD): :data:`SST_CORE` without DYffusion's auxiliary
+    interpolation steps (a diffusion key the baselines do not have), plus
+    ``extra``."""
+    return [o for o in SST_CORE if not o.startswith("diffusion.")] + list(extra or ())
+
+
 # The Navier-Stokes workload's model and physics (reference
 # configs/experiment/navier_stokes.yaml and model/unet_simple_navier_stokes.yaml):
 # 221x42 grid, C=3 plus 2 static condition channels, horizon 16, UNetSimple

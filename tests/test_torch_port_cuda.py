@@ -463,3 +463,64 @@ def test_physical_backbones_on_the_gpu_match_the_cpu(name, deterministic_cudnn, 
         return max(float((grads[k] - v).abs().max()) / max(float(v.abs().max()), 0.1 * top) for k, v in f64[3].items())
 
     assert worst(gpu[3]) <= max(1e-3, 3 * worst(cpu[3])), (worst(gpu[3]), worst(cpu[3]))
+
+
+# ---------------------------------------------------------------------------
+# the baselines' paths (SST width, f32): B1 at their rows, and one sampler
+# step of each diffusion engine, GPU against CPU
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [4, 20, 40, 100])
+@pytest.mark.parametrize("N", [3600, 900, 225])
+def test_kernel_matches_plain_at_the_baseline_shapes(N, B):
+    """B1 in f32 (the baselines' presets evaluate in f32), NCHW view, at the
+    rows of their paths: a train batch of 4; 20 members x eval batch 1 and
+    2; the 50-member test ensemble x 2."""
+    _require_cuda()
+    x = _qkv_wide_k(B, N, True, torch.float32, seed=7 * B + N)
+    before = la.launches
+    got = la.linear_attention_qkv(x, HEADS, DIM_HEAD, SCALE)
+    torch.cuda.synchronize()
+    assert la.launches == before + 1 and got.dtype == torch.float32
+    _assert_close_with_controls(got, la.linear_attention_qkv_plain(x, HEADS, DIM_HEAD, SCALE), REL_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["ddpm", "mcvd"])
+def test_baseline_sampler_step_gpu_matches_cpu(engine):
+    """One f32 step of the DDPM and the MCVD sampler (T = 2: two denoiser
+    forwards, MCVD's the second its final denoise) over a small Unet with
+    linear attention, the same weights and noise on both devices, TF32 off:
+    within 1e-4 of the largest output; without its step noise the CPU
+    result fails the same check."""
+    _require_cuda()
+    import copy
+
+    from dyffusion_tpu_torch.diffusion import GaussianDiffusionConfig, GaussianDiffusionEngine, McvdConfig, McvdEngine
+    from dyffusion_tpu_torch.models import Unet
+
+    torch.manual_seed(0)
+    model = Unet(dim=16, num_input_channels=3, num_output_channels=3, num_conditional_channels=1, dim_mults=(1, 2),
+                 with_time_emb=True)
+    g = torch.Generator().manual_seed(1)
+    cond = torch.randn((2, 1, 24, 24), generator=g)
+    draws = [torch.randn((2, 3, 24, 24), generator=g) for _ in range(2)]
+    make = {"ddpm": lambda m: GaussianDiffusionEngine(GaussianDiffusionConfig(timesteps=2), m, (3, 24, 24)),
+            "mcvd": lambda m: McvdEngine(McvdConfig(timesteps=2), m, (3, 24, 24))}[engine]
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        outs = {}
+        for tag, device, queue in (("gpu", "cuda", list(draws)), ("cpu", "cpu", list(draws)),
+                                   ("no noise", "cpu", [draws[0], torch.zeros_like(draws[1])])):
+            e = make(copy.deepcopy(model).to(device))
+            e.draw = lambda shape, gen, d, concentration=None, q=queue: q.pop(0).to(d)
+            before = la.launches
+            with torch.no_grad():
+                outs[tag] = e.sample(None, None, cond.to(device)).cpu()
+            assert (la.launches > before) == (device == "cuda")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    _assert_close_to_scale(outs["gpu"], outs["cpu"], 1e-4)
+    with pytest.raises(AssertionError, match="max abs err"):
+        _assert_close_to_scale(outs["no noise"], outs["cpu"], 1e-4)

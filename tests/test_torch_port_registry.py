@@ -26,7 +26,11 @@ from tests._torch_port_helpers import torch_threads_share_of_cores  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = os.path.join(ROOT, "runs_flagship")
-PRESETS = ("synthetic_interpolation", "synthetic_dyffusion")
+PRESETS = ("synthetic_interpolation", "synthetic_dyffusion") + tuple(
+    f"{dataset}_{method}"
+    for dataset in ("synthetic", "navier_stokes", "spring_mesh")
+    for method in ("time_conditioned", "simultaneous", "ddpm", "ddpm_v2", "mcvd")
+)
 TINY = [
     "datamodule.spatial=(8,8)", "datamodule.channels=1", "datamodule.horizon=3",
     "datamodule.n_traj=5", "datamodule.n_time=8", "datamodule.batch_size=4",
