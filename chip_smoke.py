@@ -94,9 +94,28 @@ non-zero:
    CPU. B1 launches per command and per request (42 / 6 / 6,000 / 6,006 /
    6,000) are asserted.
 
+14. ncsnpp-ref: the MCVD NCSN++ slice, f32, GPU against CPU, each check
+   with a negative control that must fail it: the FIR resampling ops at the
+   ladder's shapes with an asymmetric kernel (control: unflipped), an NCSN++
+   and a SPADE NCSN++ forward at full width on 2 rows (control: the
+   condition moved by a pixel), one MCVD loss and its gradients (control:
+   no condition), three levels of annealed Langevin dynamics with the CPU's
+   draws (control: a draw zeroed).
+15. ncsnpp: ``synthetic_mcvd`` over NCSN++ at MCVD's published width
+   (64x64, C=1, horizon 7, nf 64, mults (1,2,3,4), 2 res blocks, attention
+   at 8/16/32, dropout 0.1, 20 members, f32) through the CLI in a temporary
+   registry: 4 train steps + a validation (10 sampler steps), falling
+   losses, ``mode=test`` (50 members), serving by run id with the seed and
+   members-differ checks (members sharing their noise must fail), one
+   full-sampler request (1001 forwards at 40 rows, timed), the busy share
+   of a 21-forward request of the same run under the CUDA-activity
+   profiler, and three short commands: the Fourier embedding with the EMA
+   (its features unchanged bit for bit), the DDPM residual blocks, SPADE.
+   No kernel of the port lies on this path: B1-B3 must read 0 launches.
+
 Each path (slice, train, fit, each cli command, ns, spring, each baseline
-command and request) sets the launch counts to 0 before it runs and reads
-them after. The line before the last is the kernel summary as JSON
+command and request, ncsnpp) sets the launch counts to 0 before it runs and
+reads them after. The line before the last is the kernel summary as JSON
 (B1's top-level launches and times are the train path's; ``by_path`` has
 each path's count); the last line is ``{"ok": true, "device": {...}}``.
 
@@ -117,6 +136,11 @@ no ``ok`` line.
 
 runs phases 1, 2 and 13 (the baselines) and stops, with no ``ok`` line.
 ``--profile`` also profiles one full-sampler DDPM request.
+
+    python3 chip_smoke.py --ncsnpp
+
+runs phases 1, 2, 14 and 15 (MCVD over NCSN++) and stops, with no ``ok``
+line. ``--profile`` also profiles one full-sampler MCVD NCSN++ request.
 
     python3 chip_smoke.py --kernels
 
@@ -1545,10 +1569,285 @@ def phase_baselines(card):
     return totals, per_request
 
 
+# The MCVD NCSN++ path (utils/workloads.py::NCSNPP_CORE: MCVD's published
+# width on its 64x64 grid, f32, 20 members): 4 train steps at batch 4 and
+# one validation (40 rows, sampling subsampled to 10 steps + the denoise),
+# mode=test (50 members x 2 rows), serving's seed checks on one row, and one
+# request with the preset's full sampler (1000 steps + the denoise = 1001
+# forwards at 20 members x eval batch 2 = 40 rows).
+NCSNPP_TRAIN_STEPS = 4
+NCSNPP_EVAL_STEPS = 10
+NCSNPP_FULL_FORWARDS = 1001
+NCSNPP_BUSY_STEPS = 20
+NCSNPP_DATA = ["datamodule.n_traj=5", "datamodule.n_time=9", "datamodule.batch_size=4",
+               "datamodule.eval_batch_size=2"]
+FIR_TAPS = [1.0, 2.0, 5.0, 3.0]  # asymmetric: the unflipped kernel gives other numbers
+
+
+def _ncsnpp_pair(name, gen):
+    """A full-width NCSN++ (``name``: 'ncsnpp' or 'ncsnpp_spade'; the model
+    section of the workload's config) for 7 frames after 1 on 64x64, with
+    seeded weights moved off their near-zero output init by N(0, 0.05)
+    draws: on the CPU, and a copy on the GPU."""
+    import copy
+
+    import torch
+
+    from dyffusion_tpu_torch.config import get_config
+    from dyffusion_tpu_torch.models import BackboneSpec, build_backbone
+    from dyffusion_tpu_torch.utils.workloads import ncsnpp_overrides
+
+    model_cfg = get_config("synthetic_mcvd", ncsnpp_overrides([f"model.name={name}"]))["model"]
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        cpu = build_backbone(model_cfg, BackboneSpec(7, 7, 1, spatial_shape=(64, 64)))
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    return cpu, copy.deepcopy(cpu).cuda()
+
+
+def phase_ncsnpp_reference():
+    """GPU against CPU, f32 (TF32 off), each check with a negative control
+    that must fail it: the FIR ops at the ladder's shapes with an
+    asymmetric kernel (control: the kernel unflipped); an NCSN++ and a SPADE
+    NCSN++ forward at full width on 2 rows (control: the condition moved by
+    one pixel); one MCVD loss and every gradient at fixed t with the same
+    noise (control: the loss without its condition); three levels of
+    annealed Langevin dynamics with the draws made on the CPU (control: the
+    last draw zeroed). Tolerance: 1e-4 of max|CPU| for outputs and the loss,
+    1e-3 of each gradient's scale (as ``[train-ref]``)."""
+    import torch
+
+    from dyffusion_tpu_torch.diffusion import McvdConfig, McvdEngine, anneal_langevin_dynamics, get_sigmas
+    from dyffusion_tpu_torch.ops import upfirdn2d as fir
+
+    tag, r = "[ncsnpp-ref]", 1e-4
+    gen = torch.Generator().manual_seed(SEED)
+    start = time.perf_counter()
+
+    def check(label, got, want, control):
+        ok, err, limit = _within(got.cpu(), want, r)
+        ok_neg, err_neg, _ = _within(control.cpu(), want, r)
+        print(f"{tag} {label}: max_abs_err={err:.3e} (limit {limit:.3e}); negative control {err_neg:.3e}")
+        if not ok:
+            raise AssertionError(f"{tag} {label}: the GPU disagrees with the CPU: {err} > {limit}")
+        if ok_neg:
+            raise AssertionError(f"{tag} {label}: the negative control passed the check")
+
+    w = torch.randn(64, 64, 3, 3, generator=gen) * 0.05
+    for C, S in ((64, 64), (128, 32), (192, 16), (256, 8)):  # the BigGAN ladder's resampled activations
+        x = torch.randn(40, C, S, S, generator=gen)
+        for name, op in (("upsample_2d", fir.upsample_2d), ("downsample_2d", fir.downsample_2d)):
+            check(f"{name} {tuple(x.shape)}", op(x.cuda(), FIR_TAPS), op(x, FIR_TAPS), op(x, FIR_TAPS[::-1]))
+    x = torch.randn(40, 64, 32, 32, generator=gen)
+    for name, op in (("upsample_conv_2d", fir.upsample_conv_2d), ("conv_downsample_2d", fir.conv_downsample_2d)):
+        check(f"{name} {tuple(x.shape)}", op(x.cuda(), w.cuda(), FIR_TAPS), op(x, w, FIR_TAPS),
+              op(x, w, FIR_TAPS[::-1]))
+
+    x = torch.randn(2, 7, 64, 64, generator=gen)
+    cond = torch.randn(2, 1, 64, 64, generator=gen)
+    t = torch.tensor([3.0, 517.0])
+    for name in ("ncsnpp", "ncsnpp_spade"):
+        cpu, gpu = _ncsnpp_pair(name, gen)
+        with torch.no_grad():
+            want = cpu(x, t, cond)
+            got = gpu(x.cuda(), t.cuda(), cond.cuda())
+            control = cpu(x, t, torch.roll(cond, 1, dims=-1))
+        check(f"{name} forward nf 64, 2 rows", got, want, control)
+        if name == "ncsnpp":
+            model_cpu, model_gpu = cpu, gpu
+
+    losses, grads = {}, {}
+    noise = torch.randn(2, 7, 64, 64, generator=gen)
+    t_rows = torch.tensor([100, 900])
+    for tag2, model, dev, c in (("gpu", model_gpu, "cuda", cond), ("cpu", model_cpu, "cpu", cond),
+                                ("no condition", model_cpu, "cpu", torch.zeros_like(cond))):
+        engine = McvdEngine(McvdConfig(timesteps=1000), model, (7, 64, 64))
+        engine.draw = lambda shape, g, d, concentration=None: noise.to(d)
+        model.zero_grad()
+        loss, _ = engine.p_losses(None, None, x.to(dev), c.to(dev), t_rows.to(dev))
+        loss.backward()
+        losses[tag2] = float(loss.detach())
+        grads[tag2] = {k: p.grad.cpu() for k, p in model.named_parameters() if p.grad is not None}
+    rg = 1e-3
+    ok, worst = _grads_within(grads["gpu"], grads["cpu"], rg)
+    ok_neg, worst_neg = _grads_within(grads["no condition"], grads["cpu"], rg)
+    rel = abs(losses["gpu"] - losses["cpu"]) / abs(losses["cpu"])
+    rel_neg = abs(losses["no condition"] - losses["cpu"]) / abs(losses["cpu"])
+    print(f"{tag} MCVD loss f32 at t={t_rows.tolist()}: GPU {losses['gpu']:.7f} vs CPU {losses['cpu']:.7f} "
+          f"(rel {rel:.2e}, limit {r}); {len(grads['cpu'])} gradients: worst {worst * rg:.2e} of its scale "
+          f"(limit {rg}); negative control (no condition): loss rel {rel_neg:.2e}, gradients {worst_neg * rg:.2e}")
+    if rel > r or not ok or set(grads["gpu"]) != set(grads["cpu"]):
+        raise AssertionError(f"{tag} the GPU MCVD loss or its gradients disagree with the CPU")
+    if ok_neg:
+        raise AssertionError(f"{tag} the gradient check accepts a loss without its condition")
+
+    sigmas = get_sigmas("geometric", 1.0, 0.01, 3)
+    draws = [torch.randn(2, 7, 64, 64, generator=gen) for _ in range(3)]
+    outs = {}
+    for tag2, model, dev, queue in (("gpu", model_gpu, "cuda", list(draws)), ("cpu", model_cpu, "cpu", list(draws)),
+                                    ("zeroed draw", model_cpu, "cpu", draws[:2] + [torch.zeros_like(draws[2])])):
+        with torch.no_grad():
+            outs[tag2] = anneal_langevin_dynamics(model, None, None, noise.to(dev), cond.to(dev), sigmas,
+                                                  draw=lambda shape, g, d, q=queue: q.pop(0).to(d))
+    check("anneal_langevin_dynamics, 3 levels + denoise (4 forwards)", outs["gpu"], outs["cpu"], outs["zeroed draw"])
+    print(f"{tag} phase wall time {time.perf_counter() - start:.1f} s")
+
+
+def phase_ncsnpp(card):
+    """MCVD over NCSN++ through the CLI (``train.main``) at MCVD's published
+    width (:data:`NCSNPP_CORE`), f32, in a temporary registry: 4 train
+    steps at batch 4 and one validation (sampling subsampled to 10 steps);
+    ``mode=test`` (50 members); serving by run id (a seed repeats its
+    answer, another does not, the members differ; members sharing their
+    noise must fail that check); one request with the full sampler (1001
+    forwards at 40 rows), timed, and the busy share of a 21-forward request
+    of the same run under the CUDA-activity profiler. Then three short commands: the
+    Fourier time embedding with the EMA (its features must stay bit for bit
+    as initialized, in the weights and the EMA), the DDPM residual blocks,
+    and the SPADE variant. No kernel of the port lies on this path: the
+    launch counts are set to 0 before it and must read 0 after. Returns
+    them."""
+    import numpy as np
+    import torch
+
+    from dyffusion_tpu_torch import train
+    from dyffusion_tpu_torch.config import get_config
+    from dyffusion_tpu_torch.interface import build_experiment, get_datamodule, reload_trainer
+    from dyffusion_tpu_torch.ops import fused_act as fa
+    from dyffusion_tpu_torch.ops import linear_attention as la
+    from dyffusion_tpu_torch.serving import build_predict_fn
+    from dyffusion_tpu_torch.training.checkpoint import CheckpointManager
+    from dyffusion_tpu_torch.utils import registry_api
+    from dyffusion_tpu_torch.utils.naming import get_run_id
+    from dyffusion_tpu_torch.utils.workloads import ncsnpp_overrides
+
+    tag = "[ncsnpp]"
+    start = time.perf_counter()
+    la.reset_launches()
+    fa.reset_launches()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ncsnpp_") as reg:
+        common = ncsnpp_overrides([*NCSNPP_DATA, f"trainer.max_steps={NCSNPP_TRAIN_STEPS}",
+                                   "trainer.val_every_n_epochs=100", "trainer.log_every_n_steps=1",
+                                   f"diffusion.sampling_timesteps={NCSNPP_EVAL_STEPS}", f"registry_dir={reg}"])
+        run_id = get_run_id(get_config("synthetic_mcvd", common))
+
+        def step(name, fn):
+            torch.cuda.reset_peak_memory_stats()
+            _sync()
+            t = time.perf_counter()
+            out = fn()
+            _sync()
+            print(f"{tag} {name}: {time.perf_counter() - t:.2f} s, peak memory "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {card}")
+            return out
+
+        def losses(rid, n):
+            vals = np.asarray([r["train/loss"] for r in registry_api.get_run_metrics(reg, rid) if "train/loss" in r])
+            if len(vals) != n or not np.isfinite(vals).all():
+                raise AssertionError(f"{tag} {rid}: train losses missing or not finite: {vals}")
+            return vals
+
+        best = step(f"train {NCSNPP_TRAIN_STEPS} steps + validation ({NCSNPP_EVAL_STEPS}+1 forwards, 40 rows)",
+                    lambda: train.main(["experiment=synthetic_mcvd", *common]))
+        vals = losses(run_id, NCSNPP_TRAIN_STEPS)
+        half = len(vals) // 2
+        print(f"{tag} train losses {np.round(vals, 5).tolist()}; best val/crps {best:.5f}")
+        if not np.isfinite(best) or not vals[half:].mean() < vals[:half].mean():
+            raise AssertionError(f"{tag} the losses do not fall or the validation is not finite: {vals}, {best}")
+        crps = step("mode=test, 50 members", lambda: train.main(
+            ["mode=test", f"run_id={run_id}", f"registry_dir={reg}"]))
+
+        def serve():
+            predict, _, info = build_predict_fn(reg, run_id)
+            trainer = reload_trainer(reg, run_id)
+            batch = next(trainer.datamodule.predict_batches())
+            one = {k: v[:1] for k, v in batch.items()}
+            return trainer, info, batch, [predict(one, s) for s in (SEED, SEED, SEED + 1)]
+
+        trainer, info, batch, (a, b, other) = step("serving by run id, 3 requests on one row", serve)
+        repeat, apart, spread = float((a - b).abs().max()), float((a - other).abs().max()), float(a.std(dim=0).max())
+        exp = trainer.experiment
+        engine = exp.diffusion_engine
+        with torch.no_grad():  # negative control: members sharing their noise
+            def shared(shape, g, d, concentration=None, draw=engine.draw):
+                n = exp.num_members("predict")
+                first = draw((shape[0] // n,) + tuple(shape[1:]), g, d)
+                return first.repeat((n,) + (1,) * (len(shape) - 1))
+            engine.draw = shared
+            one = {k: v[:1] for k, v in batch.items()}
+            same = trainer.eval_fns["predict"](one, torch.Generator(device="cuda").manual_seed(SEED),
+                                               trainer.state.eval_params())["t1_preds"]
+            del engine.draw
+        print(f"{tag} test/crps {crps:.5f}; served {tuple(a.shape)} ({info['ensemble_members']} members): same seed "
+              f"max diff {repeat:.3e}, other seed {apart:.3e}, member spread {spread:.3e}; negative control: members "
+              f"sharing their noise spread {float(same.std(dim=0).max()):.3e} (must be 0)")
+        if not np.isfinite(crps) or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{tag} a non-finite test score or forecast")
+        if repeat != 0 or not apart > 1e-3 * float(a.abs().max()) or not spread > 0:
+            raise AssertionError(f"{tag} a seed did not repeat ({repeat}), another gave the same answer ({apart}) "
+                                 f"or the members do not differ ({spread})")
+        if float(same.std(dim=0).max()) > 0:
+            raise AssertionError(f"{tag} members sharing their noise still differ: the check cannot fail")
+
+        full = ["diffusion.sampling_timesteps=null"]
+        predict_full, _, _ = build_predict_fn(reg, run_id, overrides=full)
+        fwd = _sampler_forwards(reload_trainer(reg, run_id, full).experiment)
+        rows = exp.num_members("predict") * batch["dynamics"].shape[0]
+        out = step(f"full-sampler request ({fwd} forwards, {rows} rows)", lambda: predict_full(batch, SEED))
+        if fwd != NCSNPP_FULL_FORWARDS or not bool(torch.isfinite(out).all()) or not float(out.std(dim=0).max()) > 0:
+            raise AssertionError(f"{tag} the full-sampler request ({fwd} forwards) is not finite or its members agree")
+        # the busy share, from the profiler over a request of the same run and rows with fewer steps:
+        # every forward is the same work, and the profiler's processing of the full request's
+        # 1.14 million kernel records takes minutes (--profile does it, by category)
+        window = [f"diffusion.sampling_timesteps={NCSNPP_BUSY_STEPS}"]
+        predict_window, _, _ = build_predict_fn(reg, run_id, overrides=window)
+        fwd_window = _sampler_forwards(reload_trainer(reg, run_id, window).experiment)
+        _profile(f"{tag} busy share over a {fwd_window}-forward request of the same run ({rows} rows):",
+                 lambda: predict_window(batch, SEED), card, detail=False)
+
+        short = [o for o in common if not o.startswith(("trainer.max_steps", "diffusion.sampling_timesteps"))]
+        short += ["trainer.max_steps=2", "diffusion.sampling_timesteps=2"]
+        fourier = short + ["model.embedding_type=fourier", "module.use_ema=true"]
+        config = get_config("synthetic_mcvd", fourier)
+        dm = get_datamodule(config)
+        dm.setup()
+        init = build_experiment(config, dm, device="cpu")[1]
+        W0, dense0 = init.fourier_emb.W.detach().clone(), init.all_modules[0].weight.detach().clone()
+        del init
+        for name, args in (("fourier embedding + EMA", fourier), ("DDPM residual blocks", short +
+                           ["model.resblock_type=ddpm"]), ("SPADE", short + ["model.name=ncsnpp_spade"])):
+            rid = get_run_id(get_config("synthetic_mcvd", args))
+            score = step(f"{name}: 2 steps + validation", lambda: train.main(["experiment=synthetic_mcvd", *args]))
+            vals = losses(rid, 2)
+            print(f"{tag} {name}: losses {np.round(vals, 5).tolist()}, best val/crps {score:.5f}")
+            if not np.isfinite(score):
+                raise AssertionError(f"{tag} {name}: the validation is not finite")
+            if args is fourier:
+                saved = CheckpointManager(os.path.join(reg, rid), "val/crps").restore("last")
+                kept = [torch.equal(saved[s]["fourier_emb.W"].cpu(), W0) for s in ("model", "ema")]
+                moved = not torch.equal(saved["model"]["all_modules.0.weight"].cpu(), dense0)
+                print(f"{tag} the Fourier features unchanged in the weights and the EMA: {kept}; "
+                      f"the time MLP moved: {moved}")
+                if not all(kept) or not moved:
+                    raise AssertionError(f"{tag} the Fourier features changed, or nothing trained")
+    counts = {"linear_attention_qkv": la.launches, "linear_attention_core": la.core_launches,
+              "fused_leaky_relu": fa.launches}
+    print(f"{tag} kernel launches on this path {counts} (must be 0: NCSN++ runs none of B1-B3); phase wall time "
+          f"{time.perf_counter() - start:.1f} s; on {card}")
+    if any(counts.values()):
+        raise AssertionError(f"{tag} a kernel launched on the NCSN++ path: {counts}")
+    return counts
+
+
 # kernel categories of the profile, by a substring of the kernel's name;
 # the first match wins, and what matches nothing is "other elementwise"
 _CATEGORIES = (
     ("B1 linear attention", ("linear_attention",)),
+    ("FIR depthwise convs (upfirdn2d)", ("depthwise",)),
+    ("cuDNN FFT convolutions", ("fft", "pointwise_mult_and_sum_complex")),
+    ("FIR zero-stuffing pads", ("constant_pad",)),
     ("cuDNN NCHW<->NHWC layout transposes", ("nchwtonhwc", "nhwctonchw")),
     ("BatchNorm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
     ("bilinear resize", ("bilinear",)),
@@ -1566,12 +1865,12 @@ _CATEGORIES = (
 )
 
 
-def _profile(tag, fn, card):
+def _profile(tag, fn, card, detail=True):
     """Run ``fn`` once under ``torch.profiler`` (CUDA activity only, so the
     host records no operators) and print its wall time, summed kernel time,
     busy share (kernel time over wall time; the profiler's host work can
-    only lower it), kernel time by category and the top kernels. Returns
-    {category: ms}."""
+    only lower it) and, with ``detail``, kernel time by category and the
+    top kernels. Returns {kernel name: ms}."""
     import torch  # noqa: F401
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1590,6 +1889,8 @@ def _profile(tag, fn, card):
         raise AssertionError(f"{tag} the profiler recorded no kernel time on the device")
     print(f"{tag} profiled {wall:.4f} s wall, {total / 1e3:.4f} s of kernels "
           f"({sum(e.count for e in kernels)} launches): busy share {total / 1e3 / wall:.3f}; on {card}")
+    if not detail:
+        return ms
     cats = {}
     for name, t in ms.items():
         n = name.lower()
@@ -1683,11 +1984,58 @@ def phase_profile_baseline(card):
              f"{exp.num_members('predict') * batch['dynamics'].shape[0]} rows):", lambda: predict(batch, SEED + 1), card)
 
 
+def phase_profile_ncsnpp(card):
+    """One MCVD request over the full-width NCSN++ with the preset's full
+    sampler (1001 forwards, f32, 20 members x eval batch 2, seeded random
+    weights): unprofiled (it also warms up), then under the profiler; then
+    unprofiled again with ``torch.backends.cudnn.benchmark`` on (cuDNN times
+    its algorithms per shape instead of taking its heuristic's pick; the
+    search runs in a 2-forward request first), and the setting restored."""
+    import torch
+
+    from dyffusion_tpu_torch.config import get_config
+    from dyffusion_tpu_torch.interface import build_experiment, get_datamodule
+    from dyffusion_tpu_torch.serving import build_experiment_predict_fn
+    from dyffusion_tpu_torch.utils.workloads import ncsnpp_overrides
+
+    def predictor(extra):
+        config = get_config("synthetic_mcvd", ncsnpp_overrides([*NCSNPP_DATA, "trainer.save_checkpoints=False", *extra]))
+        dm = get_datamodule(config)
+        dm.setup()
+        exp, _, _, eval_fns, _ = build_experiment(config, dm)
+        predict, _, _ = build_experiment_predict_fn(exp, eval_fns, dm, None)
+        return exp, predict, next(dm.predict_batches())
+
+    def timed(fn):
+        _sync()
+        t = time.perf_counter()
+        fn()
+        _sync()
+        return time.perf_counter() - t
+
+    exp, predict, batch = predictor([])
+    fwd = _sampler_forwards(exp)
+    rows = exp.num_members("predict") * batch["dynamics"].shape[0]
+    print(f"[profile-ncsnpp] unprofiled request {timed(lambda: predict(batch, SEED)):.4f} s ({fwd} forwards, "
+          f"{rows} rows, cudnn.benchmark {torch.backends.cudnn.benchmark})")
+    _profile(f"[profile-ncsnpp] one MCVD NCSN++ request ({fwd} forwards, {rows} rows):",
+             lambda: predict(batch, SEED + 1), card)
+    before = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        _, short, _ = predictor(["diffusion.sampling_timesteps=1"])
+        search = timed(lambda: short(batch, SEED))
+        print(f"[profile-ncsnpp] cudnn.benchmark on: the 2-forward request with the algorithm search {search:.4f} s; "
+              f"then the full request {timed(lambda: predict(batch, SEED + 1)):.4f} s ({fwd} forwards); on {card}")
+    finally:
+        torch.backends.cudnn.benchmark = before
+
+
 def main(argv) -> int:
     import torch
 
-    if argv not in ([], ["--profile"], ["--kernels"], ["--physical"], ["--baselines"]):
-        raise SystemExit("usage: python3 chip_smoke.py [--profile | --kernels | --physical | --baselines]")
+    if argv not in ([], ["--profile"], ["--kernels"], ["--physical"], ["--baselines"], ["--ncsnpp"]):
+        raise SystemExit("usage: python3 chip_smoke.py [--profile | --kernels | --physical | --baselines | --ncsnpp]")
     name, smi = phase_device()
     phase_build()
     if argv == ["--profile"]:
@@ -1695,9 +2043,14 @@ def main(argv) -> int:
         for key in PHYSICAL:
             phase_profile_physical(smi, key)
         phase_profile_baseline(smi)
+        phase_profile_ncsnpp(smi)
         return 0
     if argv == ["--baselines"]:
         phase_baselines(smi)
+        return 0
+    if argv == ["--ncsnpp"]:
+        phase_ncsnpp_reference()
+        phase_ncsnpp(smi)
         return 0
     if argv == ["--physical"]:
         phase_physical_reference()
@@ -1723,6 +2076,8 @@ def main(argv) -> int:
     phase_physical_reference()
     physical = {spec["label"]: phase_physical(smi, key) for key, spec in PHYSICAL.items()}
     baselines, baseline_requests = phase_baselines(smi)
+    phase_ncsnpp_reference()
+    ncsnpp = phase_ncsnpp(smi)
     # B1's top-level numbers are the [train] path's (this slice's main path);
     # by_path keeps each path's own count, read after setting it to 0.
     # No single PyTorch call computes any of the three functions: library_ms is null
@@ -1733,13 +2088,14 @@ def main(argv) -> int:
                      "fit": {"launches": fit}, "cli": {"launches": cli},
                      **{p: {"launches": c["linear_attention_qkv"]} for p, c in physical.items()},
                      **{f"baselines_{m}": {"launches": n, "per_request": baseline_requests[m]}
-                        for m, n in baselines.items()}}},
+                        for m, n in baselines.items()},
+                     "ncsnpp": {"launches": ncsnpp["linear_attention_qkv"]}}},
         {"name": "fused_leaky_relu", "route": "cuda", "source": fa.SOURCE, "replaces": fa.REPLACES,
          "launches": op_launches["fused_leaky_relu"], **b2, "library_ms": None,
-         "by_path": {p: {"launches": c["fused_leaky_relu"]} for p, c in physical.items()}},
+         "by_path": {p: {"launches": c["fused_leaky_relu"]} for p, c in {**physical, "ncsnpp": ncsnpp}.items()}},
         {"name": "linear_attention_core", "route": "cuda", "source": la.CORE_SOURCE, "replaces": la.CORE_REPLACES,
          "launches": op_launches["linear_attention_core"], **b3, "library_ms": None,
-         "by_path": {p: {"launches": c["linear_attention_core"]} for p, c in physical.items()}},
+         "by_path": {p: {"launches": c["linear_attention_core"]} for p, c in {**physical, "ncsnpp": ncsnpp}.items()}},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -3,7 +3,9 @@
 Trains the two DYffusion stages through the run registry and its CLI
 (``python -m dyffusion_tpu_torch.train``), and serves the folded, bf16,
 MC-dropout ensemble cold sampler over two ``Unet`` backbones, on an NVIDIA
-H100, with the linear attention as a hand-written CUDA kernel. Mirrors the
+H100, with the linear attention as a hand-written CUDA kernel; also the
+baselines (time-conditioned, simultaneous, DDPM, LDM-DDPM, MCVD over any
+backbone, NCSN++ and its SPADE variant included). Mirrors the
 JAX package's layout and module names; imports neither JAX nor
 ``dyffusion_tpu``.
 

@@ -13,7 +13,10 @@ Counterpart of ``dyffusion_tpu/diffusion/mcvd.py`` (``get_sigmas`` and
   ``just_beta``, ``clip_before`` and the final denoise, which is conditioned
   on the step COUNT n-1, not on the last step's index (as the JAX package
   and its reference do); DDIM; F-PNDM, whose Runge-Kutta warm-up and
-  4th-order Adams-Bashforth steps become a Python branch per step.
+  4th-order Adams-Bashforth steps become a Python branch per step;
+- the annealed-Langevin (SMLD) sampler library, which no config reaches:
+  :func:`anneal_langevin_dynamics`, its sparse, consistent and sparse
+  consistent forms, inpainting and interpolation.
 
 The samplers are Python loops over f32 scalar coefficients computed on the
 host in the JAX package's order of f32 operations. The score network is a
@@ -23,8 +26,9 @@ given and BatchNorm reads its running averages; the samplers call it
 without a generator. Every random tensor comes from
 :meth:`McvdEngine.draw`, in the JAX package's order: the loss draws its
 noise, then the condition's; a sampler draws its initial sample, then one
-noise per step but the last. The annealed-Langevin samplers are not
-reachable from any config and are not ported.
+noise per step but the last. The Langevin functions draw through their
+``draw`` argument (default :func:`normal_draw`), in the order their
+docstrings give.
 """
 from __future__ import annotations
 
@@ -309,3 +313,255 @@ class McvdEngine:
         if v == "DDIM":
             return self.ddim_sample(params, generator, condition)
         return self.fpndm_sample(params, generator, condition)
+
+
+# ---------------------------------------------------------------------------
+# annealed Langevin dynamics (SMLD)
+# ---------------------------------------------------------------------------
+Draw = Callable[[Sequence[int], Optional[torch.Generator], torch.device], torch.Tensor]
+
+
+def normal_draw(shape: Sequence[int], generator: Optional[torch.Generator], device: torch.device) -> torch.Tensor:
+    """The Langevin functions' default draw: standard normal f32."""
+    return torch.randn(tuple(shape), generator=generator, device=device)
+
+
+def _score(scorenet: nn.Module, params: Params, x: torch.Tensor, t, condition) -> torch.Tensor:
+    """The score network at per-row conditioning ``t`` (a level index or
+    a sigma, as f32)."""
+    t_b = torch.full((x.shape[0],), float(t), dtype=torch.float32, device=x.device)
+    return apply_model(scorenet, params, x, t_b, condition)
+
+
+def _step_sizes(sigmas: np.ndarray, step_lr: float) -> Tuple[np.ndarray, np.ndarray]:
+    """Per level: ``step_lr * (sigma / sigma_last)**2`` and its
+    ``sqrt(2 * step)``, in f32 as the JAX package computes them."""
+    sig = np.asarray(sigmas, np.float32)
+    step = (f32(step_lr) * (sig / sig[-1]) ** 2).astype(np.float32)
+    return step, np.sqrt(f32(2.0) * step)
+
+
+def _draw(draw: Optional[Draw], shape, generator, device) -> torch.Tensor:
+    return (draw or normal_draw)(tuple(shape), generator, device).to(device)
+
+
+def anneal_langevin_dynamics(
+    scorenet: nn.Module,
+    params: Params,
+    generator: Optional[torch.Generator],
+    x_init: torch.Tensor,
+    condition: Optional[torch.Tensor],
+    sigmas,
+    n_steps_each: int = 1,
+    step_lr: float = 2e-5,
+    denoise: bool = True,
+    draw: Optional[Draw] = None,
+) -> torch.Tensor:
+    """Annealed Langevin dynamics: per level c and step,
+    ``x += step * score + sqrt(2 step) * noise`` with ``score = -z / sigma_c``
+    (the network predicts z, conditioned on the level index c); then the
+    denoise ``x += sigma_last**2 * score``. Draws: one noise like x per step."""
+    sig = np.asarray(sigmas, np.float32)
+    steps, noise_scales = _step_sizes(sig, step_lr)
+    x = x_init
+    for c in range(len(sig)):
+        for _ in range(n_steps_each):
+            grad = -_score(scorenet, params, x, c, condition) / float(sig[c])
+            noise = _draw(draw, x.shape, generator, x.device)
+            x = x + float(steps[c]) * grad + float(noise_scales[c]) * noise
+    if denoise:
+        grad = -_score(scorenet, params, x, len(sig) - 1, condition) / float(sig[-1])
+        x = x + float(sig[-1] ** 2) * grad
+    return x
+
+
+def sparse_anneal_langevin_dynamics(
+    scorenet: nn.Module,
+    params: Params,
+    generator: Optional[torch.Generator],
+    x_init: torch.Tensor,
+    sparsity: torch.Tensor,
+    condition: Optional[torch.Tensor],
+    sigmas,
+    n_steps_each: int = 1,
+    step_lr: float = 8e-6,
+    denoise: bool = True,
+    frac_steps: Optional[float] = None,
+    draw: Optional[Draw] = None,
+) -> torch.Tensor:
+    """Sparse annealed Langevin: a dense chain x drives the network
+    (``x -= step / sigma * z``); the sparse chain takes ``z / sparsity``
+    and ``sparsity * noise``; ``frac_steps`` keeps the last fraction of the
+    levels; the denoise is ``x_sparse -= sigma_last * sparsity * z(x)``.
+    Returns the sparse chain. Draws: one noise like x per step."""
+    sig64 = np.asarray(sigmas, np.float64)
+    if frac_steps is not None:
+        sig64 = sig64[int((1 - frac_steps) * len(sig64)):]
+    sig = sig64.astype(np.float32)
+    steps, noise_scales = _step_sizes(sig, step_lr)
+    sparsity = sparsity.float()
+    x, x_sparse = x_init, x_init
+    for c in range(len(sig)):
+        k = float(steps[c] / sig[c])
+        for _ in range(n_steps_each):
+            grad = _score(scorenet, params, x, c, condition)
+            noise = _draw(draw, x.shape, generator, x.device)
+            x = x - k * grad + float(noise_scales[c]) * noise
+            x_sparse = x_sparse - k * (grad / sparsity) + float(noise_scales[c]) * (sparsity * noise)
+    if denoise:
+        x_sparse = x_sparse - float(sig[-1]) * sparsity * _score(scorenet, params, x, len(sig) - 1, condition)
+    return x_sparse
+
+
+def _consistent_ladder(sigmas, n_steps_each: int, step_lr: float):
+    """Consistent annealed sampling's geometric ladder of (L-1) * n_steps + 1
+    levels: per level (sigma_c, sigma_next, beta) in f32, and eta; checks
+    that ``step_lr`` lies in the range the method needs."""
+    sig64 = np.asarray(sigmas, np.float64)
+    L = len(sig64)
+    ladder = np.geomspace(sig64[0], sig64[-1], (L - 1) * n_steps_each + 1)
+    smallest_invgamma = ladder[-1] / ladder[-2]
+    lowerbound = sig64[-1] ** 2 * (1 - smallest_invgamma)
+    higherbound = sig64[-1] ** 2 * (1 + smallest_invgamma)
+    assert lowerbound < step_lr < higherbound, (
+        f"consistent sampling needs {lowerbound} < step_lr < {higherbound}, got {step_lr}"
+    )
+    eta = step_lr / float(sig64[-1] ** 2)
+    sig_next = np.concatenate([ladder[1:], [ladder[-1]]])
+    beta = np.sqrt(np.clip(1.0 - (ladder / sig_next * (1.0 - eta)) ** 2, 0.0, None))
+    c32 = lambda a: np.asarray(a, np.float32)
+    return c32(ladder), c32(sig_next), c32(beta), eta, float(sig64[-1]), L
+
+
+def anneal_langevin_dynamics_consistent(
+    scorenet: nn.Module,
+    params: Params,
+    generator: Optional[torch.Generator],
+    x_init: torch.Tensor,
+    condition: Optional[torch.Tensor],
+    sigmas,
+    n_steps_each: int = 1,
+    step_lr: float = 8e-6,
+    denoise: bool = True,
+    draw: Optional[Draw] = None,
+) -> torch.Tensor:
+    """Consistent annealed sampling: per ladder level
+    ``x -= eta * sigma_c * z(x, sigma_c)`` (the network conditioned on the
+    continuous sigma), then ``x += beta * sigma_next * noise`` but at the
+    last level; the denoise ``x -= sigma_last * z`` is conditioned on the
+    level index L-1. Draws: one noise like x per level but the last."""
+    ladder, sig_next, beta, eta, sig_last, L = _consistent_ladder(sigmas, n_steps_each, step_lr)
+    x = x_init
+    n = len(ladder)
+    for i in range(n):
+        grad = _score(scorenet, params, x, ladder[i], condition)
+        x = x - float(f32(eta) * ladder[i]) * grad
+        if i + 1 < n:
+            x = x + float(beta[i] * sig_next[i]) * _draw(draw, x.shape, generator, x.device)
+    if denoise:
+        x = x - sig_last * _score(scorenet, params, x, L - 1, condition)
+    return x
+
+
+def sparse_anneal_langevin_dynamics_consistent(
+    scorenet: nn.Module,
+    params: Params,
+    generator: Optional[torch.Generator],
+    x_init: torch.Tensor,
+    sparsity: torch.Tensor,
+    condition: Optional[torch.Tensor],
+    sigmas,
+    n_steps_each: int = 1,
+    step_lr: float = 8e-6,
+    denoise: bool = True,
+    draw: Optional[Draw] = None,
+) -> torch.Tensor:
+    """The sparse form of consistent sampling, as the JAX package and its
+    reference define it: the dense chain takes ``x += eta * sigma_c**2 * z
+    + beta * sigma_next * noise``; the sparse chain only
+    ``beta * sigma_next * sparsity * noise``; the denoise runs the network
+    twice, ``x_den = x + sigma_last * z(x)`` and then
+    ``x_sparse += sigma_last / sparsity * z(x_den)``. Returns the sparse
+    chain. Draws: one noise like x per level but the last."""
+    ladder, sig_next, beta, eta, sig_last, L = _consistent_ladder(sigmas, n_steps_each, step_lr)
+    sparsity = sparsity.float()
+    x, x_sparse = x_init, x_init
+    n = len(ladder)
+    for i in range(n):
+        grad = _score(scorenet, params, x, ladder[i], condition)
+        x = x + float(f32(eta) * ladder[i] ** 2) * grad
+        if i + 1 < n:
+            noise = _draw(draw, x.shape, generator, x.device)
+            b = float(sig_next[i] * beta[i])
+            x = x + b * noise
+            x_sparse = x_sparse + b * (sparsity * noise)
+    if denoise:
+        x_den = x + sig_last * _score(scorenet, params, x, L - 1, condition)
+        x_sparse = x_sparse + sig_last / sparsity * _score(scorenet, params, x_den, L - 1, condition)
+    return x_sparse
+
+
+def anneal_langevin_dynamics_inpainting(
+    scorenet: nn.Module,
+    params: Params,
+    generator: Optional[torch.Generator],
+    x_init: torch.Tensor,
+    refer_image: torch.Tensor,
+    known_mask: torch.Tensor,
+    condition: Optional[torch.Tensor],
+    sigmas,
+    n_steps_each: int = 1,
+    step_lr: float = 8e-6,
+    draw: Optional[Draw] = None,
+) -> torch.Tensor:
+    """Langevin inpainting: per step the known region (``known_mask`` 1) is
+    replaced by ``refer_image`` re-noised to the level's sigma, then
+    ``x += step * z + sqrt(2 step) * noise`` (the network output used as the
+    score). Draws per step: the re-noising like ``refer_image``, then the
+    noise like x."""
+    sig = np.asarray(sigmas, np.float32)
+    steps, noise_scales = _step_sizes(sig, step_lr)
+    known_mask = known_mask.to(x_init.dtype)
+    x = x_init
+    for c in range(len(sig)):
+        for _ in range(n_steps_each):
+            corrupted = refer_image + _draw(draw, refer_image.shape, generator, x.device) * float(sig[c])
+            x = known_mask * corrupted + (1.0 - known_mask) * x
+            grad = _score(scorenet, params, x, c, condition)
+            noise = _draw(draw, x.shape, generator, x.device) * float(noise_scales[c])
+            x = x + float(steps[c]) * grad + noise
+    return x
+
+
+def anneal_langevin_dynamics_interpolation(
+    scorenet: nn.Module,
+    params: Params,
+    generator: Optional[torch.Generator],
+    x_init: torch.Tensor,
+    n_interpolations: int,
+    condition: Optional[torch.Tensor],
+    sigmas,
+    n_steps_each: int = 1,
+    step_lr: float = 8e-6,
+    draw: Optional[Draw] = None,
+) -> torch.Tensor:
+    """Langevin interpolation: each row runs ``n_interpolations`` chains
+    whose noise per step is ``cos(a) * noise_p + sin(a) * noise_q`` for
+    angles a from 0 to pi/2, two draws shared by a row's chains. The
+    condition must hold B * n_interpolations rows. Returns
+    (B * n_interpolations, ...), the chains of a row adjacent. Draws per
+    step: noise_p, then noise_q, each like ``x_init``."""
+    sig = np.asarray(sigmas, np.float32)
+    steps, noise_scales = _step_sizes(sig, step_lr)
+    x = torch.repeat_interleave(x_init, n_interpolations, dim=0)
+    angles = torch.linspace(0.0, np.pi / 2.0, n_interpolations, dtype=torch.float32, device=x.device)
+    shape = (1, n_interpolations) + (1,) * (x_init.dim() - 1)
+    cos_a, sin_a = torch.cos(angles).reshape(shape), torch.sin(angles).reshape(shape)
+    for c in range(len(sig)):
+        for _ in range(n_steps_each):
+            noise_p = _draw(draw, x_init.shape, generator, x.device)[:, None]
+            noise_q = _draw(draw, x_init.shape, generator, x.device)[:, None]
+            noise = (noise_p * cos_a + noise_q * sin_a).reshape(x.shape)
+            grad = _score(scorenet, params, x, c, condition)
+            x = x + float(steps[c]) * grad + noise * float(noise_scales[c])
+    return x

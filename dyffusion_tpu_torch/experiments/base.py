@@ -103,6 +103,7 @@ class Experiment:
             num_input_channels=self.actual_num_input_channels(),
             num_output_channels=self.actual_num_output_channels(),
             num_conditional_channels=self.num_conditional_channels(),
+            spatial_shape=tuple(self.dims["spatial"]),
         )
 
     @property

@@ -40,6 +40,7 @@ class BackboneSpec:
     num_input_channels: int
     num_output_channels: int
     num_conditional_channels: int = 0
+    spatial_shape: Tuple[int, int] = (16, 16)
 
 
 def concat_condition(x: torch.Tensor, condition: Optional[torch.Tensor], num_conditional_channels: int) -> torch.Tensor:

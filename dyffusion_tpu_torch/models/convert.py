@@ -1,5 +1,5 @@
 """JAX backbone variables -> the port's state dicts (``Unet``,
-``UNetSimple``, ``SimpleConvNet``).
+``UNetSimple``, ``SimpleConvNet``, ``NCSNpp``, ``SPADENCSNpp``).
 
 The exact inverse of the torch->flax porters the JAX package's parity tests
 use for the original reference: flax Conv kernels (kh, kw, I, O) become
@@ -11,6 +11,24 @@ gain (C,) becomes (1, C, 1, 1); BatchNorm's ``batch_stats`` ``mean``/``var``
 become ``running_mean``/``running_var`` (``num_batches_tracked`` 0). The
 LDM-DDPM's learned logvar, a ``_diffusion_logvar`` leaf beside the
 ``Unet``'s params, keeps its key (the port's parameter of that name).
+
+``NCSNpp`` and ``SPADENCSNpp`` take the original reference's flat
+``all_modules.{i}`` keys in its construction order (time MLP, ``conv_in``,
+the downs, the middle, the ups, the final act-norm, ``conv_out``) with its
+sub-names: a BigGAN block's ``actnorm{0,1}.Dense_0`` (AdaGN) and
+``Conv_0``/``Conv_1``/``Conv_2`` (the 1x1 shortcut); an attention block's
+``GroupNorm_0`` and ``NIN_{0..3}.W`` (in, out) / ``.b``; the final
+``Norm_0``; a SPADE act-norm's ``Norm_0.mlp_shared.0``/``mlp_gamma``/
+``mlp_beta``. Where the reference's porters spell no key, these were
+chosen: an unconditioned act-norm's affine GroupNorm is ``Norm_0`` (as the
+final one); ``cond_emb``'s table is ``all_modules.2.weight`` (after the
+two time Linears, an ``nn.Embedding``); a DDPM block is ``GroupNorm_0``,
+``Conv_0``, ``Dense_0``, ``GroupNorm_1``, ``Conv_1`` and the shortcut
+``NIN_0``; a standalone resampler's 3x3 weight is ``Conv2d_0`` (O, I,
+kh, kw); the Gaussian-Fourier features are ``fourier_emb.W``, outside the
+list (the reference's ``all_modules.0.W``), so that the optimizer's decay
+mask names them as the JAX package's does and the indices after them are
+the positional model's.
 """
 from __future__ import annotations
 
@@ -172,3 +190,98 @@ def simple_conv_net_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[st
             out[f"{prefix}.time_mlp.1.weight"] = _linear(p["time_mlp"]["kernel"])
             out[f"{prefix}.time_mlp.1.bias"] = np.asarray(p["time_mlp"]["bias"])
     return _to_torch(out)
+
+
+def _ncsnpp_order(params: Mapping[str, Any]) -> list:
+    """The JAX module names of an NCSN++ tree in the construction order of
+    ``all_modules``."""
+    names = [n for n in ("temb_dense1", "temb_dense2", "cond_emb") if n in params] + ["conv_in"]
+    n_res = sum(1 for k in params if k.startswith("down") and k.endswith("_block0"))
+    nrb = sum(1 for k in params if k.startswith("down0_block"))
+    for i in range(n_res):
+        for b in range(nrb):
+            names += [n for n in (f"down{i}_block{b}", f"down{i}_attn{b}") if n in params]
+        names += [n for n in (f"down{i}_downsample",) if n in params]
+    names += ["mid_block1", "mid_attn", "mid_block2"]
+    for j in range(n_res):
+        names += [f"up{j}_block{b}" for b in range(nrb + 1)]
+        names += [n for n in (f"up{j}_attn", f"up{j}_upsample") if n in params]
+    return names + ["norm_out" if "norm_out" in params else "actnorm_out", "conv_out"]
+
+
+def _weight_bias(out: Dict[str, Any], p: Mapping[str, Any], prefix: str, fn) -> None:
+    out[f"{prefix}.weight"] = fn(p["kernel"])
+    out[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+
+def _affine(out: Dict[str, Any], p: Mapping[str, Any], prefix: str) -> None:
+    out[f"{prefix}.weight"], out[f"{prefix}.bias"] = np.asarray(p["scale"]), np.asarray(p["bias"])
+
+
+def _nin(out: Dict[str, Any], p: Mapping[str, Any], prefix: str) -> None:
+    out[f"{prefix}.W"], out[f"{prefix}.b"] = np.asarray(p["kernel"]), np.asarray(p["bias"])
+
+
+def _actnorm(out: Dict[str, Any], p: Mapping[str, Any], prefix: str) -> None:
+    if "dense" in p:
+        _weight_bias(out, p["dense"], f"{prefix}.Dense_0", _linear)
+    if "scale" in p.get("norm", {}):
+        _affine(out, p["norm"], f"{prefix}.Norm_0")
+    if "spade" in p:
+        s = p["spade"]
+        _weight_bias(out, s["mlp_shared"], f"{prefix}.Norm_0.mlp_shared.0", _conv)
+        _weight_bias(out, s["mlp_gamma"], f"{prefix}.Norm_0.mlp_gamma", _conv)
+        _weight_bias(out, s["mlp_beta"], f"{prefix}.Norm_0.mlp_beta", _conv)
+
+
+def _ncsnpp_module(out: Dict[str, Any], name: str, p: Mapping[str, Any], prefix: str) -> None:
+    if name in ("temb_dense1", "temb_dense2"):
+        _weight_bias(out, p, prefix, _linear)
+    elif name == "cond_emb":
+        out[f"{prefix}.weight"] = np.asarray(p["embedding"])
+    elif "kernel" in p:  # conv_in, conv_out, a DDPM ladder's standalone resampler
+        _weight_bias(out, p, prefix if name in ("conv_in", "conv_out") else f"{prefix}.Conv2d_0", _conv)
+    elif name == "norm_out":
+        _affine(out, p, f"{prefix}.Norm_0")
+    elif name == "actnorm_out":
+        _actnorm(out, p, prefix)
+    elif "nin_q" in p:
+        _affine(out, p["norm"], f"{prefix}.GroupNorm_0")
+        for i, n in enumerate(("nin_q", "nin_k", "nin_v", "nin_out")):
+            _nin(out, p[n], f"{prefix}.NIN_{i}")
+    elif "actnorm0" in p:  # BigGAN block, AdaGN or SPADE
+        _actnorm(out, p["actnorm0"], f"{prefix}.actnorm0")
+        _actnorm(out, p["actnorm1"], f"{prefix}.actnorm1")
+        _weight_bias(out, p["conv1"], f"{prefix}.Conv_0", _conv)
+        _weight_bias(out, p["conv2"], f"{prefix}.Conv_1", _conv)
+        if "shortcut" in p:
+            _weight_bias(out, p["shortcut"], f"{prefix}.Conv_2", _dense_1x1)
+    else:  # DDPM block
+        _affine(out, p["norm1"], f"{prefix}.GroupNorm_0")
+        _weight_bias(out, p["conv1"], f"{prefix}.Conv_0", _conv)
+        if "temb_proj" in p:
+            _weight_bias(out, p["temb_proj"], f"{prefix}.Dense_0", _linear)
+        _affine(out, p["norm2"], f"{prefix}.GroupNorm_1")
+        _weight_bias(out, p["conv2"], f"{prefix}.Conv_1", _conv)
+        if "shortcut" in p:
+            _nin(out, p["shortcut"], f"{prefix}.NIN_0")
+
+
+def ncsnpp_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Convert a JAX ``NCSNpp`` params tree (the ``{'params': ...}``
+    variables dict is accepted too; either block type, either embedding)
+    into a state dict for :class:`dyffusion_tpu_torch.models.ncsnpp.NCSNpp`."""
+    if "params" in params:
+        params = params["params"]
+    out: Dict[str, Any] = {}
+    if "fourier_emb" in params:
+        out["fourier_emb.W"] = np.asarray(params["fourier_emb"]["W"])
+    for i, name in enumerate(_ncsnpp_order(params)):
+        _ncsnpp_module(out, name, params[name], f"all_modules.{i}")
+    return _to_torch(out)
+
+
+def spade_ncsnpp_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Convert a JAX ``SPADENCSNpp`` params tree into a state dict for
+    :class:`dyffusion_tpu_torch.models.ncsnpp.SPADENCSNpp`."""
+    return ncsnpp_state_dict_from_jax(params)

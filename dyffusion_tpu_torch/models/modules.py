@@ -1,4 +1,5 @@
-"""Shared NN modules: time embedders, channel-norm, attention, dropout.
+"""Shared NN modules: time embedders, channel-norm, attention, dropout,
+and the up-sampling blocks ``DoubleConv``/``UpSampler``.
 
 Counterpart of ``dyffusion_tpu/models/modules.py`` in NCHW. Submodule names
 follow the original reference's state-dict keys (``to_qkv.1`` for the
@@ -18,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dyffusion_tpu_torch.models.base import BatchNorm2d
 from dyffusion_tpu_torch.ops.linear_attention import linear_attention_qkv
 
 
@@ -190,3 +192,53 @@ class PreNormResidual(nn.Module):
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         return self.fn(x, generator) + x
+
+
+class DoubleConv(nn.Module):
+    """(bias-free 3x3 conv -> BatchNorm -> ReLU) x 2, keyed as the original
+    reference's ``double_conv`` Sequential (convs at 0 and 3, norms at 1
+    and 4). ``batch_stats``: see :class:`BatchNorm2d` (``None``: the
+    running averages). No config of the JAX package reaches it."""
+
+    def __init__(self, in_features: int, features: int, mid_features: Optional[int] = None):
+        super().__init__()
+        mid = mid_features or features
+        self.double_conv = nn.Sequential(
+            nn.Conv2d(in_features, mid, 3, padding=1, bias=False), BatchNorm2d(mid), nn.ReLU(),
+            nn.Conv2d(mid, features, 3, padding=1, bias=False), BatchNorm2d(features), nn.ReLU(),
+        )
+
+    def forward(self, x: torch.Tensor, batch_stats: Optional[dict] = None) -> torch.Tensor:
+        for m in self.double_conv:
+            x = m(x, batch_stats) if isinstance(m, BatchNorm2d) else m(x)
+        return x
+
+
+class UpSampler(nn.Module):
+    """Up-scale by ``scale_factor``, then :class:`DoubleConv` to
+    ``features``. ``mode='conv'``: a kernel-2 stride-2 transposed conv to
+    the halfway channel count ``(in + out) // 2``; 'nearest' or 'bilinear'
+    (aligned corners): a resize, the DoubleConv passing through the halfway
+    count. No config of the JAX package reaches it."""
+
+    def __init__(self, in_features: int, features: int, mode: str = "conv", scale_factor: int = 2):
+        super().__init__()
+        h_feat = (in_features + features) // 2
+        self.mode, self.scale_factor = mode, scale_factor
+        if mode in ("conv", "convolution"):
+            self.up = nn.ConvTranspose2d(in_features, h_feat, 2, stride=2)
+            self.conv = DoubleConv(h_feat, features)
+        else:
+            self.up = None
+            self.conv = DoubleConv(in_features, features, mid_features=h_feat)
+
+    def forward(self, x: torch.Tensor, batch_stats: Optional[dict] = None) -> torch.Tensor:
+        if self.up is not None:
+            x = self.up(x)
+        else:
+            size = (x.shape[-2] * self.scale_factor, x.shape[-1] * self.scale_factor)
+            if self.mode == "nearest":
+                x = F.interpolate(x, size=size, mode="nearest-exact")
+            else:
+                x = F.interpolate(x, size=size, mode="bilinear", align_corners=True)
+        return self.conv(x, batch_stats)

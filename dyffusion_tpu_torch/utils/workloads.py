@@ -1,5 +1,6 @@
-"""The SST-scale, Navier-Stokes and spring-mesh DYffusion workloads,
-defined once for the port, and the train-step timing idiom.
+"""The SST-scale, Navier-Stokes and spring-mesh DYffusion workloads, the
+MCVD NCSN++ workload, defined once for the port, and the train-step timing
+idiom.
 
 The same overrides as ``dyffusion_tpu/utils/workloads.py`` (reference
 ``configs/experiment/oisst_pacific_dyffusion.yaml``): 60x60 grid, C=1,
@@ -109,6 +110,33 @@ SPRING_TRAIN: Tuple[str, ...] = (
 def spring_overrides(extra: Optional[Sequence[str]] = None) -> List[str]:
     """The spring-mesh workload (:data:`SPRING_CORE`) plus ``extra``."""
     return list(SPRING_CORE) + list(extra or ())
+
+
+# The MCVD NCSN++ workload: MCVD's own score network at its published width
+# (reference MCVD configs/smmnist_DDPM_big5.yml: ngf 64, ch_mult [1,2,3,4],
+# num_res_blocks 2, attn_resolutions [8,16,32], dropout 0.1; 64 head
+# channels) on MCVD's native 64x64 grid, C=1, horizon 7 after a window of 1,
+# 20 members (27,941,767 parameters). 64x64 rather than SST's 60x60: the FIR
+# resampling ladder 60 -> 30 -> 15 -> 7 does not come back to 15.
+NCSNPP_CORE: Tuple[str, ...] = (
+    "datamodule.spatial=(64,64)",
+    "datamodule.channels=1",
+    "datamodule.horizon=7",
+    "model.name=ncsnpp",
+    "model.dim=64",
+    "model.dim_mults=(1,2,3,4)",
+    "model.num_res_blocks=2",
+    "model.attn_resolutions=(8,16,32)",
+    "model.n_head_channels=64",
+    "model.dropout=0.1",
+    "module.num_predictions=20",
+)
+
+
+def ncsnpp_overrides(extra: Optional[Sequence[str]] = None) -> List[str]:
+    """The MCVD NCSN++ workload (:data:`NCSNPP_CORE`, for ``synthetic_mcvd``)
+    plus ``extra``."""
+    return list(NCSNPP_CORE) + list(extra or ())
 
 
 def time_train_steps(step_fn, state, batch, steps: int = 20) -> float:
