@@ -112,10 +112,24 @@ non-zero:
    profiler, and three short commands: the Fourier embedding with the EMA
    (its features unchanged bit for bit), the DDPM residual blocks, SPADE.
    No kernel of the port lies on this path: B1-B3 must read 0 launches.
+16. export: [cli]'s stage-2 run exported by the serving CLI (``python -m
+   dyffusion_tpu_torch.serving``) as a ``torch.export`` artifact with a
+   symbolic batch, and as a ``reduce=mean_std`` one pinned to batch 6, in
+   subprocesses started right after [cli] (the traces run beside phases
+   11-15); a fresh process per artifact loads it with ``load_exported``.
+   Checks, in that process: the members artifact gives the eager
+   ``build_predict_fn`` answer (batch 6 at four seeds, batches 1 and 7) bit
+   for bit, or within 1e-2 of max|eager| in bf16 with the difference
+   printed; seeds 0 and 1 differ; B1 launches 378 times per request; the
+   mean_std artifact is the host reduction of the members; nothing of the
+   package but ``serving`` and ``ops`` was imported. Prints the export time,
+   file size and graph nodes, the load time, the request times against the
+   eager ones, and B1's host cost per call through its ``torch.library`` op
+   against the direct launch.
 
 Each path (slice, train, fit, each cli command, ns, spring, each baseline
-command and request, ncsnpp) sets the launch counts to 0 before it runs and
-reads them after. The line before the last is the kernel summary as JSON
+command and request, ncsnpp, each export request) sets the launch counts to
+0 before it runs and reads them after. The line before the last is the kernel summary as JSON
 (B1's top-level launches and times are the train path's; ``by_path`` has
 each path's count); the last line is ``{"ok": true, "device": {...}}``.
 
@@ -141,6 +155,11 @@ runs phases 1, 2 and 13 (the baselines) and stops, with no ``ok`` line.
 
 runs phases 1, 2, 14 and 15 (MCVD over NCSN++) and stops, with no ``ok``
 line. ``--profile`` also profiles one full-sampler MCVD NCSN++ request.
+
+    python3 chip_smoke.py --export
+
+runs phases 1, 2, 10 and 16 (the CLI's runs, then their export) and stops,
+with no ``ok`` line.
 
     python3 chip_smoke.py --kernels
 
@@ -851,7 +870,7 @@ def phase_fit(card):
     return n1 + n2
 
 
-def phase_cli(card):
+def phase_cli(card, reg):
     """The CLI at SST width, as a user runs it, in a temporary registry, in
     this process through ``train.main`` (so the built kernels are reused):
     stage 1 for 4 steps; stage 2 from the registry by
@@ -868,7 +887,9 @@ def phase_cli(card):
     split, the path's eval shapes (120/240 rows at 20 members, 300/600 at
     50). Validation runs once per command (at its last step). The B1 launch
     count is set to 0 before each step and must read what the step's
-    forwards imply. Returns the B1 launches of all steps."""
+    forwards imply. The registry is ``reg``, a directory the caller removes
+    (``[export]`` serves its stage-2 run). Returns the B1 launches of all
+    steps and the stage-2 run id."""
     import numpy as np
     import torch
 
@@ -882,54 +903,53 @@ def phase_cli(card):
     from dyffusion_tpu_torch.utils.naming import get_run_id
     from dyffusion_tpu_torch.utils.workloads import SST_FAST_EVAL, sst_overrides
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_registry_") as reg:
-        common = sst_overrides([
-            "datamodule.n_traj=5", "datamodule.n_time=31", "datamodule.batch_size=64",
-            "datamodule.eval_batch_size=6", *SST_FAST_EVAL, "module.num_predictions_test=50", "module.use_ema=true",
-            "trainer.val_every_n_epochs=100", "trainer.log_every_n_steps=1", f"registry_dir={reg}",
-        ])
-        id1 = get_run_id(get_config("synthetic_interpolation", common))
-        stage2 = [f"diffusion.interpolator_run_id={id1}", *common]
-        id2 = get_run_id(get_config("synthetic_dyffusion", stage2))
-        steps = {}  # name -> (B1 launches, seconds)
+    common = sst_overrides([
+        "datamodule.n_traj=5", "datamodule.n_time=31", "datamodule.batch_size=64",
+        "datamodule.eval_batch_size=6", *SST_FAST_EVAL, "module.num_predictions_test=50", "module.use_ema=true",
+        "trainer.val_every_n_epochs=100", "trainer.log_every_n_steps=1", f"registry_dir={reg}",
+    ])
+    id1 = get_run_id(get_config("synthetic_interpolation", common))
+    stage2 = [f"diffusion.interpolator_run_id={id1}", *common]
+    id2 = get_run_id(get_config("synthetic_dyffusion", stage2))
+    steps = {}  # name -> (B1 launches, seconds)
 
-        def step(name, fn):
-            la.reset_launches()
-            t = time.perf_counter()
-            out = fn()
-            _sync()
-            steps[name] = (la.launches, time.perf_counter() - t)
-            print(f"[cli] {name}: {steps[name][1]:.1f} s, B1 launches {steps[name][0]}")
-            return out
+    def step(name, fn):
+        la.reset_launches()
+        t = time.perf_counter()
+        out = fn()
+        _sync()
+        steps[name] = (la.launches, time.perf_counter() - t)
+        print(f"[cli] {name}: {steps[name][1]:.1f} s, B1 launches {steps[name][0]}")
+        return out
 
-        def train_steps():
-            return [r["step"] for r in registry_api.get_run_metrics(reg, id2) if "train/loss" in r]
+    def train_steps():
+        return [r["step"] for r in registry_api.get_run_metrics(reg, id2) if "train/loss" in r]
 
-        best1 = step("stage 1, 4 steps", lambda: train.main(
-            ["experiment=synthetic_interpolation", *common, "trainer.max_steps=4"]))
-        best2 = step("stage 2 from the registry, 4 steps", lambda: train.main(
-            ["experiment=synthetic_dyffusion", *stage2, "trainer.max_steps=4"]))
-        steps_before = train_steps()
-        best3 = step("stage 2 resumed to 8 steps", lambda: train.main(
-            ["experiment=synthetic_dyffusion", *stage2, "trainer.max_steps=8"]))
-        resumed_steps = train_steps()[len(steps_before):]
-        meta = registry_api.get_run_meta(reg, id2)
-        crps = step("mode=test, 50 members", lambda: train.main(["mode=test", f"run_id={id2}", f"registry_dir={reg}"]))
-        curves = sorted(os.listdir(os.path.join(reg, id2, "curves")))
+    best1 = step("stage 1, 4 steps", lambda: train.main(
+        ["experiment=synthetic_interpolation", *common, "trainer.max_steps=4"]))
+    best2 = step("stage 2 from the registry, 4 steps", lambda: train.main(
+        ["experiment=synthetic_dyffusion", *stage2, "trainer.max_steps=4"]))
+    steps_before = train_steps()
+    best3 = step("stage 2 resumed to 8 steps", lambda: train.main(
+        ["experiment=synthetic_dyffusion", *stage2, "trainer.max_steps=8"]))
+    resumed_steps = train_steps()[len(steps_before):]
+    meta = registry_api.get_run_meta(reg, id2)
+    crps = step("mode=test, 50 members", lambda: train.main(["mode=test", f"run_id={id2}", f"registry_dir={reg}"]))
+    curves = sorted(os.listdir(os.path.join(reg, id2, "curves")))
 
-        def serve():
-            predict, _, info = build_predict_fn(reg, id2)
-            trainer = reload_trainer(reg, id2)
-            batch = next(trainer.datamodule.predict_batches())
-            a, b = predict(batch, SEED), predict(batch, SEED)
+    def serve():
+        predict, _, info = build_predict_fn(reg, id2)
+        trainer = reload_trainer(reg, id2)
+        batch = next(trainer.datamodule.predict_batches())
+        a, b = predict(batch, SEED), predict(batch, SEED)
 
-            def members(params):
-                out = trainer.eval_fns["predict"](batch, torch.Generator(device=trainer.device).manual_seed(SEED), params)
-                return torch.stack([out[k] for k in sorted(out, key=lambda k: (len(k), k)) if k.endswith("_preds")], 2)
+        def members(params):
+            out = trainer.eval_fns["predict"](batch, torch.Generator(device=trainer.device).manual_seed(SEED), params)
+            return torch.stack([out[k] for k in sorted(out, key=lambda k: (len(k), k)) if k.endswith("_preds")], 2)
 
-            return info, trainer, a, b, members(trainer.state.eval_params()), members(None)
+        return info, trainer, a, b, members(trainer.state.eval_params()), members(None)
 
-        info, trainer, a, b, ema, live = step("serving by run id, 2 requests + EMA and live evals", serve)
+    info, trainer, a, b, ema, live = step("serving by run id, 2 requests + EMA and live evals", serve)
 
     exp = trainer.experiment
     n_attn = sum(isinstance(m, LinearAttention) for m in exp.model.modules())
@@ -964,7 +984,255 @@ def phase_cli(card):
     counts = {name: n for name, (n, _) in steps.items()}
     if counts != expected:
         raise AssertionError(f"[cli] B1 launches {counts} != {expected}")
-    return sum(counts.values())
+    return sum(counts.values()), id2
+
+
+# [export]: [cli]'s stage-2 run as two artifacts, written by the serving CLI
+# in subprocesses that start right after [cli] and trace while the later
+# phases run (each export holds one CPU core for minutes): the members
+# artifact with a symbolic batch, and the mean_std one pinned to the eval
+# batch of 6. A fresh process per artifact (``chip_smoke.py
+# --serve-exported``) then loads it with ``load_exported`` and waits; the
+# phase itself hands it the requests once the GPU is free of other work.
+EXPORT_BATCH = 6
+EXPORT_SEEDS = (SEED, SEED + 1, SEED + 2, SEED + 3)  # warm-up, then the timed requests
+
+
+class _ExportPipeline:
+    """One artifact: the CLI's export, then a serving process that loads it
+    and waits for its requests on stdin."""
+
+    def __init__(self, reg, run_id, out_dir, extra):
+        import threading
+
+        self.out_dir, self.server, self.error = out_dir, None, None
+        self.cmd = [sys.executable, "-m", "dyffusion_tpu_torch.serving", f"run_id={run_id}", f"out={out_dir}",
+                    f"registry_dir={reg}", *extra]
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        t = time.perf_counter()
+        proc = subprocess.run(self.cmd, capture_output=True, text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+        self.export_wall = time.perf_counter() - t
+        if proc.returncode != 0:
+            self.error = f"export failed (exit {proc.returncode}): {' '.join(self.cmd)}\n{proc.stdout}{proc.stderr[-4000:]}"
+            return
+        self.stderr = open(self.out_dir + ".stderr", "w+")
+        self.server = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--serve-exported", self.out_dir],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=self.stderr, text=True,
+        )
+        lines = []
+        for line in self.server.stdout:  # {"loaded": seconds} once the artifact is loaded
+            lines.append(line)
+            if line.startswith('{"loaded"'):
+                self.loaded = json.loads(line)
+                return
+        self.error = f"the serving process did not load {self.out_dir}: {''.join(lines)}{self._stderr()}"
+
+    def _stderr(self):
+        self.stderr.seek(0)
+        return self.stderr.read()[-4000:]
+
+    def wait_loaded(self):
+        """Wait until the artifact is exported and loaded (or has failed)."""
+        self.thread.join()
+        if self.error:
+            raise AssertionError(f"[export] {self.error}")
+
+    def request(self, job, timeout=900):
+        """Hand the loaded artifact its requests; the serving process's report."""
+        self.wait_loaded()
+        out, _ = self.server.communicate(json.dumps(job) + "\n", timeout=timeout)
+        if self.server.returncode != 0:
+            raise AssertionError(f"[export] the serving process failed: {self._stderr()}")
+        return json.loads(out.strip().splitlines()[-1])
+
+    def stop(self):
+        self.thread.join(timeout=1)
+        if self.server is not None:
+            if self.server.poll() is None:
+                self.server.kill()
+                self.server.wait()
+            self.stderr.close()
+
+
+def start_exports(reg, run_id, work):
+    """The two artifacts' pipelines of ``[export]``, started in the background."""
+    return {
+        "members": _ExportPipeline(reg, run_id, os.path.join(work, "members"), []),
+        "mean_std": _ExportPipeline(reg, run_id, os.path.join(work, "mean_std"),
+                                    ["reduce=mean_std", "polymorphic_batch=false", f"batch_size={EXPORT_BATCH}"]),
+    }
+
+
+def serve_exported_main(out_dir):
+    """``--serve-exported DIR``: the serving side of ``[export]`` in a fresh
+    process. Loads the artifact with ``load_exported`` and prints
+    ``{"loaded": seconds}``; then reads one job from stdin ({"batches": npz,
+    "requests": [[name, batch key, seed], ...], "out": npz}), runs the requests in order (each ending in a device sync, the B1
+    launch count set to 0 before each and read after), saves the outputs and
+    prints the report as its last line."""
+    import numpy as np
+    import torch
+
+    t = time.perf_counter()
+    from dyffusion_tpu_torch.serving import load_exported
+
+    predict, manifest = load_exported(out_dir)
+    print(json.dumps({"loaded": time.perf_counter() - t}), flush=True)
+    job = json.loads(sys.stdin.readline())
+    from dyffusion_tpu_torch.ops import linear_attention as la
+
+    batches = dict(np.load(job["batches"]))
+    outs, seconds, launches = {}, {}, {}
+    for name, key, seed in job["requests"]:
+        la.reset_launches()
+        _sync()
+        t = time.perf_counter()
+        out = predict({"dynamics": batches[key]}, seed)
+        _sync()
+        seconds[name], launches[name] = time.perf_counter() - t, la.launches
+        outs[name] = out.cpu().numpy()
+    np.savez(job["out"], **outs)
+    print(json.dumps({"seconds": seconds, "launches": launches, "peak_bytes": torch.cuda.max_memory_allocated(),
+                      "modules": sorted(m for m in sys.modules if m.split(".")[0] == "dyffusion_tpu_torch"),
+                      "manifest": manifest}))
+    return 0
+
+
+def _op_host_us(rounds=5, calls=200):
+    """Host microseconds per call of B1 through its torch.library op against
+    the direct launch (``_launch_qkv``, the ctypes call the op wraps), at
+    (120, 3600, 384) bf16 in the NCHW view: the loop issues ``calls``
+    launches without waiting (the device takes longer per call than the
+    host), timed by the host clock; rounds alternate op, direct, direct, op."""
+    import statistics
+
+    import torch
+
+    from dyffusion_tpu_torch.ops import linear_attention as la
+
+    x = _qkv(120, 3600, torch.bfloat16, True, torch.Generator(device="cuda").manual_seed(3))
+    ways = {"op": lambda: la.linear_attention_qkv(x, 4, 32, 32**-0.5),
+            "direct": lambda: la._launch_qkv(x, 4, 32, 32**-0.5)}
+    times = {k: [] for k in ways}
+    with torch.no_grad():
+        for k in ways:
+            ways[k]()
+        _sync()
+        for r in range(rounds):
+            for k in (("op", "direct") if r % 2 == 0 else ("direct", "op")):
+                t = time.perf_counter()
+                for _ in range(calls):
+                    ways[k]()
+                times[k].append((time.perf_counter() - t) / calls * 1e6)
+                _sync()
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def phase_export(card, reg, run_id, pipelines, work):
+    """The exported SST sampler against the eager one (``build_predict_fn``
+    of [cli]'s stage-2 run, EMA weights, bf16, 20 members): in the fresh
+    serving process, the members artifact answers each eager request (batch 6
+    at 4 seeds, batches 1 and 7 at seed 0) bit for bit, or within 1e-2 of
+    max|eager| in bf16 with the difference printed; seeds 0 and 1 differ (an
+    artifact whose generator were a traced constant would fail it); B1
+    launches 378 times per artifact request; the mean_std artifact is the
+    host reduction of the members'; the serving process imported nothing
+    of the package but ``serving`` and ``ops``. Prints the export time, file
+    size and node count, the load time, the request times against the
+    eager ones (mean of 3 after a warm-up), and the op's host cost per call.
+    Returns B1's launches over the artifact requests."""
+    import numpy as np
+    import torch
+
+    from dyffusion_tpu_torch.interface import reload_trainer
+    from dyffusion_tpu_torch.models.modules import LinearAttention
+    from dyffusion_tpu_torch.serving import build_predict_fn
+
+    for p in pipelines.values():  # no trace or load beside the timed requests
+        p.wait_loaded()
+    host_us = _op_host_us()
+    print(f"[export] B1 host cost per call at (120, 3600, 384) bf16: torch.library op {host_us['op']:.1f} us, "
+          f"direct ctypes launch {host_us['direct']:.1f} us; on {card}")
+
+    predict, specs, info = build_predict_fn(reg, run_id)
+    trainer = reload_trainer(reg, run_id)
+    exp = trainer.experiment
+    per_request = sum(isinstance(m, LinearAttention) for m in exp.model.modules()) * (2 * len(exp.engine._steps.s) + 1)
+    b6 = np.asarray(next(trainer.datamodule.predict_batches())["dynamics"])[:, :info["dynamics_frames"]]
+    assert b6.shape[0] == EXPORT_BATCH, b6.shape
+    batches = {"b6": b6, "b1": b6[:1], "b7": np.concatenate([b6, b6[:1]])}
+    np.savez(os.path.join(work, "batches.npz"), **batches)
+    requests = [[f"b6_seed{s}", "b6", s] for s in EXPORT_SEEDS] + [["b1_seed0", "b1", SEED], ["b7_seed0", "b7", SEED]]
+
+    eager, eager_s = {}, {}
+    for name, key, seed in requests:
+        _sync()
+        t = time.perf_counter()
+        eager[name] = predict({"dynamics": batches[key]}, seed)
+        _sync()
+        eager_s[name] = time.perf_counter() - t
+        eager[name] = eager[name].cpu().numpy()
+
+    members = pipelines["members"].request({"batches": os.path.join(work, "batches.npz"), "requests": requests,
+                                            "out": os.path.join(work, "members_out.npz")})
+    stats = pipelines["mean_std"].request({"batches": os.path.join(work, "batches.npz"),
+                                           "requests": [["b6_seed0", "b6", SEED]],
+                                           "out": os.path.join(work, "mean_std_out.npz")})
+    got = dict(np.load(os.path.join(work, "members_out.npz")))
+    reduced = np.load(os.path.join(work, "mean_std_out.npz"))["b6_seed0"]
+    manifest = members["manifest"]
+    size = os.path.getsize(os.path.join(pipelines["members"].out_dir, "sampler.pt2"))
+    timed = [n for n, _, _ in requests[1:len(EXPORT_SEEDS)]]
+    art_ms, eager_ms = (float(np.mean([t[n] for n in timed])) for t in (members["seconds"], eager_s))
+    print(f"[export] members artifact: {manifest['graph']['nodes']} graph nodes ({manifest['graph']['b1_nodes']} B1), "
+          f"{size} bytes; trace {manifest['graph']['export_seconds']:.1f} s, CLI export (reload, trace, save) "
+          f"{pipelines['members'].export_wall:.1f} s; load in a fresh process {pipelines['members'].loaded['loaded']:.1f} s; "
+          f"mean_std artifact (batch pinned to {EXPORT_BATCH}): CLI export {pipelines['mean_std'].export_wall:.1f} s, "
+          f"load {pipelines['mean_std'].loaded['loaded']:.1f} s")
+    print(f"[export] request latency, batch {EXPORT_BATCH}: artifact {art_ms:.4f} s, eager {eager_ms:.4f} s "
+          f"(mean of {len(timed)} after a warm-up); artifact {[round(members['seconds'][n], 4) for n, _, _ in requests]} s, "
+          f"eager {[round(eager_s[n], 4) for n, _, _ in requests]} s; serving process peak memory "
+          f"{members['peak_bytes'] / 2**30:.2f} GiB; on {card}")
+
+    failures = []
+    for name, key, _ in requests:
+        want, have = eager[name], got[name]
+        if have.shape != want.shape or not np.isfinite(have).all():
+            failures.append(f"{name}: shape {have.shape} (eager {want.shape}) or non-finite values")
+            continue
+        diff, scale = float(np.abs(have - want).max()), float(np.abs(want).max())
+        verdict = "bit for bit" if diff == 0 else (
+            f"not bit for bit: max diff {diff:.3e}, {diff / scale:.2e} of max|eager| (limit 1e-2 in bf16)")
+        print(f"[export] {name} ({batches[key].shape[0]} rows): artifact vs eager {verdict}")
+        if diff > 1e-2 * scale:
+            failures.append(f"{name}: artifact vs eager max diff {diff:.3e} > 1e-2 x {scale:.3e}")
+    seeds = float(np.abs(got["b6_seed0"] - got["b6_seed1"]).max())
+    print(f"[export] seeds 0 and 1 max diff {seeds:.3e} (must differ); B1 launches per artifact request "
+          f"{members['launches']} ({per_request} expected)")
+    if not seeds > 0.1:
+        failures.append(f"seeds 0 and 1 gave (nearly) the same ensemble: max diff {seeds:.3e}")
+    if any(n != per_request for n in members["launches"].values()):
+        failures.append(f"B1 launches per artifact request {members['launches']} != {per_request}")
+    host = got["b6_seed0"].astype(np.float64)
+    ms_err = [float(np.abs(reduced[i] - r).max()) / float(np.abs(r).max())
+              for i, r in enumerate((host.mean(0), host.std(0)))]
+    print(f"[export] mean_std artifact vs the host reduction of the members artifact: mean {ms_err[0]:.2e}, "
+          f"std {ms_err[1]:.2e} of scale (limit 1e-4); shape {reduced.shape}")
+    if reduced.shape != (2,) + host.shape[1:] or max(ms_err) > 1e-4:
+        failures.append(f"the mean_std artifact is not the host reduction: {ms_err}, shape {reduced.shape}")
+    allowed = {"dyffusion_tpu_torch", "dyffusion_tpu_torch.serving"}
+    for report in (members, stats):
+        extra = [m for m in report["modules"] if m not in allowed and not m.startswith("dyffusion_tpu_torch.ops")]
+        if extra:
+            failures.append(f"the serving process imported {extra}")
+    print(f"[export] serving process imported {members['modules']}")
+    if failures:
+        raise AssertionError("[export] " + "; ".join(failures))
+    return sum(members["launches"].values()), per_request
 
 
 # the physical-systems paths at their canonical widths (utils/workloads.py:
@@ -2034,10 +2302,24 @@ def phase_profile_ncsnpp(card):
 def main(argv) -> int:
     import torch
 
-    if argv not in ([], ["--profile"], ["--kernels"], ["--physical"], ["--baselines"], ["--ncsnpp"]):
-        raise SystemExit("usage: python3 chip_smoke.py [--profile | --kernels | --physical | --baselines | --ncsnpp]")
+    if len(argv) == 2 and argv[0] == "--serve-exported":  # the serving process of [export]
+        return serve_exported_main(argv[1])
+    if argv not in ([], ["--profile"], ["--kernels"], ["--physical"], ["--baselines"], ["--ncsnpp"], ["--export"]):
+        raise SystemExit(
+            "usage: python3 chip_smoke.py [--profile | --kernels | --physical | --baselines | --ncsnpp | --export]")
     name, smi = phase_device()
     phase_build()
+    if argv == ["--export"]:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_registry_") as reg, \
+                tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as work:
+            _, run2 = phase_cli(smi, reg)
+            pipelines = start_exports(reg, run2, work)
+            try:
+                phase_export(smi, reg, run2, pipelines, work)
+            finally:
+                for p in pipelines.values():
+                    p.stop()
+        return 0
     if argv == ["--profile"]:
         phase_profile(smi)
         for key in PHYSICAL:
@@ -2072,12 +2354,22 @@ def main(argv) -> int:
     serve = phase_slice(smi)
     train = phase_train(smi, b1["train_step"])
     fit = phase_fit(smi)
-    cli = phase_cli(smi)
-    phase_physical_reference()
-    physical = {spec["label"]: phase_physical(smi, key) for key, spec in PHYSICAL.items()}
-    baselines, baseline_requests = phase_baselines(smi)
-    phase_ncsnpp_reference()
-    ncsnpp = phase_ncsnpp(smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_registry_") as reg, \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as work:
+        cli, run2 = phase_cli(smi, reg)
+        # [export]'s two artifacts are traced in the background while the
+        # next phases run; their requests wait for phase_export
+        pipelines = start_exports(reg, run2, work)
+        try:
+            phase_physical_reference()
+            physical = {spec["label"]: phase_physical(smi, key) for key, spec in PHYSICAL.items()}
+            baselines, baseline_requests = phase_baselines(smi)
+            phase_ncsnpp_reference()
+            ncsnpp = phase_ncsnpp(smi)
+            export, export_per_request = phase_export(smi, reg, run2, pipelines, work)
+        finally:
+            for p in pipelines.values():
+                p.stop()
     # B1's top-level numbers are the [train] path's (this slice's main path);
     # by_path keeps each path's own count, read after setting it to 0.
     # No single PyTorch call computes any of the three functions: library_ms is null
@@ -2089,7 +2381,8 @@ def main(argv) -> int:
                      **{p: {"launches": c["linear_attention_qkv"]} for p, c in physical.items()},
                      **{f"baselines_{m}": {"launches": n, "per_request": baseline_requests[m]}
                         for m, n in baselines.items()},
-                     "ncsnpp": {"launches": ncsnpp["linear_attention_qkv"]}}},
+                     "ncsnpp": {"launches": ncsnpp["linear_attention_qkv"]},
+                     "export": {"launches": export, "per_request": export_per_request}}},
         {"name": "fused_leaky_relu", "route": "cuda", "source": fa.SOURCE, "replaces": fa.REPLACES,
          "launches": op_launches["fused_leaky_relu"], **b2, "library_ms": None,
          "by_path": {p: {"launches": c["fused_leaky_relu"]} for p, c in {**physical, "ncsnpp": ncsnpp}.items()}},

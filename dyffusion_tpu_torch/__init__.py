@@ -5,9 +5,17 @@ Trains the two DYffusion stages through the run registry and its CLI
 MC-dropout ensemble cold sampler over two ``Unet`` backbones, on an NVIDIA
 H100, with the linear attention as a hand-written CUDA kernel; also the
 baselines (time-conditioned, simultaneous, DDPM, LDM-DDPM, MCVD over any
-backbone, NCSN++ and its SPADE variant included). Mirrors the
-JAX package's layout and module names; imports neither JAX nor
-``dyffusion_tpu``.
+backbone, NCSN++ and its SPADE variant included). A trained run's
+sampler exports as one ``torch.export`` artifact (``serving.export_run``,
+``python -m dyffusion_tpu_torch.serving``) with the kernels inside as
+``torch.library`` ops, served by ``serving.load_exported`` with no model
+code. Mirrors the JAX package's layout and module names; imports neither
+JAX nor ``dyffusion_tpu``.
+
+Seeds: a served request draws every random tensor (dropout masks, noise)
+from one generator seeded by the request's seed, in a fixed order, so the
+same seed gives the same answer, eagerly (``serving.build_predict_fn``)
+and in the artifact, on one device (``utils/rng.py``).
 
 Numerics: the package sets no global torch flags, except where a config
 asks: ``run_experiment`` applies ``matmul_precision`` (torch's f32 matmul

@@ -31,6 +31,7 @@ from torch import nn
 
 from dyffusion_tpu_torch.diffusion.schedules import cosine_beta_schedule, linear_beta_schedule
 from dyffusion_tpu_torch.models.base import apply_model
+from dyffusion_tpu_torch.utils import rng
 from dyffusion_tpu_torch.utils.loss import mse_loss
 
 Params = Optional[Mapping[str, torch.Tensor]]
@@ -140,11 +141,11 @@ class GaussianDiffusionEngine:
 
     def draw(self, shape: Sequence[int], generator: Optional[torch.Generator], device: torch.device) -> torch.Tensor:
         """A standard-normal f32 tensor: every random tensor of the engine."""
-        return torch.randn(tuple(shape), generator=generator, device=device)
+        return rng.randn(shape, generator, device)
 
     def draw_steps(self, n: int, generator: Optional[torch.Generator], device: torch.device) -> torch.Tensor:
         """The loss's per-row steps t ~ U{0..T-1}: the engine's only other random draw."""
-        return torch.randint(0, self.num_timesteps, (n,), generator=generator, device=device)
+        return rng.randint(0, self.num_timesteps, (n,), generator, device)
 
     # ---- building blocks ----
     def q_sample(self, x_start: torch.Tensor, t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from dyffusion_tpu_torch.models.base import MODEL_STATE_UPDATES, apply_model, apply_model_train
+from dyffusion_tpu_torch.utils import rng
 from dyffusion_tpu_torch.utils.loss import mse_loss
 
 Params = Optional[Mapping[str, torch.Tensor]]
@@ -279,7 +280,7 @@ class DyffusionEngine:
             return condition
         # data+noise: blend the condition with N(0, 1) noise by t/(N-1)
         tfac = (t / (self.num_timesteps - 1)).reshape((-1,) + (1,) * (condition.ndim - 1))
-        noise = torch.randn(condition.shape, generator=generator, device=condition.device, dtype=condition.dtype)
+        noise = rng.randn(condition.shape, generator, condition.device, condition.dtype)
         return tfac * condition + (1.0 - tfac) * noise
 
     def predict_x_last(

@@ -41,6 +41,7 @@ from torch import nn
 
 from dyffusion_tpu_torch.diffusion.ddpm import BufferTable
 from dyffusion_tpu_torch.models.base import apply_model
+from dyffusion_tpu_torch.utils import rng
 from dyffusion_tpu_torch.utils.loss import mse_loss
 
 Params = Optional[Mapping[str, torch.Tensor]]
@@ -134,12 +135,12 @@ class McvdEngine:
         with ``concentration`` (broadcast to ``shape``), standard Gamma
         draws of that shape parameter (scale 1)."""
         if concentration is None:
-            return torch.randn(tuple(shape), generator=generator, device=device)
-        return torch._standard_gamma(concentration.expand(tuple(shape)).contiguous(), generator=generator)
+            return rng.randn(shape, generator, device)
+        return rng.standard_gamma(concentration.expand(tuple(shape)).contiguous(), generator)
 
     def draw_steps(self, n: int, generator: Optional[torch.Generator], device: torch.device) -> torch.Tensor:
         """The loss's per-row steps t ~ U{0..T-1}: the engine's only other random draw."""
-        return torch.randint(0, self.num_timesteps, (n,), generator=generator, device=device)
+        return rng.randint(0, self.num_timesteps, (n,), generator, device)
 
     # ---- building blocks ----
     def _noise_like(self, shape, t: torch.Tensor, generator, device) -> torch.Tensor:
@@ -323,7 +324,7 @@ Draw = Callable[[Sequence[int], Optional[torch.Generator], torch.device], torch.
 
 def normal_draw(shape: Sequence[int], generator: Optional[torch.Generator], device: torch.device) -> torch.Tensor:
     """The Langevin functions' default draw: standard normal f32."""
-    return torch.randn(tuple(shape), generator=generator, device=device)
+    return rng.randn(shape, generator, device)
 
 
 def _score(scorenet: nn.Module, params: Params, x: torch.Tensor, t, condition) -> torch.Tensor:

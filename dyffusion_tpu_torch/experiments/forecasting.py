@@ -33,6 +33,7 @@ import torch
 
 from dyffusion_tpu_torch.experiments.base import Experiment, cast_params, stack_window
 from dyffusion_tpu_torch.models.base import MODEL_STATE_UPDATES, apply_model, apply_model_train
+from dyffusion_tpu_torch.utils import rng
 from dyffusion_tpu_torch.utils.loss import get_loss_fn
 
 
@@ -134,7 +135,7 @@ class ForecastingExperiment(Experiment):
                 nxt = self.next_window_inputs(preds)  # (N, B, w*C, H, W)
                 x = nxt.reshape((n_members * B,) + tuple(nxt.shape[2:]))
             if noise > 0:
-                x = x + noise * torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+                x = x + noise * rng.randn(x.shape, generator, x.device, x.dtype)
             p = window_fn(x, sc_flat).float()
             p = p.reshape((n_members, B) + tuple(p.shape[1:])).permute(0, 1, 2, 4, 5, 3)  # (N, B, h, H, W, C)
             preds = self.record_window(out, p, meta, ar, dynamics)
@@ -211,9 +212,7 @@ class DyffusionForecastingExperiment(ForecastingExperiment):
             cond_flat = _tile(stack_window(dynamics, self.cfg.window).to(dtype))
             sc_flat = None if static_cond is None else _tile(static_cond.to(dtype))
             if noise > 0:
-                cond_flat = cond_flat + noise * torch.randn(
-                    cond_flat.shape, generator=generator, device=cond_flat.device, dtype=cond_flat.dtype
-                )
+                cond_flat = cond_flat + noise * rng.randn(cond_flat.shape, generator, cond_flat.device, cond_flat.dtype)
             out: Dict[str, torch.Tensor] = {}
             meta = self.metadata(batch) if self.boundary_fn is not None else {}
             preds = _unfold(engine.sample(fc_params, ip_params, generator, cond_flat, sc_flat), B)

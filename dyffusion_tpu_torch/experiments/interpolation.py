@@ -13,6 +13,7 @@ import torch
 
 from dyffusion_tpu_torch.experiments.base import Experiment, cast_params, stack_window
 from dyffusion_tpu_torch.models.base import MODEL_STATE_UPDATES, apply_model, apply_model_train
+from dyffusion_tpu_torch.utils import rng
 from dyffusion_tpu_torch.utils.loss import get_loss_fn
 
 
@@ -86,7 +87,7 @@ class InterpolationExperiment(Experiment):
             x = _tile(self.get_inputs(dynamics).to(dtype))
             c_flat = None if cond is None else _tile(cond.to(dtype))
             if noise > 0:
-                x = x + noise * torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+                x = x + noise * rng.randn(x.shape, generator, x.device, x.dtype)
             out = {}
             for i in self.horizon_range:
                 t_b = torch.full((x.shape[0],), float(i), dtype=torch.float32, device=x.device)

@@ -7,7 +7,9 @@ dropout-then-conv projection of ``LinearAttention``, ``fn.norm.g`` /
 ``fn.fn.*`` for ``PreNormResidual``), so its checkpoints and the JAX
 package's converted params load unchanged.
 
-Dropout takes an explicit ``torch.Generator``; ``generator=None`` means
+Dropout takes an explicit ``torch.Generator`` (or
+:data:`dyffusion_tpu_torch.utils.rng.DEVICE_DEFAULT`, the device's default
+generator, as the exported sampler draws); ``generator=None`` means
 deterministic, as ``dropout_rng=None`` does in the JAX package.
 """
 from __future__ import annotations
@@ -21,6 +23,7 @@ from torch import nn
 
 from dyffusion_tpu_torch.models.base import BatchNorm2d
 from dyffusion_tpu_torch.ops.linear_attention import linear_attention_qkv
+from dyffusion_tpu_torch.utils import rng
 
 
 def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -29,7 +32,7 @@ def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> 
     ``generator=None`` or ``p == 0`` returns ``x``."""
     if generator is None or p == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    keep = rng.rand(x.shape, generator, x.device) < 1.0 - p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

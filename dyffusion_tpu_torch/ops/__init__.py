@@ -1,4 +1,9 @@
-"""Hand-written CUDA kernels of the port, each beside its plain PyTorch version."""
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch version.
+
+Importing the package registers the kernels' ``torch.library`` ops
+(``dyffusion_tpu_torch::linear_attention_qkv``, ``::linear_attention_core``,
+``::fused_leaky_relu``), which an exported program calls by name.
+"""
 from dyffusion_tpu_torch.ops.fused_act import fused_leaky_relu, fused_leaky_relu_plain
 from dyffusion_tpu_torch.ops.linear_attention import (
     linear_attention_core,

@@ -10,9 +10,10 @@ the last axis). On a CUDA tensor :func:`fused_leaky_relu` launches the
 hand-written kernel in ``csrc/fused_act.cu`` (built on first use by
 :mod:`dyffusion_tpu_torch.ops._build`) or raises; it never falls back. On a
 CPU tensor it runs :func:`fused_leaky_relu_plain`, the same arithmetic in
-plain PyTorch, which is also what the kernel is checked against. The
-backward replays the plain composition (the JAX package differentiates its
-composition too).
+plain PyTorch, which is also what the kernel is checked against. Both go
+through the ``torch.library`` op ``dyffusion_tpu_torch::fused_leaky_relu``.
+The backward replays the plain composition (the JAX package differentiates
+its composition too).
 """
 from __future__ import annotations
 
@@ -95,12 +96,16 @@ def divisor(d: int) -> tuple:
 NO_BIAS, RUNS, CHANNELS_LAST = 0, 1, 2
 
 
-def _launch(x: torch.Tensor, bias: Optional[torch.Tensor], negative_slope: float, scale: float) -> torch.Tensor:
-    global launches, _fn
+def _check_kernel_args(x: torch.Tensor) -> None:
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused_leaky_relu kernel takes float32 or bfloat16, got {x.dtype}")
     if not _is_dense(x):
         raise ValueError(f"fused_leaky_relu kernel takes a dense tensor in any axis order, got strides {x.stride()}")
+
+
+def _launch(x: torch.Tensor, bias: Optional[torch.Tensor], negative_slope: float, scale: float) -> torch.Tensor:
+    global launches, _fn
+    _check_kernel_args(x)
     out = torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device=x.device)
     numel = x.numel()
     if numel == 0:
@@ -137,40 +142,58 @@ def _launch(x: torch.Tensor, bias: Optional[torch.Tensor], negative_slope: float
     return out
 
 
-class _FusedLeakyReLU(torch.autograd.Function):
-    """Kernel forward; the backward replays the plain composition:
-    grad_x = g * scale * (1 where x + b >= 0, else slope), grad_b = grad_x
-    summed over every axis but 1."""
+# B2 as a torch.library op, so that torch.export records it as one node and
+# a traced graph knows its output layout (its fake): x's strides, as the
+# kernel writes them; the CPU implementation, the plain version, is given
+# the same layout. The backward replays the plain composition:
+# grad_x = g * scale * (1 where x + b >= 0, else slope), grad_b = grad_x
+# summed over every axis but 1.
+@torch.library.custom_op("dyffusion_tpu_torch::fused_leaky_relu", mutates_args=(), device_types="cpu")
+def _op(x: torch.Tensor, bias: Optional[torch.Tensor], negative_slope: float, scale: float) -> torch.Tensor:
+    out = fused_leaky_relu_plain(x, bias, negative_slope, scale)
+    like = torch.empty_like(x)
+    return out if out.stride() == like.stride() else like.copy_(out)
 
-    @staticmethod
-    def forward(ctx, x, bias, negative_slope, scale):
-        ctx.save_for_backward(x, bias)
-        ctx.args = (negative_slope, scale)
-        return _launch(x, bias, negative_slope, scale)
 
-    @staticmethod
-    def backward(ctx, grad):
-        x, bias = ctx.saved_tensors
-        with torch.enable_grad():
-            xs = [x.detach().requires_grad_(True)]
-            if bias is not None:
-                xs.append(bias.detach().requires_grad_(True))
-            out = fused_leaky_relu_plain(xs[0], xs[1] if bias is not None else None, *ctx.args)
-            grads = torch.autograd.grad(out, xs, grad)
-        return grads[0], (grads[1] if bias is not None else None), None, None
+_op.register_kernel("cuda")(_launch)
+
+
+@_op.register_fake
+def _(x, bias, negative_slope, scale):
+    if x.device.type == "cuda":
+        _check_kernel_args(x)
+    return torch.empty_like(x)
+
+
+def _setup(ctx, inputs, output):
+    x, bias, *ctx.args = inputs
+    ctx.save_for_backward(x, bias)
+
+
+def _backward(ctx, grad):
+    x, bias = ctx.saved_tensors
+    with torch.enable_grad():
+        xs = [x.detach().requires_grad_(True)]
+        if bias is not None:
+            xs.append(bias.detach().requires_grad_(True))
+        out = fused_leaky_relu_plain(xs[0], xs[1] if bias is not None else None, *ctx.args)
+        grads = torch.autograd.grad(out, xs, grad)
+    return grads[0], (grads[1] if bias is not None else None), None, None
+
+
+_op.register_autograd(_backward, setup_context=_setup)
 
 
 def fused_leaky_relu(
     x: torch.Tensor, bias: Optional[torch.Tensor] = None, negative_slope: float = 0.2, scale: float = math.sqrt(2.0)
 ) -> torch.Tensor:
-    """leaky_relu(x + bias, negative_slope) * scale, ``bias`` (C,) over dim 1.
+    """leaky_relu(x + bias, negative_slope) * scale, ``bias`` (C,) over dim 1;
+    the op ``dyffusion_tpu_torch::fused_leaky_relu``.
 
     CUDA tensor: the B2 kernel (float32 or bfloat16, any dense layout; the
-    output keeps x's strides), or an error. CPU tensor: the plain version.
-    Differentiable either way."""
+    output keeps x's strides), or an error. CPU tensor: the plain version,
+    in the same layout. Differentiable either way."""
     _check(x, bias)
-    if x.device.type == "cuda":
-        return _FusedLeakyReLU.apply(x, bias, negative_slope, scale)
-    if x.device.type == "cpu":
-        return fused_leaky_relu_plain(x, bias, negative_slope, scale)
-    raise ValueError(f"fused_leaky_relu takes CPU or CUDA tensors, got device {x.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_leaky_relu takes CPU or CUDA tensors, got device {x.device}")
+    return _op(x, bias, float(negative_slope), float(scale))

@@ -18,12 +18,14 @@ launches: a partial pass over S chunks of the tokens per (batch, head), then
 a pass that merges the chunks and writes the output, S' blocks per (batch,
 head) (:func:`split_counts`). The kernels read q, k and v from three base
 pointers of one layout: B1 passes the channel thirds of its one tensor, B3
-its three tensors as heads = 1 and batch = BH. On a CUDA tensor each wrapper
-launches the kernels or raises; it never falls back. On a CPU tensor it runs
-its plain version, the same arithmetic in plain PyTorch, which is also what
-the kernel is checked against. Each backward replays the plain composition,
-as the JAX package's ``_pallas_qkv_bwd`` and ``_pallas_core_bwd`` replay
-their XLA references.
+its three tensors as heads = 1 and batch = BH. Each wrapper calls a
+``torch.library`` op (``dyffusion_tpu_torch::linear_attention_qkv``,
+``::linear_attention_core``), which ``torch.export`` records as one node.
+On a CUDA tensor the op launches the kernels or raises; it never falls
+back. On a CPU tensor it runs its plain version, the same arithmetic in
+plain PyTorch, which is also what the kernel is checked against. Each
+backward replays the plain composition, as the JAX package's
+``_pallas_qkv_bwd`` and ``_pallas_core_bwd`` replay their XLA references.
 """
 from __future__ import annotations
 
@@ -228,19 +230,24 @@ def _run(x: torch.Tensor, ptrs, width, out: torch.Tensor, heads: int, dim_head: 
         raise RuntimeError(f"linear attention kernel launch failed: cudaError {err}")
 
 
+def _qkv_out(qkv: torch.Tensor, hd: int) -> torch.Tensor:
+    """B1's output, uninitialized, in the layout its device writes: on CUDA
+    the kernel keeps the input's axis order, tokens fastest for the NCHW
+    view of a 1x1-conv output (so it is itself an NCHW tensor) and channels
+    fastest otherwise; on the CPU the plain version's contiguous result.
+    The launch and the op's fake share it, so a traced graph holds the
+    strides the run will have."""
+    B, N, _ = qkv.shape
+    if qkv.device.type == "cuda" and qkv.stride(1) == 1 and N > 1:
+        return torch.empty((B, hd, N), dtype=qkv.dtype, device=qkv.device).transpose(1, 2)
+    return torch.empty((B, N, hd), dtype=qkv.dtype, device=qkv.device)
+
+
 def _launch_qkv(qkv: torch.Tensor, heads: int, dim_head: int, scale: float) -> torch.Tensor:
     global launches
-    B, N, _ = qkv.shape
-    hd = heads * dim_head
-    # the output keeps the input's axis order: tokens fastest for the NCHW
-    # view of a 1x1-conv output (so it is itself an NCHW tensor), channels
-    # fastest otherwise
-    if qkv.stride(1) == 1 and N > 1:
-        out = torch.empty((B, hd, N), dtype=qkv.dtype, device=qkv.device).transpose(1, 2)
-    else:
-        out = torch.empty((B, N, hd), dtype=qkv.dtype, device=qkv.device)
+    out = _qkv_out(qkv, heads * dim_head)
     q = qkv.data_ptr()
-    third = hd * qkv.stride(2) * qkv.element_size()  # bytes from q's channels to k's, and k's to v's
+    third = heads * dim_head * qkv.stride(2) * qkv.element_size()  # bytes from q's channels to k's, and k's to v's
     _run(qkv, (q, q + third, q + 2 * third), load_width(qkv), out, heads, dim_head, scale)
     launches += 1
     return out
@@ -259,73 +266,94 @@ def _launch_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float
     return out
 
 
-class _LinearAttentionQKV(torch.autograd.Function):
-    """B1 forward; the backward replays the plain composition, as the JAX
-    package's ``_pallas_qkv_bwd`` replays ``_xla_qkv``."""
-
-    @staticmethod
-    def forward(ctx, qkv, heads, dim_head, scale):
-        ctx.save_for_backward(qkv)
-        ctx.args = (heads, dim_head, scale)
-        return _launch_qkv(qkv, heads, dim_head, scale)
-
-    @staticmethod
-    def backward(ctx, grad):
-        (qkv,) = ctx.saved_tensors
-        with torch.enable_grad():
-            x = qkv.detach().requires_grad_(True)
-            out = linear_attention_qkv_plain(x, *ctx.args)
-            (g,) = torch.autograd.grad(out, x, grad)
-        return g, None, None, None
+# B1 and B3 as torch.library ops, so that torch.export records them as
+# nodes and a traced graph knows their output layouts (their fakes). The CPU
+# implementation is the plain version, the CUDA one launches the kernels.
+# Each backward replays the plain composition, as the JAX package's
+# ``_pallas_qkv_bwd`` replays ``_xla_qkv`` and ``_pallas_core_bwd`` replays
+# ``_core_reference``.
+@torch.library.custom_op("dyffusion_tpu_torch::linear_attention_qkv", mutates_args=(), device_types="cpu")
+def _qkv_op(qkv: torch.Tensor, heads: int, dim_head: int, scale: float) -> torch.Tensor:
+    return linear_attention_qkv_plain(qkv, heads, dim_head, scale).contiguous()
 
 
-class _LinearAttentionCore(torch.autograd.Function):
-    """B3 forward; the backward replays the plain composition, as the JAX
-    package's ``_pallas_core_bwd`` replays ``_core_reference``."""
+_qkv_op.register_kernel("cuda")(_launch_qkv)
 
-    @staticmethod
-    def forward(ctx, q, k, v, scale):
-        ctx.save_for_backward(q, k, v)
-        ctx.scale = scale
-        return _launch_core(q, k, v, scale)
 
-    @staticmethod
-    def backward(ctx, grad):
-        with torch.enable_grad():
-            xs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-            out = linear_attention_core_plain(*xs, ctx.scale)
-            grads = torch.autograd.grad(out, xs, grad)
-        return (*grads, None)
+@_qkv_op.register_fake
+def _(qkv, heads, dim_head, scale):
+    if qkv.device.type == "cuda":
+        _check_kernel_args(qkv.dtype, dim_head, qkv.stride())
+    return _qkv_out(qkv, heads * dim_head)
+
+
+def _qkv_setup(ctx, inputs, output):
+    qkv, *ctx.args = inputs
+    ctx.save_for_backward(qkv)
+
+
+def _qkv_backward(ctx, grad):
+    (qkv,) = ctx.saved_tensors
+    with torch.enable_grad():
+        x = qkv.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(linear_attention_qkv_plain(x, *ctx.args), x, grad)
+    return g, None, None, None
+
+
+_qkv_op.register_autograd(_qkv_backward, setup_context=_qkv_setup)
+
+
+@torch.library.custom_op("dyffusion_tpu_torch::linear_attention_core", mutates_args=(), device_types="cpu")
+def _core_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    return linear_attention_core_plain(q, k, v, scale).contiguous()
+
+
+_core_op.register_kernel("cuda")(_launch_core)
+
+
+@_core_op.register_fake
+def _(q, k, v, scale):
+    if q.device.type == "cuda":
+        _check_kernel_args(q.dtype, q.shape[1], q.stride())
+    return torch.empty(q.shape, dtype=q.dtype, device=q.device)
+
+
+def _core_setup(ctx, inputs, output):
+    *qkv, ctx.scale = inputs
+    ctx.save_for_backward(*qkv)
+
+
+def _core_backward(ctx, grad):
+    with torch.enable_grad():
+        xs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        grads = torch.autograd.grad(linear_attention_core_plain(*xs, ctx.scale), xs, grad)
+    return (*grads, None)
+
+
+_core_op.register_autograd(_core_backward, setup_context=_core_setup)
 
 
 def linear_attention_qkv(qkv: torch.Tensor, heads: int, dim_head: int, scale: float) -> torch.Tensor:
-    """(B, N, 3*heads*dim_head) -> (B, N, heads*dim_head).
+    """(B, N, 3*heads*dim_head) -> (B, N, heads*dim_head), the op
+    ``dyffusion_tpu_torch::linear_attention_qkv``.
 
     CUDA tensor: the B1 kernel (any non-negative strides; float32 or
     bfloat16; dim_head 32), or an error. CPU tensor: the plain version.
-    Differentiable either way; without a gradient to record (no_grad, or
-    qkv needs none) the kernel is called without the autograd Function's
-    per-call cost on the host."""
+    Differentiable either way."""
     _check(qkv, heads, dim_head)
-    if qkv.device.type == "cuda":
-        if torch.is_grad_enabled() and qkv.requires_grad:
-            return _LinearAttentionQKV.apply(qkv, heads, dim_head, scale)
-        return _launch_qkv(qkv, heads, dim_head, scale)
-    if qkv.device.type == "cpu":
-        return linear_attention_qkv_plain(qkv, heads, dim_head, scale)
-    raise ValueError(f"linear_attention_qkv takes CPU or CUDA tensors, got device {qkv.device}")
+    if qkv.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"linear_attention_qkv takes CPU or CUDA tensors, got device {qkv.device}")
+    return _qkv_op(qkv, heads, dim_head, float(scale))
 
 
 def linear_attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
     """q, k, v (BH, d, N) -> out (BH, d, N), the linear-attention core per
-    (batch*head).
+    (batch*head), the op ``dyffusion_tpu_torch::linear_attention_core``.
 
     CUDA tensors: the B3 kernels (q, k, v of one layout, any non-negative
     strides; float32 or bfloat16; d = 32), or an error. CPU tensors: the
     plain version. Differentiable either way."""
     _check_core(q, k, v)
-    if q.device.type == "cuda":
-        return _LinearAttentionCore.apply(q, k, v, scale)
-    if q.device.type == "cpu":
-        return linear_attention_core_plain(q, k, v, scale)
-    raise ValueError(f"linear_attention_core takes CPU or CUDA tensors, got device {q.device}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"linear_attention_core takes CPU or CUDA tensors, got device {q.device}")
+    return _core_op(q, k, v, float(scale))

@@ -577,3 +577,59 @@ def test_ncsnpp_forward_on_the_gpu_matches_the_cpu(name, deterministic_cudnn, fu
         want = model(x, t, c)
         got = copy.deepcopy(model).cuda()(x.cuda(), t.cuda(), c.cuda()).cpu()
     _assert_close_to_scale(got, want, 1e-4)
+
+
+def _op_args(op, layout, dtype, device):
+    """Inputs of one of the three ops, requiring gradients, contiguous or in
+    the other layout ("nchw_view"): B1 the (B, N, 3hd) view of an NCHW
+    1x1-conv output, B3 the (BH, d, N) view of (BH, N, d) tensors, B2
+    channels-last."""
+    g = torch.Generator().manual_seed(0)
+    nchw = layout == "nchw_view"
+
+    def put(t):
+        return t.to(device=device, dtype=dtype).requires_grad_()
+
+    if op == "linear_attention_qkv":
+        x = torch.randn(2, 3 * HEADS * DIM_HEAD, 64, generator=g)
+        return (put(x).transpose(1, 2) if nchw else put(x.transpose(1, 2).contiguous()), HEADS, DIM_HEAD, SCALE)
+    if op == "linear_attention_core":
+        ts = [torch.randn(8, 64, DIM_HEAD, generator=g) for _ in range(3)]  # (BH, N, d)
+        return (*[put(t).transpose(1, 2) if nchw else put(t.transpose(1, 2).contiguous()) for t in ts], SCALE)
+    x = torch.randn(2, 8, 6, 4, generator=g)
+    return (put(x.to(memory_format=torch.channels_last)) if nchw else put(x), put(torch.randn(8, generator=g)),
+            0.2, 2**0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["nchw_view", "contiguous"])
+@pytest.mark.parametrize("op", ["linear_attention_qkv", "linear_attention_core", "fused_leaky_relu"])
+def test_ops_pass_opcheck_on_the_gpu(op, layout, dtype):
+    """``torch.library.opcheck`` of the kernels' ops on CUDA tensors: the
+    schema, the autograd registration, the fake against the kernel's real
+    output (shape, dtype and strides) and AOT dispatch with dynamic shapes."""
+    _require_cuda()
+    torch.library.opcheck(getattr(torch.ops.dyffusion_tpu_torch, op).default,
+                          _op_args(op, layout, getattr(torch, dtype), "cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["nchw_view", "contiguous"])
+@pytest.mark.parametrize("op", ["linear_attention_qkv", "linear_attention_core", "fused_leaky_relu"])
+def test_fake_layout_is_the_kernels(op, layout):
+    """The fake of each op, which a traced graph takes its strides from, gives
+    the strides the kernel writes: B1 keeps tokens fastest for the NCHW view
+    (its output is itself NCHW), B3 is contiguous, B2 keeps x's strides."""
+    _require_cuda()
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    args = [a.detach() if isinstance(a, torch.Tensor) else a for a in _op_args(op, layout, torch.bfloat16, "cuda")]
+    fn = getattr(torch.ops.dyffusion_tpu_torch, op).default
+    real = fn(*args)
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fake = fn(*[mode.from_tensor(a) if isinstance(a, torch.Tensor) else a for a in args])
+    assert fake.shape == real.shape and fake.dtype == real.dtype and fake.device.type == "cuda"
+    assert fake.stride() == real.stride(), (fake.stride(), real.stride())
+    if op == "linear_attention_qkv" and layout == "nchw_view":
+        assert real.stride(1) == 1  # tokens fastest: out.transpose(1, 2) is a contiguous NCHW tensor
