@@ -12,9 +12,11 @@ non-zero:
    B2 ``fused_act.cu``) from the repo's CUDA sources with nvcc (sm_90a),
    one nvcc per source, all at once, and prints the build times, the ptxas
    reports and each kernel's registers and spills; a spill in any kernel
-   fails the run.
-3. kernel vs plain: B1 at the shapes of the serving, train, fit and cli
-   (the 50-member test ensemble: 300/600 rows) paths,
+   fails the run. Then the native batch gather of the train loader
+   (``csrc/batch_gather.cpp``, host C++) with g++; without g++ the run fails.
+3. kernel vs plain: B1 at the shapes of the serving, train, fit, cli
+   (the 50-member test ensemble: 300/600 rows) and oisst (256 and 128 rows
+   in f32, 250/500 at the test ensemble) paths,
    B3 and B2 at theirs, bf16 and f32, contiguous and as a strided view,
    against their plain PyTorch versions, with a tolerance relative to the
    output's scale; negative controls show that the same check rejects a
@@ -126,10 +128,26 @@ non-zero:
    file size and graph nodes, the load time, the request times against the
    eager ones, and B1's host cost per call through its ``torch.library`` op
    against the direct launch.
+17. oisst: the OISST presets through the CLI at full width (60x60, C=1,
+   h=7, k=25, Unet dim 64 mults (1,2,4), 20 members folded, eval batch 6,
+   bf16 eval) on the 11 Pacific boxes written by ``write_fake_oisst_dir``
+   and cut to 31 / 13 / 8 days of 2018 / 2019 / 2020, in a temporary
+   registry: ``oisst_pacific_interpolation perf=measured`` (B64 x 4 folded
+   into batches of 256), ``oisst_pacific_dyffusion perf=measured`` by the
+   stage-1 run id (B128 x accumulate 2, remat), ``mode=test`` (50 members),
+   ``serving.build_predict_fn`` by run id. Checks the run ids against the
+   parity layout's, falling finite losses, both layouts, B1 per command
+   (from its steps and validations) and 378 per request, seeds and member
+   spread, the prefetched device-staged batches against host indexing, one
+   ``watch_gradients`` step, and each command's peak memory against the
+   card; prints wall times, steps/s of both recipes, the request latency
+   (and that of the same run served with ``forward_conditioning=data``,
+   whose forecaster stays in bf16) and ``device_memory_report()``.
 
 Each path (slice, train, fit, each cli command, ns, spring, each baseline
-command and request, ncsnpp, each export request) sets the launch counts to
-0 before it runs and reads them after. The line before the last is the kernel summary as JSON
+command and request, ncsnpp, each export request, each oisst command) sets
+the launch counts to 0 before it runs and reads them after. The line before
+the last is the kernel summary as JSON
 (B1's top-level launches and times are the train path's; ``by_path`` has
 each path's count); the last line is ``{"ok": true, "device": {...}}``.
 
@@ -160,6 +178,10 @@ line. ``--profile`` also profiles one full-sampler MCVD NCSN++ request.
 
 runs phases 1, 2, 10 and 16 (the CLI's runs, then their export) and stops,
 with no ``ok`` line.
+
+    python3 chip_smoke.py --oisst
+
+runs phases 1, 2 and 17 (the OISST path) and stops, with no ``ok`` line.
 
     python3 chip_smoke.py --kernels
 
@@ -252,6 +274,12 @@ def phase_build():
             if spill_st or spill_ld:
                 raise AssertionError(f"the kernel {kernel} spills registers")
     print(f"[build] all kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+    from dyffusion_tpu_torch.data import native_loader
+
+    if not native_loader.native_available():
+        raise AssertionError("[build] no g++: the native batch gather of the OISST path cannot be built")
+    log = native_loader.build_log
+    print(f"[build] {native_loader.SOURCE.name}: g++ {log['seconds']:.2f} s -> {os.path.basename(log['path'])}")
 
 
 def _bound(n_bytes, flops):
@@ -379,9 +407,12 @@ def phase_kernel():
     fit = ((4, 576), (24, 144))  # [fit]: a train batch at 24x24; an interpolator eval call at 12x12
     # [cli]: the 50-member test ensemble folded into eval batches of 6 (forecaster 300, interpolator 600)
     cli = ((300, 3600), (600, 3600), (300, 900), (600, 900), (300, 225), (600, 225))
-    controls = ((120, 3600), (240, 900), (64, 3600), (300, 3600))
+    # [oisst]: stage 1 folded (256) and stage 2 (128) in f32, the 50-member test batch of 5 rows (250, 500)
+    oisst = ((256, 3600), (256, 900), (256, 225), (128, 3600), (128, 900), (128, 225),
+             (250, 3600), (500, 3600), (250, 900), (500, 900), (250, 225), (500, 225))
+    controls = ((120, 3600), (240, 900), (64, 3600), (300, 3600), (256, 3600))
     max_err = 0.0
-    for B, N in serve + train + fit + cli + ((3, 7),):
+    for B, N in serve + train + fit + cli + oisst + ((3, 7),):
         for dtype in (torch.bfloat16, torch.float32):
             for strided in (False, True):
                 qkv = _qkv(B, N, dtype, strided, gen)
@@ -2299,16 +2330,259 @@ def phase_profile_ncsnpp(card):
         torch.backends.cudnn.benchmark = before
 
 
+# [oisst]: the OISST presets through the CLI at their full width (section 4
+# of PERF.md) on fake Pacific boxes written by the port, cut to these days:
+# 31 of 2018 (11 boxes x 24 windows = 264 train rows: one folded stage-1
+# batch of 256 and two stage-2 batches of 128 per epoch), 13 of 2019 with
+# validation on one box (6 rows: one eval batch of 6), 8 of 2020 (one window
+# per box: 11 rows, 50-member test batches of 6 and 5; the predict slice is
+# set to the same days for serving). Eval in bf16 with the members folded,
+# as [slice] serves.
+OISST_DAYS = {2018: 31, 2019: 13, 2020: 8}
+OISST_STAGE1_STEPS = 32  # micro-batches of 64: 8 optimizer steps at B256, folded
+OISST_STAGE2_STEPS = 16  # micro-batches of 128: 8 optimizer steps, accumulate 2
+OISST_PREDICT = ["datamodule.predict_slice=('2020-01-01','2020-01-08')"]
+
+
+def _oisst_archive(root):
+    """The 11 Pacific boxes at 60x60 from ``write_fake_oisst_dir``, cut to
+    ``OISST_DAYS``; returns the archive's directory."""
+    import glob
+
+    import numpy as np
+
+    from dyffusion_tpu_torch.data.oisstv2 import PACIFIC_BOXES, write_fake_oisst_dir
+
+    data_dir = write_fake_oisst_dir(root, boxes=PACIFIC_BOXES, n_days_per_year=max(OISST_DAYS.values()), seed=SEED)
+    for path in glob.glob(os.path.join(data_dir, "*", "sst.day.mean.box*.npz")):
+        with np.load(path) as f:
+            sst, days = f["sst"], f["time"]
+        year = days.astype("datetime64[Y]").astype(int) + 1970
+        day_of_year = (days - days.astype("datetime64[Y]")).astype(int)
+        keep = np.zeros(len(days), bool)
+        for y, n in OISST_DAYS.items():
+            keep |= (year == y) & (day_of_year < n)
+        np.savez_compressed(path, sst=sst[keep], time=days[keep])
+    return data_dir
+
+
+def phase_oisst(card):
+    """The OISST path through ``train.main`` at the presets' full width
+    (60x60, C=1, h=7, k=25, Unet dim 64 mults (1,2,4), 20 members, eval
+    batch 6) on ``_oisst_archive``, in a temporary registry:
+    ``oisst_pacific_interpolation perf=measured`` (stage 1 folded: B64 x 4
+    as one batch of 256), ``oisst_pacific_dyffusion perf=measured`` with the
+    stage-1 run id (B128 x accumulate 2, remat), ``mode=test`` (50 members),
+    then ``serving.build_predict_fn`` by run id. Checks: the run ids equal
+    the parity layout's; finite, falling losses; the layouts of both runs;
+    B1's launches per command, from its steps and validations, and 378 per
+    request; seeds repeat and differ and the members spread; the prefetched,
+    device-staged batches of the stage-2 run equal host indexing; one
+    ``watch_gradients`` step gives finite norms and histograms that count
+    every weight; each command's peak memory fits the card. Prints each
+    command's wall time and peak memory, the train steps/s of both recipes,
+    the request latency at eval batch 6, and ``device_memory_report()``.
+    Returns (B1 launches of the phase, per request)."""
+    import numpy as np
+    import torch
+
+    from dyffusion_tpu_torch import train
+    from dyffusion_tpu_torch.config import get_config
+    from dyffusion_tpu_torch.data.native_loader import DeviceStager, native_available
+    from dyffusion_tpu_torch.interface import accumulation_layout, get_datamodule, reload_trainer
+    from dyffusion_tpu_torch.models.modules import LinearAttention
+    from dyffusion_tpu_torch.ops import linear_attention as la
+    from dyffusion_tpu_torch.serving import build_predict_fn
+    from dyffusion_tpu_torch.utils import registry_api
+    from dyffusion_tpu_torch.utils.naming import get_run_id
+    from dyffusion_tpu_torch.utils.profiling import device_memory_report
+    from dyffusion_tpu_torch.utils.workloads import SST_FAST_EVAL
+
+    tag = "[oisst]"
+    t_phase = time.perf_counter()
+    if not native_available():
+        raise AssertionError(f"{tag} the native batch gather is not available")
+    total_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_oisst_") as root:
+        data_dir = _oisst_archive(os.path.join(root, "data"))
+        reg = os.path.join(root, "registry")
+        common = [
+            f"datamodule.data_dir={data_dir}", "datamodule.validation_boxes=[84]", *SST_FAST_EVAL,
+            "trainer.val_every_n_epochs=100", "trainer.log_every_n_steps=1", f"registry_dir={reg}",
+        ]
+        c1 = [*common, f"trainer.max_steps={OISST_STAGE1_STEPS}"]
+        id1 = get_run_id(get_config("oisst_pacific_interpolation", c1))
+        c2 = [*common, f"diffusion.interpolator_run_id={id1}", f"trainer.max_steps={OISST_STAGE2_STEPS}"]
+        id2 = get_run_id(get_config("oisst_pacific_dyffusion", c2))
+        for preset, args, run_id in (("oisst_pacific_interpolation", c1, id1), ("oisst_pacific_dyffusion", c2, id2)):
+            if get_run_id(get_config(preset, [*args, "perf=measured"])) != run_id:
+                raise AssertionError(f"{tag} perf=measured changed the run id of {preset}")
+        commands = {}  # name -> (B1 launches, seconds, peak GiB)
+
+        def command(name, fn):
+            la.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            out = fn()
+            _sync()
+            commands[name] = (la.launches, time.perf_counter() - t, torch.cuda.max_memory_allocated() / 2**30)
+            print(f"{tag} {name}: {commands[name][1]:.1f} s wall, B1 launches {commands[name][0]}, peak memory "
+                  f"{commands[name][2]:.2f} GiB of {total_gib:.1f}; on {card}")
+            return out
+
+        def train_log(run_id):
+            rows = [r for r in registry_api.get_run_metrics(reg, run_id) if "train/loss" in r]
+            return [r["step"] for r in rows], np.asarray([r["train/loss"] for r in rows]), \
+                np.asarray([r["time/train/step"] for r in rows])
+
+        best1 = command("stage 1 perf=measured", lambda: train.main(
+            ["experiment=oisst_pacific_interpolation", *c1, "perf=measured"]))
+        best2 = command("stage 2 perf=measured from the registry", lambda: train.main(
+            ["experiment=oisst_pacific_dyffusion", *c2, "perf=measured"]))
+        print(f"{tag} after training: {device_memory_report()}")
+        crps = command("mode=test, 50 members", lambda: train.main(["mode=test", f"run_id={id2}", f"registry_dir={reg}"]))
+
+        # one reload of the stage-2 run for the layout, prefetch and watch_gradients checks
+        trainer = reload_trainer(reg, id2, overrides=["trainer.watch_gradients=true"])
+        layout2 = (trainer.datamodule.batch_size, trainer.state.optimizer.accumulate_grad_batches,
+                   trainer.experiment.model.remat)
+        cfg1 = registry_api.get_run_config(reg, id1)
+        layout1 = (cfg1["datamodule"]["batch_size"] * accumulation_layout(cfg1)[1], accumulation_layout(cfg1))
+        dm = trainer.datamodule
+        stager, n_checked = DeviceStager("cuda"), 0
+        for _ in range(3):  # epochs; each staged batch is read back as it arrives
+            seed = int(np.random.default_rng(n_checked).integers(1 << 30))
+            host = dm.train_batches(rng=np.random.default_rng(seed))
+            for staged, want in zip(dm.train_loader(rng=np.random.default_rng(seed), device_put=stager), host):
+                if not torch.equal(staged["dynamics"].cpu(), torch.from_numpy(want["dynamics"])):
+                    raise AssertionError(f"{tag} a prefetched batch differs from host indexing")
+                n_checked += 1
+        la.reset_launches()
+        watch = trainer.train_step(trainer.state, trainer._put(next(dm.train_batches(rng=np.random.default_rng(SEED)))))
+        _sync()
+        watch_launches = la.launches
+        n_weights = sum(p.numel() for p in trainer.state.params.values())
+        norms = {k: float(v) for k, v in watch.items() if k.endswith("/norm")}
+        hists = {k: v.cpu() for k, v in watch.items() if k.endswith("/hist")}
+        hist_total = int(sum(h.sum() for h in hists.values()))
+        norm2 = sum(v * v for v in norms.values())
+
+        predict_cfg = registry_api.get_run_config(reg, id2)
+        predict_dm = get_datamodule({**predict_cfg, "datamodule": {
+            **predict_cfg["datamodule"], "predict_slice": ("2020-01-01", "2020-01-08")}})
+        batch = next(predict_dm.predict_batches())
+
+        def serve():
+            predict, _, info = build_predict_fn(reg, id2, overrides=OISST_PREDICT)
+            answers, latencies, counts = [], [], []
+            for seed in [SEED] + [SEED + 1 + j for j in range(N_REQUESTS - 1)] + [SEED]:
+                before = la.launches
+                _sync()
+                t = time.perf_counter()
+                answers.append(predict(batch, seed))
+                _sync()
+                latencies.append(time.perf_counter() - t)
+                counts.append(la.launches - before)
+            return info, answers, latencies, counts
+
+        info, answers, latencies, counts = command(f"serving by run id, {N_REQUESTS + 1} requests", serve)
+        # where the request time goes: data+noise blends the condition with
+        # f32 weights t/(N-1), so the forecaster's input, and with it the
+        # forecaster, runs in f32 under the bf16 eval (in the JAX package
+        # too); the same run served with forward_conditioning=data stays bf16
+        data_predict, _, _ = build_predict_fn(reg, id2, overrides=[*OISST_PREDICT, "diffusion.forward_conditioning=data"])
+        data_predict(batch, SEED)
+        la.reset_launches()
+        _sync()
+        t = time.perf_counter()
+        for seed in range(N_REQUESTS):
+            data_predict(batch, seed)
+        _sync()
+        data_latency, data_launches = (time.perf_counter() - t) / N_REQUESTS, la.launches
+        steps1, losses1, times1 = train_log(id1)
+        steps2, losses2, times2 = train_log(id2)
+
+    exp = trainer.experiment
+    n_attn = sum(isinstance(m, LinearAttention) for m in exp.model.modules())
+    per_request = n_attn * (2 * len(exp.engine._steps.s) + 1)
+    h = exp.cfg.horizon
+    n_test_batches = 2
+    expected = {
+        # one Unet forward per folded step; one per i of the one val batch
+        "stage 1 perf=measured": n_attn * (OISST_STAGE1_STEPS // 4 + (h - 1)),
+        # 4 forwards per micro-batch, 2 more in the remat recompute; one val request
+        "stage 2 perf=measured from the registry": 6 * n_attn * OISST_STAGE2_STEPS + per_request,
+        "mode=test, 50 members": n_test_batches * per_request,
+        f"serving by run id, {N_REQUESTS + 1} requests": (N_REQUESTS + 1) * per_request,
+    }
+    got = {name: n for name, (n, _, _) in commands.items()}
+    # steps/s of the optimizer; the first logged step holds the warm-up
+    s1, s2 = float(np.median(times1[1:])), float(np.median(times2[1:]))
+    print(f"{tag} stage 1 (B256 folded): logged steps {steps1}, losses {np.round(losses1, 5).tolist()}; "
+          f"{1 / (4 * s1):.3f} steps/s, {64 / s1:.1f} examples/s")
+    print(f"{tag} stage 2 (B128 x 2, remat): logged steps {steps2}, losses {np.round(losses2, 5).tolist()}; "
+          f"{1 / (2 * s2):.3f} steps/s ({1 / s2:.3f} micro-batches/s), {128 / s2:.1f} examples/s")
+    print(f"{tag} layouts: stage 1 physical batch {layout1[0]}, (accumulate, fold) {layout1[1]}; stage 2 "
+          f"(batch, accumulate, remat) {layout2}")
+    print(f"{tag} best val/crps: stage 1 {best1:.5f}, stage 2 {best2:.5f}; test/crps (50 members) {crps:.5f}")
+    print(f"{tag} prefetched batches equal to host indexing: {n_checked}; watch_gradients: {len(norms)} modules, "
+          f"sum of squared norms {norm2:.6e} vs grad_norm^2 {float(watch['grad_norm']) ** 2:.6e}, histogram counts "
+          f"{hist_total} of {n_weights} weights, B1 launches {watch_launches}")
+    timed = latencies[1:N_REQUESTS + 1]
+    lat = float(np.mean(timed))
+    out = answers[1]
+    repeat = float((answers[0] - answers[-1]).abs().max())
+    other = float((answers[0] - answers[1]).abs().max())
+    spread = float(out.std(dim=0).mean())
+    print(f"{tag} served {tuple(out.shape)} ({info['ensemble_members']} members): first request {latencies[0]:.3f} s, "
+          f"timed {[round(x, 4) for x in timed]} s, latency {lat:.4f} s at eval batch {out.shape[1]}, "
+          f"{out.shape[0] * out.shape[1] * h / lat:.1f} frames/s; B1 per request {counts}; same seed max diff "
+          f"{repeat:.3e}, other seed {other:.3e}, member spread {spread:.4f}; on {card}")
+    print(f"{tag} the same run served with forward_conditioning=data (bf16 forecaster): latency {data_latency:.4f} s "
+          f"({data_latency / lat:.3f} of data+noise's), B1 {data_launches} in {N_REQUESTS} requests")
+    if got != expected:
+        raise AssertionError(f"{tag} B1 launches {got} != {expected}")
+    if any(c != per_request for c in counts) or per_request != 378:
+        raise AssertionError(f"{tag} B1 launches per request {counts}, expected 378")
+    if steps1 != list(range(4, OISST_STAGE1_STEPS + 1, 4)) or steps2 != list(range(1, OISST_STAGE2_STEPS + 1)):
+        raise AssertionError(f"{tag} logged steps {steps1}, {steps2}")
+    if layout1 != (256, (1, 4)) or layout2 != (128, 2, True):
+        raise AssertionError(f"{tag} the perf=measured layouts are {layout1}, {layout2}")
+    for losses in (losses1, losses2):
+        half = len(losses) // 2
+        if not np.isfinite(losses).all() or not losses[half:].mean() < losses[:half].mean():
+            raise AssertionError(f"{tag} losses not finite or not falling: {losses}")
+    if not all(np.isfinite(x) for x in (best1, best2, crps)):
+        raise AssertionError(f"{tag} a non-finite score: {best1}, {best2}, {crps}")
+    if n_checked < 6:
+        raise AssertionError(f"{tag} only {n_checked} prefetched batches were checked")
+    if watch_launches != 6 * n_attn or not all(np.isfinite(v) for v in norms.values()) or hist_total != n_weights:
+        raise AssertionError(f"{tag} watch_gradients: launches {watch_launches}, norms {norms}, counts {hist_total}")
+    if not abs(norm2 - float(watch["grad_norm"]) ** 2) <= 1e-3 * norm2:
+        raise AssertionError(f"{tag} the module norms do not add up to grad_norm")
+    if not (bool(torch.isfinite(out).all()) and repeat == 0 and other > 0.1 and spread > 0):
+        raise AssertionError(f"{tag} served forecast: finite, seeds repeat {repeat}, differ {other}, spread {spread}")
+    if any(peak >= total_gib for _, _, peak in commands.values()):
+        raise AssertionError(f"{tag} a command's peak memory exceeds the card: {commands}")
+    print(f"{tag} phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return sum(got.values()), per_request
+
+
 def main(argv) -> int:
     import torch
 
     if len(argv) == 2 and argv[0] == "--serve-exported":  # the serving process of [export]
         return serve_exported_main(argv[1])
-    if argv not in ([], ["--profile"], ["--kernels"], ["--physical"], ["--baselines"], ["--ncsnpp"], ["--export"]):
+    modes = ([], ["--profile"], ["--kernels"], ["--physical"], ["--baselines"], ["--ncsnpp"], ["--export"], ["--oisst"])
+    if argv not in modes:
         raise SystemExit(
-            "usage: python3 chip_smoke.py [--profile | --kernels | --physical | --baselines | --ncsnpp | --export]")
+            "usage: python3 chip_smoke.py [--profile | --kernels | --physical | --baselines | --ncsnpp | --export "
+            "| --oisst]")
     name, smi = phase_device()
     phase_build()
+    if argv == ["--oisst"]:
+        phase_oisst(smi)
+        return 0
     if argv == ["--export"]:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_registry_") as reg, \
                 tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as work:
@@ -2370,6 +2644,7 @@ def main(argv) -> int:
         finally:
             for p in pipelines.values():
                 p.stop()
+    oisst, oisst_per_request = phase_oisst(smi)
     # B1's top-level numbers are the [train] path's (this slice's main path);
     # by_path keeps each path's own count, read after setting it to 0.
     # No single PyTorch call computes any of the three functions: library_ms is null
@@ -2382,7 +2657,8 @@ def main(argv) -> int:
                      **{f"baselines_{m}": {"launches": n, "per_request": baseline_requests[m]}
                         for m, n in baselines.items()},
                      "ncsnpp": {"launches": ncsnpp["linear_attention_qkv"]},
-                     "export": {"launches": export, "per_request": export_per_request}}},
+                     "export": {"launches": export, "per_request": export_per_request},
+                     "oisst": {"launches": oisst, "per_request": oisst_per_request}}},
         {"name": "fused_leaky_relu", "route": "cuda", "source": fa.SOURCE, "replaces": fa.REPLACES,
          "launches": op_launches["fused_leaky_relu"], **b2, "library_ms": None,
          "by_path": {p: {"launches": c["fused_leaky_relu"]} for p, c in {**physical, "ncsnpp": ncsnpp}.items()}},

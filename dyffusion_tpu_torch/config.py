@@ -1,11 +1,12 @@
 """Config system: experiment presets + dotted overrides.
 
-Counterpart of ``dyffusion_tpu/config.py`` for the presets the port runs:
-``{synthetic, navier_stokes, spring_mesh}_{interpolation, dyffusion,
-time_conditioned, simultaneous, ddpm, ddpm_v2, mcvd}``. A
+Counterpart of ``dyffusion_tpu/config.py``, with all of its presets:
+``{synthetic, navier_stokes, spring_mesh, oisst_pacific}_{interpolation,
+dyffusion, time_conditioned, simultaneous, ddpm, ddpm_v2, mcvd}``. A
 preset is the base layer deep-merged with a dataset layer, a method layer
-and the preset's own tweaks; the physical systems read their archives from
-``datamodule.data_dir`` (a free key of the datamodule section). Overrides
+and the preset's own tweaks; the physical systems and OISST read their
+archives from ``datamodule.data_dir`` (a free key of the datamodule
+section). Overrides
 use the same ``a.b.c=value`` grammar (Python literals, ``true``/``false``/
 ``null``, a ``+`` prefix for intentionally new keys).
 
@@ -18,9 +19,10 @@ lambda_reconstruction2, train_interpolator_dtype, loss_function,
 interpolator_run_id, interpolator_use_ema}``; the driver reads
 ``registry_dir``, ``run_id``, ``use_wandb``, ``matmul_precision`` (or
 ``torch_matmul_precision``) and ``jax_debug_nans`` (``debug=true`` sets it:
-autograd anomaly detection). ``perf=parity`` is accepted; ``perf=measured``
-(the JAX package's per-preset execution-layout recipes) is not ported.
-A config the port accepts resolves to the same dict as the JAX package's.
+autograd anomaly detection). ``perf=measured`` applies the per-preset
+execution-layout recipe (:data:`_PERF_MEASURED`) before the dotted
+overrides; ``perf=parity`` (the default) leaves the reference's layout.
+A config resolves to the same dict as the JAX package's.
 """
 from __future__ import annotations
 
@@ -79,6 +81,25 @@ _DATASETS: Dict[str, Dict[str, Any]] = {
         },
         "module": {"optimizer": {"name": "adamw", "lr": 3e-4, "weight_decay": 1e-4}},
         "trainer": {"max_epochs": 200, "gradient_clip_val": 1.0, "accumulate_grad_batches": 2},
+    },
+    # the 11 Pacific boxes of OISSTv2; accumulate 4 and early-stopping
+    # patience 10 (reference configs/experiment/oisst_pacific.yaml)
+    "oisst_pacific": {
+        "datamodule": {
+            "name": "oisstv2", "batch_size": 64, "eval_batch_size": 6,
+            "horizon": 7, "prediction_horizon": 7, "window": 1,
+            "boxes": [84, 85, 86, 87, 88, 89, 108, 109, 110, 111, 112],
+        },
+        "model": {
+            "name": "unet_resnet", "dim": 64, "dim_mults": [1, 2, 4],
+            "block_dropout": 0.3, "block_dropout1": 0.0, "attn_dropout": 0.1,
+        },
+        "module": {"optimizer": {"name": "adamw", "lr": 1e-4, "weight_decay": 1e-5}},
+        "trainer": {
+            "max_epochs": 50, "gradient_clip_val": 1.0,
+            "accumulate_grad_batches": 4, "early_stopping_patience": 10,
+        },
+        "seed": 8,
     },
 }
 
@@ -180,6 +201,29 @@ _METHODS: Dict[str, Dict[str, Any]] = {
 
 # dataset x method tweaks of the presets above (the JAX package's _COMBO)
 _COMBO: Dict[str, Dict[str, Any]] = {
+    # k = 25 auxiliary steps, no refinement, data + noise conditioning
+    "oisst_pacific_dyffusion": {
+        "diffusion": {
+            "additional_interpolation_steps": 25,
+            "refine_intermediate_predictions": False,
+            "forward_conditioning": "data+noise",
+        },
+    },
+    "oisst_pacific_interpolation": {
+        "model": {"block_dropout": 0.6, "block_dropout1": 0.2, "attn_dropout": 0.6},
+        "module": {"optimizer": {"lr": 3e-4}},
+    },
+    "oisst_pacific_time_conditioned": {
+        "model": {"block_dropout": 0.6, "block_dropout1": 0.3, "attn_dropout": 0.6},
+        "module": {"optimizer": {"lr": 3e-4}},
+    },
+    # the OISST DDPM runs without the time embedding, as the JAX package
+    # composes it (see spring_mesh_ddpm below)
+    "oisst_pacific_ddpm": {"model": {"with_time_emb": False}},
+    "oisst_pacific_simultaneous": {
+        "model": {"block_dropout": 0.6, "block_dropout1": 0.3, "attn_dropout": 0.6},
+        "module": {"optimizer": {"lr": 3e-4}},
+    },
     "navier_stokes_dyffusion": {
         "diffusion": {"refine_intermediate_predictions": True, "forward_conditioning": "none"},
     },
@@ -207,6 +251,23 @@ _TOP_LEVEL_KEYS = {
     "matmul_precision", "torch_matmul_precision", "use_wandb", "perf",
 }
 _PERF_MODES = ("parity", "measured")
+# perf=measured: per-preset execution layouts that keep the science of the
+# parity layout (the same effective batch, mean gradient and run id:
+# utils/naming.py hashes the effective batch) and change only how the
+# micro-batches run. Presets without an entry run as under parity.
+_PERF_MEASURED: Dict[str, Dict[str, Any]] = {
+    # stage 1: the 4 accumulation micro-batches of 64 folded into one batch of 256
+    "oisst_pacific_interpolation": {
+        "trainer": {"fold_accumulation_into_batch": True},
+    },
+    # stage 2: batches of 128 x accumulate 2 (the same 256) with remat. With
+    # the EMA on, re-batching would change its update cadence: refused below
+    "oisst_pacific_dyffusion": {
+        "datamodule": {"batch_size": 128},
+        "trainer": {"accumulate_grad_batches": 2},
+        "model": {"remat": True},
+    },
+}
 _TRAINER_KEYS = {
     "max_epochs", "max_steps", "val_every_n_epochs", "save_checkpoints",
     "devices", "spatial_shards", "spatial_axis", "precision",
@@ -262,8 +323,10 @@ def get_config(preset: Optional[str] = None, overrides: Optional[List[str]] = No
                 raise ValueError(f"unknown perf mode '{perf}' (choose from {list(_PERF_MODES)})")
         else:
             rest.append(ov)
-    if perf == "measured":
-        raise NotImplementedError("perf=measured (the per-preset execution-layout recipes) is not ported yet (ROADMAP A11)")
+    # the recipe goes in before the dotted overrides, so that a user's key wins
+    recipe = _PERF_MEASURED.get(preset or "", {}) if perf == "measured" else {}
+    if recipe:
+        cfg = deep_merge(cfg, recipe)
     if perf:
         cfg["perf"] = perf
     extra_ok = set()
@@ -271,6 +334,12 @@ def get_config(preset: Optional[str] = None, overrides: Optional[List[str]] = No
         key, was_plus = apply_override(cfg, ov)
         if was_plus:
             extra_ok.add(key)
+    if recipe.get("trainer", {}).get("accumulate_grad_batches") is not None and (cfg.get("module") or {}).get("use_ema"):
+        raise ValueError(
+            f"perf=measured on preset '{preset}' re-batches gradient accumulation, which changes the EMA update "
+            "cadence when module.use_ema=true. Use perf=parity with trainer.fold_accumulation_into_batch=true "
+            "(replays the cadence), or turn EMA off."
+        )
     return resolve(cfg, extra_ok=extra_ok)
 
 

@@ -129,6 +129,19 @@ class DataModule:
         batch is dropped."""
         return self.split("train").batches(self.batch_size, shuffle=True, rng=rng, drop_last=True)
 
+    def train_loader(self, rng: Optional[np.random.Generator] = None, device_put=None):
+        """The batches of :meth:`train_batches`, in the same order for the
+        same ``rng``, gathered by the native loader in a background thread
+        and passed through ``device_put`` there (a
+        :class:`~dyffusion_tpu_torch.data.native_loader.DeviceStager`
+        stages them on the device)."""
+        from dyffusion_tpu_torch.data.native_loader import PrefetchIterator
+
+        return PrefetchIterator(
+            self.split("train").tensors, batch_size=self.batch_size, shuffle=True, rng=rng, drop_last=True,
+            device_put=device_put,
+        )
+
     def _balanced_eval_batch_size(self, n: int) -> int:
         """Minimal-padding eval batch size: the same NUMBER of batches as
         ``eval_batch_size`` would give, but sized so batches differ by at
@@ -163,3 +176,21 @@ class DataModule:
 
     def get_boundary_condition_kwargs(self, batch: Dict[str, np.ndarray], batch_idx: int, split: str) -> Dict[str, Any]:
         return {"t0": 0.0, "dt": 1.0}
+
+
+# the dims of each archive-backed dataset, before any datamodule is built
+_DATASET_DIMS = {
+    "oisstv2": lambda cfg: {
+        "input": 1, "output": 1, "conditional": 0,
+        "spatial": tuple(cfg.get("spatial_shape", (60, 60))),
+    },
+    "navier-stokes": lambda cfg: {"input": 3, "output": 3, "conditional": 2, "spatial": (221, 42)},
+    "spring-mesh": lambda cfg: {"input": 4, "output": 4, "conditional": 1, "spatial": (10, 10)},
+}
+
+
+def get_dims_of_dataset(name: str, cfg: Optional[dict] = None) -> Dict[str, Any]:
+    """{'input', 'output', 'conditional', 'spatial'} of the dataset ``name``."""
+    if name not in _DATASET_DIMS:
+        raise ValueError(f"Unknown dataset '{name}'. Available: {sorted(_DATASET_DIMS)}")
+    return _DATASET_DIMS[name](cfg or {})

@@ -15,6 +15,8 @@ training loss both networks' dropout is live whenever a generator is given.
 """
 from __future__ import annotations
 
+import math
+
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
@@ -98,6 +100,14 @@ class StepMapping:
     @property
     def artificial_interpolation_steps(self) -> Dict[int, float]:
         return {d: i for d, i in self.d_to_i.items() if not float(i).is_integer()}
+
+    def validate(self) -> None:
+        """Check that the tensor mapping agrees with the scalar one at every
+        diffusion step (to 4e-6: the tensor one computes in f32)."""
+        for d, i in self.d_to_i.items():
+            i2 = float(self.to_interpolation_step(torch.tensor(float(d))))
+            if not math.isclose(i, i2, abs_tol=4e-6):
+                raise ValueError(f"step mapping disagrees at d={d}: {i} != {i2}")
 
 
 def parse_sampling_schedule(

@@ -2,7 +2,7 @@
 experiment, engine, train state, trainer; the run registry.
 
 Counterpart of ``dyffusion_tpu/interface.py`` on one device:
-``get_datamodule`` (synthetic and physical-systems data),
+``get_datamodule`` (synthetic, physical-systems and OISSTv2 data),
 ``load_interpolator_from_registry`` (weights and BatchNorm statistics),
 ``build_experiment`` for the ``interpolation`` experiment, for
 ``dyffusion`` (its interpolator loaded from the registry by
@@ -27,7 +27,7 @@ import torch
 from torch import nn
 
 from dyffusion_tpu_torch.config import apply_override
-from dyffusion_tpu_torch.data import DataModule, PhysicalSystemsDataModule, SyntheticDataModule
+from dyffusion_tpu_torch.data import DataModule, OISSTv2DataModule, PhysicalSystemsDataModule, SyntheticDataModule
 from dyffusion_tpu_torch.diffusion import (
     DyffusionConfig,
     DyffusionEngine,
@@ -56,15 +56,18 @@ from dyffusion_tpu_torch.utils.naming import get_run_id
 
 
 def get_datamodule(config: Dict[str, Any]) -> DataModule:
-    """Instantiate the datamodule: ``synthetic``, or ``physical-systems``
-    (Navier-Stokes / spring-mesh archives under ``datamodule.data_dir``)."""
+    """Instantiate the datamodule: ``synthetic``, ``physical-systems``
+    (Navier-Stokes / spring-mesh archives under ``datamodule.data_dir``) or
+    ``oisstv2`` (SST boxes under ``datamodule.data_dir``)."""
     dm_cfg = dict(config["datamodule"])
     name = dm_cfg.pop("name")
     if name == "synthetic":
         return SyntheticDataModule(**dm_cfg)
     if name == "physical-systems":
         return PhysicalSystemsDataModule(**dm_cfg)
-    raise ValueError(f"Unknown or not yet ported datamodule: {name}")
+    if name == "oisstv2":
+        return OISSTv2DataModule(**dm_cfg)
+    raise ValueError(f"Unknown datamodule: {name}")
 
 
 def _experiment_cfg(config: Dict[str, Any]) -> ExperimentConfig:
@@ -313,6 +316,7 @@ def build_trainer(
         log_every_n_steps=tr_cfg.get("log_every_n_steps", 50),
         run_dir=run_dir,
         save_checkpoints=tr_cfg.get("save_checkpoints", True),
+        watch_gradients=tr_cfg.get("watch_gradients", False),
     )
 
 

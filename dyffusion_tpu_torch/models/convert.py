@@ -87,10 +87,7 @@ def unet_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
         "final_conv.weight": _dense_1x1(params["final_conv"]["kernel"]),
         "final_conv.bias": np.asarray(params["final_conv"]["bias"]),
     }
-    if "time_emb" in params:
-        for j, idx in ((0, 1), (1, 3)):
-            out[f"time_emb_mlp.{idx}.weight"] = _linear(params["time_emb"][f"Dense_{j}"]["kernel"])
-            out[f"time_emb_mlp.{idx}.bias"] = np.asarray(params["time_emb"][f"Dense_{j}"]["bias"])
+    _time_emb(out, params)
     for name in ("final_res_block", "mid_block1", "mid_block2"):
         _resblock(out, params[name], name)
     _attn(out, params["mid_attn"], "mid_attn", linear=False)
@@ -121,10 +118,15 @@ def _conv_transpose(w) -> np.ndarray:
 
 
 def _time_emb(out: Dict[str, Any], params: Mapping[str, Any]) -> None:
+    """``time_emb`` (a ``TimeEmbedder``): its two Dense layers, and the
+    learned frequencies of a learned sinusoidal embedding at the reference's
+    key ``time_emb_mlp.0.weights``."""
     if "time_emb" in params:
         for j, idx in ((0, 1), (1, 3)):
             out[f"time_emb_mlp.{idx}.weight"] = _linear(params["time_emb"][f"Dense_{j}"]["kernel"])
             out[f"time_emb_mlp.{idx}.bias"] = np.asarray(params["time_emb"][f"Dense_{j}"]["bias"])
+        if "LearnedSinusoidalPosEmb_0" in params["time_emb"]:
+            out["time_emb_mlp.0.weights"] = np.asarray(params["time_emb"]["LearnedSinusoidalPosEmb_0"]["weights"])
 
 
 def _norm(out: Dict[str, Any], p: Mapping[str, Any], stats: Optional[Mapping[str, Any]], prefix: str) -> None:

@@ -75,14 +75,37 @@ class SinusoidalPosEmb(nn.Module):
         return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
 
 
-class TimeEmbedder(nn.Sequential):
-    """Sinusoidal embedding + Linear -> exact GELU -> Linear. Indexed as the
-    reference's ``time_emb_mlp`` (weights at ``.1`` and ``.3``)."""
+class LearnedSinusoidalPosEmb(nn.Module):
+    """Sinusoidal embedding with learned frequencies ``weights`` (dim/2 of
+    them, drawn from N(0, 1)), computed in f32: [t, sin(2 pi t w),
+    cos(2 pi t w)], dim + 1 features."""
 
-    def __init__(self, time_dim: int, dim: int):
+    def __init__(self, dim: int):
+        super().__init__()
+        if dim % 2:
+            raise ValueError(f"LearnedSinusoidalPosEmb needs an even dim, got {dim}")
+        self.weights = nn.Parameter(torch.randn(dim // 2))
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        t = t.float()[:, None]
+        freqs = t * self.weights.float()[None, :] * (2 * math.pi)
+        return torch.cat([t, torch.sin(freqs), torch.cos(freqs)], dim=-1)
+
+
+class TimeEmbedder(nn.Sequential):
+    """Sinusoidal embedding (fixed, or with ``learned_sinusoidal`` the
+    learned-frequency one of ``learned_sinusoidal_dim``) + Linear -> exact
+    GELU -> Linear. Indexed as the reference's ``time_emb_mlp`` (the learned
+    frequencies at ``.0.weights``, the linears at ``.1`` and ``.3``)."""
+
+    def __init__(self, time_dim: int, dim: int, learned_sinusoidal: bool = False, learned_sinusoidal_dim: int = 16):
+        if learned_sinusoidal:
+            emb, emb_dim = LearnedSinusoidalPosEmb(learned_sinusoidal_dim), learned_sinusoidal_dim + 1
+        else:
+            emb, emb_dim = SinusoidalPosEmb(dim), dim
         super().__init__(
-            SinusoidalPosEmb(dim),
-            PromotingLinear(dim, time_dim),
+            emb,
+            PromotingLinear(emb_dim, time_dim),
             nn.GELU(approximate="none"),
             PromotingLinear(time_dim, time_dim),
         )

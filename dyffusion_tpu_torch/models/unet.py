@@ -135,6 +135,7 @@ class Unet(nn.Module):
         input_dropout: float = 0.0,
         double_conv_layer: bool = True,
         learned_sinusoidal_cond: bool = False,
+        learned_sinusoidal_dim: int = 16,
         outer_sample_mode: Optional[str] = None,
         upsample_dims: Optional[Tuple[int, int]] = None,
         keep_spatial_dims: bool = False,
@@ -145,8 +146,6 @@ class Unet(nn.Module):
     ):
         super().__init__()
         self.remat = bool(remat)
-        if learned_sinusoidal_cond:
-            raise NotImplementedError("learned_sinusoidal_cond is not ported yet")
         self.num_conditional_channels = num_conditional_channels
         self.input_dropout = float(input_dropout)
         self.outer_sample_mode = outer_sample_mode
@@ -160,7 +159,9 @@ class Unet(nn.Module):
             padding=init_kernel_size // 2,
         )
         time_dim = dim * 2 if with_time_emb else None
-        self.time_emb_mlp = TimeEmbedder(time_dim, dim) if with_time_emb else None
+        self.time_emb_mlp = (
+            TimeEmbedder(time_dim, dim, learned_sinusoidal_cond, learned_sinusoidal_dim) if with_time_emb else None
+        )
 
         dims = [init_dim] + [dim * m for m in dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))

@@ -3,12 +3,16 @@
 Counterpart of ``dyffusion_tpu/training/trainer.py`` on one device:
 
 - :func:`make_train_step`: loss, backward, the optimizer step and the EMA,
-  with the ``grad_norm`` and ``zero_grad_frac`` metrics. Metrics stay
-  device tensors; the host reads them only at log points.
+  with the ``grad_norm`` and ``zero_grad_frac`` metrics, and with
+  ``watch_gradients`` each top-level module's gradient norm and log10|g|
+  histogram. Metrics stay device tensors; the host reads them only at log
+  points.
 - :func:`mixed_precision_loss`: ``module.train_dtype=bfloat16`` as a cast at
   the loss boundary (not ``torch.autocast``, which would keep softmaxes and
   norms in f32 and so compute something else than the JAX package).
-- :class:`Trainer`: ``fit`` (epochs, ``max_steps``, log cadence, validation
+- :class:`Trainer`: ``fit`` (the train batches gathered and staged on the
+  device ahead of the step by ``DataModule.train_loader``; epochs,
+  ``max_steps``, log cadence, validation
   cadence, early stopping, the best monitored score, the ``best`` and
   ``last`` checkpoints at each validation, resume by epoch), ``evaluate``
   (the experiment's folded ensemble eval function over a split, CRPS/MSE/SSR
@@ -16,8 +20,7 @@ Counterpart of ``dyffusion_tpu/training/trainer.py`` on one device:
   ``test`` (which saves the per-horizon curves).
 
 Not ported yet: data parallelism (and with it the padding of eval batches
-to the data axis, which off a mesh never pads), ``watch_gradients``, the
-profiler.
+to the data axis, which off a mesh never pads).
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from dyffusion_tpu_torch.data.native_loader import DeviceStager
 from dyffusion_tpu_torch.models.base import MODEL_STATE_UPDATES
 from dyffusion_tpu_torch.training.checkpoint import CheckpointManager
 from dyffusion_tpu_torch.training.state import TrainState
@@ -58,11 +62,43 @@ def mixed_precision_loss(loss_fn: LossFn, model: nn.Module, dtype: torch.dtype =
     return wrapped
 
 
-def make_train_step(loss_fn: LossFn) -> Callable[[TrainState, Dict[str, Any]], Dict]:
+# gradient-histogram bins over log10|g|: [-inf, -12), 28 bins up to 2, [2, inf)
+GRAD_HIST_BINS = 30
+GRAD_HIST_EDGES = [-float("inf")] + list(np.linspace(-12.0, 2.0, GRAD_HIST_BINS - 1)) + [float("inf")]
+
+
+def gradient_watch_metrics(params: Dict[str, nn.Parameter]) -> Dict[str, torch.Tensor]:
+    """Per top-level module of the model (the first part of each weight's
+    name: ``init_conv``, ``downs``, ``mid_block1``, ... in the reference's
+    naming; the JAX package groups by flax's names, ``down0_block1``, ...):
+    ``grads/{module}/norm``, the f32 norm of its gradients, and
+    ``grads/{module}/hist``, the counts of log10(|g| + 1e-30) in the bins of
+    :data:`GRAD_HIST_EDGES` (a bin holds edge_i <= x < edge_i+1), computed
+    on the gradients' device. A weight the loss does not reach counts as
+    zeros."""
+    groups: Dict[str, List[torch.Tensor]] = defaultdict(list)
+    for name, p in params.items():
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        groups[name.split(".")[0]].append(g.detach().reshape(-1).float())
+    out: Dict[str, torch.Tensor] = {}
+    edges = None
+    for module, gs in groups.items():
+        flat = torch.cat(gs)
+        if edges is None:
+            edges = torch.tensor(GRAD_HIST_EDGES, dtype=torch.float32, device=flat.device)
+        out[f"grads/{module}/norm"] = flat.square().sum().sqrt()
+        # torch.histogram has no CUDA version: bucketize + bincount instead
+        bins = torch.bucketize(torch.log10(flat.abs() + 1e-30), edges, right=True) - 1
+        out[f"grads/{module}/hist"] = torch.bincount(bins, minlength=GRAD_HIST_BINS)
+    return out
+
+
+def make_train_step(loss_fn: LossFn, watch_gradients: bool = False) -> Callable[[TrainState, Dict[str, Any]], Dict]:
     """``train_step(state, batch) -> metrics``: gradients of ``loss_fn`` with
     respect to the model's trainable weights, then
     :meth:`TrainState.apply_gradients` with the BatchNorm updates the loss
-    returned under ``MODEL_STATE_UPDATES``. ``state`` is updated in place."""
+    returned under ``MODEL_STATE_UPDATES``. ``state`` is updated in place.
+    ``watch_gradients`` adds :func:`gradient_watch_metrics`."""
 
     def train_step(state: TrainState, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         loss, metrics = loss_fn(None, batch, state.generator)
@@ -77,6 +113,8 @@ def make_train_step(loss_fn: LossFn) -> Callable[[TrainState, Dict[str, Any]], D
             # zero-gradient fraction; a weight the loss does not reach counts as zeros
             n_unreached = n_total - sum(g.numel() for g in grads)
             metrics["zero_grad_frac"] = (sum((g == 0).sum() for g in grads) + n_unreached) / n_total
+            if watch_gradients:
+                metrics.update(gradient_watch_metrics(state.params))
         state.apply_gradients(updates)
         return metrics
 
@@ -124,12 +162,15 @@ class Trainer:
         run_dir: Optional[str] = None,
         save_checkpoints: bool = True,
         monitor_mode: str = "min",
+        watch_gradients: bool = False,
     ):
         self.experiment = experiment
         self.datamodule = datamodule
         self.device = experiment.device
         self.state = state
-        self.train_step = make_train_step(loss_fn)
+        self.train_step = make_train_step(loss_fn, watch_gradients=watch_gradients)
+        # a host batch as tensors on the device, ordered before later work on its stream
+        self._put = DeviceStager(self.device)
         self.eval_fns = eval_fns
         self.max_epochs = max_epochs
         self.max_steps = max_steps
@@ -164,10 +205,6 @@ class Trainer:
         self._load_state_tree(self.ckpt.restore(slot))
         return True
 
-    def _put(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """A host batch as tensors on the device."""
-        return {k: torch.as_tensor(v).to(self.device, non_blocking=True) for k, v in batch.items()}
-
     def fit(self) -> float:
         """Train with periodic validation; returns the best monitored score
         (nan if no validation gave a finite one)."""
@@ -190,17 +227,23 @@ class Trainer:
             t_log, step_at_log = time.time(), step
             if self.max_steps and step >= self.max_steps:
                 break  # a resumed run already at the cap trains no more
-            for batch in self.datamodule.train_batches(rng=self._np_rng):
-                metrics = self.train_step(self.state, self._put(batch))
+            # the loader gathers and stages the next batches while this step runs; the
+            # loop holds its only reference, so a break or a raising step stops its worker
+            for batch in self.datamodule.train_loader(rng=self._np_rng, device_put=self._put):
+                metrics = self.train_step(self.state, batch)
                 loss_parts.append(metrics["loss"])
                 n_batches += 1
                 step += step_units
                 if step % self.log_every_n_steps < step_units:
                     now = time.time()
-                    self.log_fn(
-                        {"train/loss": float(metrics["loss"]), "time/train/step": (now - t_log) / max(step - step_at_log, 1)},
-                        step,
-                    )
+                    log_metrics = {
+                        "train/loss": float(metrics["loss"]),
+                        "time/train/step": (now - t_log) / max(step - step_at_log, 1),
+                    }
+                    for k, v in metrics.items():  # watch_gradients: counts as int lists
+                        if k.startswith("grads/"):
+                            log_metrics[k] = v.cpu().tolist() if v.ndim else float(v)
+                    self.log_fn(log_metrics, step)
                     t_log, step_at_log = time.time(), step
                 if self.max_steps and step >= self.max_steps:
                     done = True

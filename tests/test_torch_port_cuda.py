@@ -633,3 +633,87 @@ def test_fake_layout_is_the_kernels(op, layout):
     assert fake.stride() == real.stride(), (fake.stride(), real.stride())
     if op == "linear_attention_qkv" and layout == "nchw_view":
         assert real.stride(1) == 1  # tokens fastest: out.transpose(1, 2) is a contiguous NCHW tensor
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefetch", [1, 4])
+def test_prefetched_device_batches_equal_host_indexing(prefetch):
+    """The loader's device staging (pinned memory, non_blocking copies on
+    the compute stream, made from the worker thread) over many batches
+    and epochs, each batch read on the device while the stream is busy with
+    other work: every batch equals host indexing, and the stager releases
+    the pinned buffers of completed copies."""
+    _require_cuda()
+    from dyffusion_tpu_torch.data.native_loader import DeviceStager, PrefetchIterator, native_available
+
+    assert native_available()
+    g = np.random.default_rng(0)
+    tensors = {"dynamics": g.normal(size=(203, 8, 60, 60, 1)).astype(np.float32),
+               "condition": g.normal(size=(203, 60, 60, 2)).astype(np.float32)}
+    stager = DeviceStager("cuda")
+    busy = torch.randn(2048, 2048, device="cuda")
+    n = 0
+    for epoch in range(4):
+        loader = PrefetchIterator(tensors, batch_size=16, rng=np.random.default_rng(epoch), device_put=stager,
+                                  prefetch=prefetch)
+        order = np.arange(203)
+        np.random.default_rng(epoch).shuffle(order)
+        for i, batch in enumerate(loader):
+            for _ in range(4):  # device work queued ahead of the batch's readers
+                busy = busy @ busy / 2048
+            sel = order[16 * i:16 * (i + 1)]
+            for k, v in tensors.items():
+                assert batch[k].is_cuda
+                assert torch.equal(batch[k].sum(dim=0).cpu(), torch.from_numpy(v[sel]).cuda().sum(dim=0).cpu())
+                assert torch.equal(batch[k].cpu(), torch.from_numpy(v[sel]))
+            n += 1
+    assert n == 4 * (203 // 16)
+    torch.cuda.synchronize()
+    stager._retire()
+    assert not stager._in_flight
+
+
+@pytest.mark.cuda
+def test_watch_gradients_on_the_gpu_match_the_cpu(deterministic_cudnn, full_f32):
+    """One stage-1 step with watch_gradients, f32, GPU against CPU on the
+    same weights and batch: the module norms within 1e-4, the histograms
+    within a few counts (float-noise gradients below 1e-7 of the norm only
+    in their total)."""
+    _require_cuda()
+    from dyffusion_tpu_torch.config import get_config
+    from dyffusion_tpu_torch.interface import build_trainer
+    from dyffusion_tpu_torch.training.trainer import GRAD_HIST_EDGES
+
+    overrides = ["datamodule.spatial=(16,16)", "datamodule.channels=1", "datamodule.horizon=2",
+                 "datamodule.n_traj=4", "datamodule.n_time=6", "datamodule.batch_size=4", "model.dim=8",
+                 "model.dim_mults=(1,2)", "trainer.watch_gradients=true"]
+    cfg = get_config("synthetic_interpolation", overrides)
+    cpu, gpu = build_trainer(cfg, device="cpu"), build_trainer(cfg, device="cuda")
+    gpu.experiment.model.load_state_dict(cpu.experiment.model.state_dict())
+    batch = next(cpu.datamodule.train_batches(np.random.default_rng(0)))
+    want = cpu.train_step(cpu.state, cpu._put(batch))
+    got = gpu.train_step(gpu.state, gpu._put(batch))
+    keys = sorted(k for k in want if k.startswith("grads/"))
+    assert keys and keys == sorted(k for k in got if k.startswith("grads/"))
+    floor = int(np.searchsorted(GRAD_HIST_EDGES, np.log10(1e-7 * float(want["grad_norm"]))))
+    for k in keys:
+        w, g = want[k], got[k].cpu()
+        if k.endswith("/norm"):
+            np.testing.assert_allclose(float(g), float(w), rtol=1e-4, err_msg=k)
+        else:
+            assert int(g.sum()) == int(w.sum()), k
+            assert int((g[floor:] - w[floor:]).abs().sum()) <= 4, (k, g, w)
+
+
+@pytest.mark.cuda
+def test_learned_sinusoidal_unet_on_the_gpu_matches_the_cpu(deterministic_cudnn, full_f32):
+    _require_cuda()
+    from dyffusion_tpu_torch.models import Unet
+
+    torch.manual_seed(0)
+    model = Unet(dim=8, dim_mults=(1, 2), num_input_channels=2, num_output_channels=2, with_time_emb=True,
+                 learned_sinusoidal_cond=True, learned_sinusoidal_dim=8)
+    x, t = torch.randn(3, 2, 16, 16), torch.tensor([0.0, 1.5, 3.0])
+    want = model(x, time=t)
+    got = model.cuda()(x.cuda(), time=t.cuda()).cpu()
+    _assert_close_to_scale(got, want.detach(), 1e-5)

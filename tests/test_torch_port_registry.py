@@ -30,6 +30,9 @@ PRESETS = ("synthetic_interpolation", "synthetic_dyffusion") + tuple(
     f"{dataset}_{method}"
     for dataset in ("synthetic", "navier_stokes", "spring_mesh")
     for method in ("time_conditioned", "simultaneous", "ddpm", "ddpm_v2", "mcvd")
+) + tuple(
+    f"oisst_pacific_{method}"
+    for method in ("interpolation", "dyffusion", "time_conditioned", "simultaneous", "ddpm", "ddpm_v2", "mcvd")
 )
 TINY = [
     "datamodule.spatial=(8,8)", "datamodule.channels=1", "datamodule.horizon=3",
@@ -55,6 +58,7 @@ OVERRIDES = {
     "jax_top_level_keys": ["debug=false", "jax_debug_nans=false", "matmul_precision=high",
                            "torch_matmul_precision=high", "use_wandb=false", "perf=parity"],
     "debug": ["debug=true"],
+    "perf_measured": ["perf=measured"],
 }
 
 
@@ -79,8 +83,27 @@ def test_run_id_keeps_science_and_drops_volatile_keys():
 
 
 def test_perf_modes():
-    with pytest.raises(NotImplementedError, match="A11"):
-        get_config("synthetic_dyffusion", ["perf=measured"])
+    """perf=measured: the JAX package's recipes, applied before the dotted
+    overrides (a user's key wins), keeping the run id of the parity layout;
+    with the EMA on, the re-batching stage-2 recipe is refused as the JAX
+    package refuses it; an unknown mode is an error."""
+    for preset, overrides in (("oisst_pacific_interpolation", []), ("oisst_pacific_dyffusion", []),
+                              ("oisst_pacific_dyffusion", ["datamodule.batch_size=96"]),
+                              ("synthetic_dyffusion", ["perf=parity", "perf=measured"])):
+        want = jax_config.get_config(preset, overrides + ["perf=measured"])
+        got = get_config(preset, overrides + ["perf=measured"])
+        assert got == want
+        assert get_run_id(got) == jax_naming.get_run_id(want)
+    measured = get_config("oisst_pacific_dyffusion", ["perf=measured"])
+    assert (measured["datamodule"]["batch_size"], measured["trainer"]["accumulate_grad_batches"],
+            measured["model"]["remat"]) == (128, 2, True)
+    assert get_run_id(measured) == get_run_id(get_config("oisst_pacific_dyffusion"))
+    assert get_config("oisst_pacific_interpolation", ["perf=measured"])["trainer"]["fold_accumulation_into_batch"]
+    assert get_config("oisst_pacific_dyffusion", ["perf=measured", "datamodule.batch_size=96"])[
+        "datamodule"]["batch_size"] == 96
+    for mod in (jax_config, None):
+        with pytest.raises(ValueError, match="EMA update cadence"):
+            (mod.get_config if mod else get_config)("oisst_pacific_dyffusion", ["perf=measured", "module.use_ema=true"])
     with pytest.raises(ValueError, match="unknown perf mode"):
         get_config("synthetic_dyffusion", ["perf=fast"])
 
