@@ -143,10 +143,38 @@ non-zero:
    card; prints wall times, steps/s of both recipes, the request latency
    (and that of the same run served with ``forward_conditioning=data``,
    whose forecaster stays in bf16) and ``device_memory_report()``.
+18. members: ``[slice]``'s workload served with
+   ``module.fold_members_into_batch=false`` (20 members, one B-row sampler
+   each, on generators of their own) beside the folded layout of the same
+   weights: dropout off, the members of a 2-member unfolded request (each
+   member the same computation) equal the folded answer (in f32 at 1e-3
+   of max; in bf16 at 1e-2 of max against the folded layout at one member,
+   the same 6-row forwards; negative control: the folded answer shifted by
+   a row); dropout on, members differ, a 2-member request repeats the
+   first two members of the full request bit for bit, and another seed
+   differs; B1 launches 7,560 times per full request.
+   Prints latency, frames/s and peak memory of both layouts.
+19. ddp: data parallelism. A one-rank NCCL group in this process runs the
+   gradient all-reduce, the metric-sum all-reduce and the cross-rank
+   BatchNorm on the card; then two gloo ranks sharing cuda:0 (``chip_smoke.py
+   --ddp-rank``, started with the launcher's environment) run stage 1,
+   stage 2 and ``mode=test`` through ``train.main`` at SST width with
+   ``trainer.devices=2`` (B64 global, f32, TF32 off, dropout off, stage 2
+   at lr 1e-4, an odd last eval batch) and one spring-mesh step, against
+   the same with ``trainer.devices=1`` in this process and ``mode=test``
+   through the CLI's own spawn of two ranks: losses, weights, val and test metrics, B1
+   launches per rank, the spring step's loss, gradients and running
+   statistics (negative control: per-rank statistics). One-rank
+   witnesses run beside the ranks (``--ddp-witness``): the rows permuted
+   (the drift that the order of the sums alone makes, held to the same
+   limit) and a planted fault (stage 2 on half the rows from step 2,
+   which must exceed it). Prints the wall times; two ranks on one card
+   measure no scaling.
 
 Each path (slice, train, fit, each cli command, ns, spring, each baseline
-command and request, ncsnpp, each export request, each oisst command) sets
-the launch counts to 0 before it runs and reads them after. The line before
+command and request, ncsnpp, each export request, each oisst command, the
+unfolded members, ddp) sets the launch counts to 0 before it runs and reads
+them after. The line before
 the last is the kernel summary as JSON
 (B1's top-level launches and times are the train path's; ``by_path`` has
 each path's count); the last line is ``{"ok": true, "device": {...}}``.
@@ -182,6 +210,11 @@ with no ``ok`` line.
     python3 chip_smoke.py --oisst
 
 runs phases 1, 2 and 17 (the OISST path) and stops, with no ``ok`` line.
+
+    python3 chip_smoke.py --members
+    python3 chip_smoke.py --ddp
+
+run phases 1, 2 and 18 (or 19) and stop, with no ``ok`` line.
 
     python3 chip_smoke.py --kernels
 
@@ -412,7 +445,7 @@ def phase_kernel():
              (250, 3600), (500, 3600), (250, 900), (500, 900), (250, 225), (500, 225))
     controls = ((120, 3600), (240, 900), (64, 3600), (300, 3600), (256, 3600))
     max_err = 0.0
-    for B, N in serve + train + fit + cli + oisst + ((3, 7),):
+    for B, N in serve + train + fit + cli + oisst + MEMBERS_B1 + DDP_B1 + ((3, 7),):
         for dtype in (torch.bfloat16, torch.float32):
             for strided in (False, True):
                 qkv = _qkv(B, N, dtype, strided, gen)
@@ -2568,18 +2601,671 @@ def phase_oisst(card):
     return sum(got.values()), per_request
 
 
+def _b1_path_check(label, shapes, dtype):
+    """B1 against its plain version at a path's (rows, tokens) shapes, as
+    the ``Unet`` calls it (an NCHW view), with the negative controls at the
+    first shape."""
+    import torch
+
+    from dyffusion_tpu_torch.ops import linear_attention as la
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for i, (B, N) in enumerate(shapes):
+        qkv = _qkv(B, N, dtype, True, gen)
+        got = la.linear_attention_qkv(qkv, 4, 32, 32**-0.5)
+        _sync()
+        want = la.linear_attention_qkv_plain(qkv, 4, 32, 32**-0.5)
+        dt = str(dtype)[6:]
+        _check_vs_plain(f"[{label}] B1 B={B} N={N} {dt}", got, want, REL_TOL[dt], negative_controls=i == 0)
+
+
+# the (rows, tokens) of B1's calls on the unfolded path (6 rows per member,
+# 12 in the 2B interpolator call) and on [ddp]'s (32-row train steps;
+# eval shards of 3 rows x 20 members: 60 forecaster, 120 interpolator rows)
+MEMBERS_B1 = tuple((B, N) for B in (6, 12) for N in (3600, 900, 225))
+DDP_B1 = tuple((B, N) for B in (32, 60, 120) for N in (3600, 900, 225))
+
+
+# [members]: the SST serving slice with the members unfolded (one B-row
+# sampler per member, each on its own generator), against the folded layout
+# of the same weights in the same process.
+def phase_members(card):
+    """The unfolded member layout at SST width (``[slice]``'s workload, 20
+    members x eval batch 6) with ``module.fold_members_into_batch=false``
+    beside the folded layout of the same seeded weights, in this process.
+    Dropout off (``generator=None``, so every unfolded member runs the same
+    computation and two members stand for all): in f32 (TF32 off) every
+    member of a 2-member unfolded request equals the 20-member folded
+    answer within 1e-3 of max|folded| (63 network forwards at 6 rows
+    against 120; the folded layout at 10 members against 20 is printed
+    beside it); in bf16 every member of a 2-member unfolded request equals
+    the folded answer at 1 member (the
+    same 6-row forwards: bf16 rounding depends on the batch, and the
+    sampler carries it to a fifth of the output between 6 and 120 rows)
+    within the repo's bf16 tolerance, 1e-2 of max|folded|. The folded
+    answer shifted by one row (the negative control) fails both, and the
+    members of each layout are bit for bit equal. Dropout on, bf16,
+    through ``build_experiment_predict_fn``: a full request (timed; its
+    members differ), then 2-member requests at its seed, whose members
+    must be the first two of the 20-member answer bit for bit (a seed
+    repeats, and a member's answer does not depend on the ensemble size),
+    and at another seed (they differ). B1 launches exactly 20 x 378 =
+    7,560 times per full unfolded request (its count set to 0 before the
+    unfolded path).
+    Prints latency, frames/s and peak memory of both layouts. Returns the
+    unfolded path's B1 launches and the per-request count."""
+    import numpy as np
+    import torch
+
+    from dyffusion_tpu_torch.models.modules import LinearAttention
+    from dyffusion_tpu_torch.ops import linear_attention as la
+    from dyffusion_tpu_torch.serving import build_experiment_predict_fn
+    from dyffusion_tpu_torch.utils.workloads import sst_overrides
+
+    _b1_path_check("members", MEMBERS_B1, torch.bfloat16)
+    _b1_path_check("members", MEMBERS_B1[:1], torch.float32)
+    t0 = time.perf_counter()
+    base = ["datamodule.n_traj=5", "datamodule.n_time=13", "datamodule.batch_size=6", "datamodule.eval_batch_size=6",
+            "trainer.save_checkpoints=False"]
+    dtypes = {"f32": [], "bf16": ["module.eval_dtype=bfloat16"]}
+    folded, unfolded = "module.fold_members_into_batch=True", "module.fold_members_into_batch=False"
+    layouts = {"folded": [folded], "folded, 10 members": [folded, "module.num_predictions=10"],
+               "folded, 1 member": [folded, "module.num_predictions=1"], "unfolded": [unfolded],
+               "unfolded, 2 members": [unfolded, "module.num_predictions=2"]}
+    variants = [("f32", "folded"), ("f32", "folded, 10 members"), ("f32", "unfolded, 2 members"), ("bf16", "folded"),
+                ("bf16", "folded, 1 member"), ("bf16", "unfolded"), ("bf16", "unfolded, 2 members")]
+    built = {(dt, lay): _build_slice(sst_overrides(base + dtypes[dt] + layouts[lay]), "cuda") for dt, lay in variants}
+    exp, _, dm = built[("bf16", "unfolded")]
+    batch = next(dm.predict_batches())
+    n_members, B, h = exp.cfg.num_predictions, batch["dynamics"].shape[0], exp.cfg.horizon
+    n_attn = sum(isinstance(mod, LinearAttention) for mod in exp.model.modules())
+    per_member = n_attn * (2 * len(exp.engine._steps.s) + 1)
+    per_request = n_members * per_member
+    print(f"[members] {len(built)} slices built in {time.perf_counter() - t0:.1f} s; {n_members} members x batch {B}, "
+          f"B1 {per_member} per member")
+
+    def stacked(out):
+        return torch.stack([out[k] for k in sorted(out, key=lambda k: (len(k), k)) if k.endswith("_preds")], 2)
+
+    def request(fn, *args):
+        before = la.launches
+        _sync()
+        t = time.perf_counter()
+        out = fn(*args)
+        _sync()
+        return out, time.perf_counter() - t, la.launches - before
+
+    quiet = {}
+
+    def quiet_request(key):  # dropout off
+        quiet[key], _, n = request(lambda: stacked(built[key][1]["predict"](batch, None, None)))
+        return n
+
+    def served(layout, seeds):  # dropout on, bf16, through the serving entry point
+        exp_l, eval_fns, dm_l = built[("bf16", layout)]
+        predict = build_experiment_predict_fn(exp_l, eval_fns, dm_l, None)[0]
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        runs = [request(predict, batch, seed) for seed in seeds]
+        return runs, torch.cuda.max_memory_allocated() - resident  # peak above the slices' weights
+
+    # the folded requests first: the unfolded path's count starts at 0 after them
+    counts, latencies, peaks = {"folded": [quiet_request(("f32", "folded"))]}, {}, {}
+    quiet_request(("f32", "folded, 10 members"))
+    quiet_request(("bf16", "folded, 1 member"))
+    runs, peaks["folded"] = served("folded", (SEED, SEED, SEED + 1))
+    latencies["folded"], counts["folded"] = [r[1] for r in runs], counts["folded"] + [r[2] for r in runs]
+    la.reset_launches()
+    counts["unfolded"] = [quiet_request((dt, "unfolded, 2 members")) for dt in ("f32", "bf16")]
+    runs, peaks["unfolded"] = served("unfolded", (SEED,))
+    latencies["unfolded"], counts["unfolded"] = [r[1] for r in runs], counts["unfolded"] + [r[2] for r in runs]
+    [(a, _, _)] = runs
+    runs, _ = served("unfolded, 2 members", (SEED, SEED + 1))
+    (two, _, _), (other, _, _) = runs
+    counts["unfolded"] += [r[2] for r in runs]
+    launches = la.launches
+
+    for key, q in quiet.items():
+        assert bool(torch.isfinite(q).all()) and (q == q[:1]).all(), f"{key}: dropout-off members differ"
+    assert quiet[("f32", "unfolded, 2 members")].shape == (2, B, h) + tuple(batch["dynamics"].shape[2:])
+    ten = float((quiet[("f32", "folded, 10 members")] - quiet[("f32", "folded")][:10]).abs().max())
+    for dt, (unf, fold), tol in (("f32", ("unfolded, 2 members", "folded"), MEMBERS_F32_TOL),
+                                 ("bf16", ("unfolded, 2 members", "folded, 1 member"), MEMBERS_BF16_TOL)):
+        want, got = quiet[(dt, fold)][:1], quiet[(dt, unf)]  # the folded members are equal (checked above)
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        control = float((got - want.roll(1, dims=1)).abs().max())
+        note = (f"folded at 10 members vs 20 {ten:.3e}" if dt == "f32" else
+                f"the same 6-row forwards{', bit for bit' if err == 0 else ''}")
+        print(f"[members] dropout off, {dt}: {unf} vs {fold} max abs err {err:.3e} of max {scale:.3f} (limit "
+              f"{tol * scale:.3e}; {note}); negative control (folded shifted by a row) {control:.3e}")
+        assert err <= tol * scale, f"an unfolded member disagrees with the folded answer (dropout off, {dt})"
+        assert control > tol * scale, f"the negative control passed: the {dt} member check does not bite"
+    want = [2 * per_member, 2 * per_member, per_request, 2 * per_member, 2 * per_member]
+    assert counts["unfolded"] == want, f"B1 per unfolded request {counts['unfolded']} != {want}"
+    assert launches == sum(want), (launches, sum(want))
+    assert all(bool(torch.isfinite(x).all()) for x in (a, other, two)), "non-finite predictions"
+    assert torch.equal(two, a[:2]), "a seed's first two members did not repeat bit for bit in a 2-member request"
+    spread, diff = float(a.std(dim=0).mean()), float((two - other).abs().max())
+    print(f"[members] dropout on, bf16: member spread {spread:.4f}; seed {SEED} at 2 members repeats the first two of "
+          f"20 bit for bit; seeds {SEED} and {SEED + 1} at 2 members differ by {diff:.3e}")
+    assert spread > 0 and diff > 0.1, "members or seeds do not differ"
+    frames = n_members * B * h
+    for layout in ("folded", "unfolded"):
+        lat = float(np.mean(latencies[layout]))
+        print(f"[members] {layout}, bf16, dropout on: requests {[round(x, 4) for x in latencies[layout]]} s; latency "
+              f"{lat:.4f} s, {frames / lat:.1f} frames/s, peak memory above the resident weights "
+              f"{peaks[layout] / 2**30:.3f} GiB; B1 per request {counts[layout]} (dropout off: f32"
+              f"{' and bf16 at 2 members' if layout == 'unfolded' else ''}; then dropout on"
+              f"{', and at 2 members at two seeds' if layout == 'unfolded' else ''}); on {card}")
+    print(f"[members] unfolded / folded: latency {np.mean(latencies['unfolded']) / np.mean(latencies['folded']):.2f}x, "
+          f"peak memory {peaks['unfolded'] / peaks['folded']:.3f}x")
+    return launches, per_request
+
+
+# [ddp]: data parallelism. The NCCL collectives in this process (a group of
+# one rank), then two gloo ranks sharing cuda:0 through the CLI against one
+# rank at the same global batch.
+MEMBERS_F32_TOL = 1e-3  # relative to max|folded|: 63 f32 forwards at 6 rows against 120
+MEMBERS_BF16_TOL = 1e-2  # relative to max|folded|: the repo's bf16 tolerance ([export], the kernels)
+
+DDP_STEPS = 8
+DDP_BATCH = 64  # the global train batch
+# stage 2's learning rate: at the preset's 3e-4 this randomly initialised stage 2
+# oscillates and carries any rounding difference (the order of the batch's sums)
+# to 5e-3 of its val metrics in 8 steps; at 1e-4 its losses fall steadily
+DDP_STAGE2_LR = 1e-4
+DDP_TIMEOUT_S = 600
+# relative: the first step's losses; every later comparison, between the order-only drift
+# (the permuted witness, two ranks: up to 1.3e-3) and the planted fault (from 3.8e-2)
+DDP_FIRST_TOL, DDP_TOL = 1e-5, 1e-2
+
+
+def _ddp_commands(reg, devices):
+    from dyffusion_tpu_torch.config import get_config
+    from dyffusion_tpu_torch.utils.naming import get_run_id
+    from dyffusion_tpu_torch.utils.workloads import sst_overrides
+
+    # 5 trajectories of 30 frames: 69 train rows (one global batch of 64 per
+    # epoch), 23 val and test rows (eval batches 6, 6, 6, 5: the last one
+    # odd, so two ranks pad it to 6); dropout off, f32, TF32 off
+    common = sst_overrides([
+        "datamodule.n_traj=5", "datamodule.n_time=30", f"datamodule.batch_size={DDP_BATCH // devices}",
+        "datamodule.eval_batch_size=6", "model.block_dropout=0", "model.attn_dropout=0",
+        "module.num_predictions_test=10", "trainer.val_every_n_epochs=100", "trainer.log_every_n_steps=1",
+        f"trainer.max_steps={DDP_STEPS}", "matmul_precision=highest", f"trainer.devices={devices}",
+        f"registry_dir={reg}",
+    ])
+    id1 = get_run_id(get_config("synthetic_interpolation", common))
+    stage2 = [f"diffusion.interpolator_run_id={id1}", f"module.optimizer.lr={DDP_STAGE2_LR}", *common]
+    id2 = get_run_id(get_config("synthetic_dyffusion", stage2))
+    return [("stage 1", ["experiment=synthetic_interpolation", *common]),
+            ("stage 2", ["experiment=synthetic_dyffusion", *stage2]),
+            ("mode=test", ["mode=test", f"run_id={id2}", f"registry_dir={reg}"])], id1, id2
+
+
+def _spring_config(data_dir, batch, devices):
+    from dyffusion_tpu_torch.config import get_config
+
+    return get_config("spring_mesh_interpolation", [
+        f"datamodule.data_dir={data_dir}", f"datamodule.batch_size={batch}", "model.dropout=0",
+        "matmul_precision=highest", f"trainer.devices={devices}", "trainer.save_checkpoints=False"])
+
+
+def _spring_step(config, rank=0, world=1):
+    """One stage-1 spring-mesh train step (``SimpleConvNet`` with BatchNorm)
+    through ``Trainer.train_step`` on this rank's rows of the first global
+    batch: the loss, the gradients the optimizer received and the running
+    statistics after the step, on the host."""
+    import numpy as np
+    import torch
+
+    from dyffusion_tpu_torch.interface import build_trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    trainer = build_trainer(config, device="cuda")
+    n = trainer.datamodule.batch_size // world
+    batch = next(iter(trainer.datamodule.train_loader(
+        rng=np.random.default_rng(SEED), device_put=trainer._put, rows=slice(rank * n, (rank + 1) * n))))
+    state, grads = trainer.state, {}
+    apply = state.apply_gradients
+
+    def capture(updates=None):
+        grads.update({k: p.grad.detach().cpu().clone() for k, p in state.params.items()})
+        return apply(updates)
+
+    state.apply_gradients = capture
+    metrics = trainer.train_step(state, batch)
+    stats = {k: v.cpu().clone() for k, v in trainer.experiment.model.state_dict().items() if "running" in k}
+    return {"loss": float(metrics["loss"]), "grads": grads, "stats": stats}
+
+
+def ddp_rank_main(work):
+    """One rank of ``[ddp]``'s two-rank run (started by ``phase_ddp`` with
+    the launcher's environment): the three CLI commands through
+    ``train.main``, each with its B1 launches and wall time, then the spring
+    step; results in ``work``."""
+    import torch
+
+    from dyffusion_tpu_torch import train
+    from dyffusion_tpu_torch.ops import linear_attention as la
+    from dyffusion_tpu_torch.parallel import distributed
+
+    with open(os.path.join(work, "commands.json")) as f:
+        spec = json.load(f)
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    out = {}
+    for name, argv in spec["commands"]:
+        la.reset_launches()
+        t = time.perf_counter()
+        value = train.main(argv)
+        _sync()
+        out[name] = {"launches": la.launches, "seconds": time.perf_counter() - t, "value": value}
+    spring = _spring_step(_spring_config(spec["spring"], DDP_BATCH // world, world), rank, world)
+    torch.save(spring, os.path.join(work, f"spring{rank}.pt"))
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump({"commands": out, "device": str(torch.cuda.current_device()),
+                   "backend": distributed.backend()}, f)
+    distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+
+# [ddp]'s two one-rank witnesses at the global batch, one after the other
+# in a process of their own beside the two ranks: "permuted" trains both
+# stages on the rows of every batch permuted, each row keeping its own
+# draws, so that only the order of the batch's sums changes (the drift that
+# order alone makes); "fault" then trains stage 2 again from the same stage
+# 1, on the first half of the rows alone from its second step on, with the
+# global batch's draws (rank 0 skipping the gradient all-reduce: a planted
+# data-parallel fault that starts after step 1).
+DDP_WITNESSES = ("permuted", "fault")
+
+
+def _witness_train_step(kind, make):
+    """``make`` (``make_train_step``) with the loss of ``kind`` (see
+    :data:`DDP_WITNESSES`)."""
+    import numpy as np
+    import torch
+
+    from dyffusion_tpu_torch.utils import rng
+
+    draws = (rng.row_randint, rng.row_randn)
+
+    def rows(batch, n, idx):
+        return {k: v[idx] if torch.is_tensor(v) and v.ndim and v.shape[0] == n else v for k, v in batch.items()}
+
+    def make_train_step(loss_fn, watch_gradients=False):
+        steps = [0]
+
+        def loss(params, batch, generator):
+            steps[0] += 1
+            n = int(batch["dynamics"].shape[0])
+            device = batch["dynamics"].device
+            if kind == "fault":
+                if steps[0] == 1:
+                    return loss_fn(params, batch, generator)
+                with rng.row_shard(generator, n, 0):
+                    return loss_fn(params, rows(batch, n, torch.arange(n // 2, device=device)), generator)
+            idx = torch.from_numpy(np.random.default_rng(SEED).permutation(n)).to(device)
+            rng.row_randint = lambda *a, **k: draws[0](*a, **k)[idx]
+            rng.row_randn = lambda *a, **k: draws[1](*a, **k)[idx]
+            try:
+                return loss_fn(params, rows(batch, n, idx), generator)
+            finally:
+                rng.row_randint, rng.row_randn = draws
+
+        return make(loss, watch_gradients)
+
+    return make_train_step
+
+
+def ddp_witness_main(work):
+    """``[ddp]``'s witnesses (:data:`DDP_WITNESSES`) through ``train.main``
+    at the global batch on one rank: the permuted stage 1 and stage 2 in
+    ``work/registry_permuted``, then the fault's stage 2 from a copy of that
+    stage 1 in ``work/registry_fault``."""
+    import shutil
+
+    from dyffusion_tpu_torch import train
+    from dyffusion_tpu_torch.training import trainer as trainer_mod
+
+    make = trainer_mod.make_train_step
+    regs = {kind: os.path.join(work, f"registry_{kind}") for kind in DDP_WITNESSES}
+    commands, id1, _ = _ddp_commands(regs["permuted"], 1)
+    try:
+        trainer_mod.make_train_step = _witness_train_step("permuted", make)
+        for _, argv in commands[:2]:
+            train.main(argv)
+        shutil.copytree(os.path.join(regs["permuted"], id1), os.path.join(regs["fault"], id1))
+        trainer_mod.make_train_step = _witness_train_step("fault", make)
+        train.main(_ddp_commands(regs["fault"], 1)[0][1][1])
+    finally:
+        trainer_mod.make_train_step = make
+    return 0
+
+def _max_rel(got, want):
+    """max |got - want| / max |want| over a dict of tensors, each tensor
+    measured against the larger of its own largest |value| and 0.1 of the
+    largest of all (gradients of a conv bias in front of a norm are float
+    noise)."""
+    top = max(float(w.abs().max()) for w in want.values())
+    return max(float((got[k] - w).abs().max()) / max(float(w.abs().max()), 0.1 * top, 1e-30) for k, w in want.items())
+
+
+def _ddp_nccl():
+    """A one-rank NCCL group in this process: the gradient all-reduce, the
+    metric-sum all-reduce and the cross-rank BatchNorm on the card."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from dyffusion_tpu_torch.models.base import BatchNorm2d
+    from dyffusion_tpu_torch.parallel import distributed
+    from dyffusion_tpu_torch.training.trainer import metric_sums
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((64, 64, 10, 10), generator=gen, device="cuda") * 2 + 1
+    cot = torch.randn(x.shape, generator=gen, device="cuda")
+
+    def batch_norm():
+        bn = BatchNorm2d(64).cuda()
+        with torch.no_grad():
+            bn.weight.copy_(torch.rand(64, generator=gen, device="cuda") + 0.5)
+            bn.bias.normal_(generator=gen)
+        xs, stats = x.clone().requires_grad_(True), {}
+        (bn(xs, stats) * cot).sum().backward()
+        mean, var, _ = stats[bn]
+        return {"y": bn(x, {}).detach(), "dx": xs.grad, "dweight": bn.weight.grad, "dbias": bn.bias.grad,
+                "mean": mean, "var": var}
+
+    plain = batch_norm()
+    gen.manual_seed(SEED + 1)
+    preds = torch.randn((20, 5, 60, 60, 1), generator=gen, device="cuda")
+    targets = torch.randn((5, 60, 60, 1), generator=gen, device="cuda")
+    sums = metric_sums(preds, targets, torch.arange(5, device="cuda") < 4)
+    weights = [torch.nn.Parameter(torch.randn(1000, generator=gen, device="cuda")) for _ in range(3)]
+    (weights[0].square().sum() + weights[1].sum()).backward()  # weights[2] is not reached: grad None
+    before = [w.grad.clone() for w in weights[:2]]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1)
+    try:
+        assert distributed.backend() == "nccl" and distributed.collective_device().type == "cuda"
+        gen.manual_seed(SEED)
+        x = torch.randn((64, 64, 10, 10), generator=gen, device="cuda") * 2 + 1
+        cot = torch.randn(x.shape, generator=gen, device="cuda")
+        grouped = batch_norm()  # the global-statistics path through an autograd all_reduce
+        distributed.all_reduce_gradients(weights, bucket_elements=1500)
+        flat = distributed.all_reduce_sum(torch.stack([sums[k] for k in ("n", "sq", "var", "crps")]))
+    finally:
+        dist.destroy_process_group()
+    bn_err = _max_rel(grouped, plain)
+    control = _max_rel({**plain, "y": plain["y"] * 1.001}, plain)
+    print(f"[ddp] NCCL, one rank: BatchNorm through the group vs cuDNN's batch statistics, max rel err {bn_err:.3e} "
+          f"(limit 1e-4; control 0.1% off: {control:.3e}); gradient all-reduce {[float((w.grad - b).abs().max()) for w, b in zip(weights, before)]} "
+          f"unreached grad {float(weights[2].grad.abs().max())}; metric sums {flat.tolist()}")
+    assert bn_err <= 1e-4 < control, "the cross-rank BatchNorm disagrees on the card"
+    assert all(torch.equal(w.grad, b) for w, b in zip(weights, before)) and torch.equal(
+        weights[2].grad, torch.zeros_like(weights[2])), "the NCCL gradient all-reduce changed a one-rank gradient"
+    assert np.allclose(flat.tolist(), [float(sums[k]) for k in ("n", "sq", "var", "crps")], rtol=0, atol=0)
+
+
+
+def _ddp_disagreement(reg, ref, run_id, init):
+    """A run's disagreement with the same run id in the registry ``ref``:
+    the first step's loss and the worst step's (relative), the worst val
+    metric (relative; not the SSR, not frames/s), and the relative L2 of
+    the difference of the final weights (and EMA) to the change ``ref``'s
+    made from ``init``. Returns it and (the relative loss differences,
+    ``ref``'s losses)."""
+    import torch
+
+    from dyffusion_tpu_torch.utils import registry_api
+
+    recs = {w: registry_api.get_run_metrics(r, run_id) for w, r in (("run", reg), ("ref", ref))}
+    losses = {w: [r["train/loss"] for r in recs[w] if "train/loss" in r] for w in recs}
+    assert len(losses["run"]) == len(losses["ref"]) == DDP_STEPS, losses
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["run"], losses["ref"])]
+    val = {w: [r for r in recs[w] if "val/crps" in r][-1] for w in recs}
+    out = {"first loss": rel[0], "loss": max(rel), "val": max(
+        abs(val["run"][k] - v) / max(abs(v), 1e-6) for k, v in val["ref"].items()
+        if k.startswith("val/") and "frames_per_sec" not in k and not k.endswith("ssr"))}
+    state = {w: torch.load(os.path.join(r, run_id, "last", "state.pt"), weights_only=True)
+             for w, r in (("run", reg), ("ref", ref))}
+    for part in ("model", "ema"):
+        if state["ref"][part] is None:
+            continue
+        keys = [k for k, v in state["ref"][part].items() if v.is_floating_point() and k in init]
+        num = sum(float(((state["run"][part][k] - state["ref"][part][k]) ** 2).sum()) for k in keys)
+        den = sum(float(((state["ref"][part][k] - init[k]) ** 2).sum()) for k in keys)
+        out[f"{part} (rel L2 of the change)"] = (num / den) ** 0.5
+    return out, (rel, losses["ref"])
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+
+def _ddp_start(work, name, argv, env=None):
+    """``python3 argv`` from the repo's root, its output in ``work/{name}.log``;
+    returns (process, log, a thread that waits for it and keeps its end time
+    as ``thread.end``)."""
+    import threading
+
+    log = open(os.path.join(work, f"{name}.log"), "w")
+    p = subprocess.Popen([sys.executable, *argv], stdout=log, stderr=subprocess.STDOUT, env=env,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def wait():
+        p.wait()
+        watcher.end = time.perf_counter()
+
+    watcher = threading.Thread(target=wait, daemon=True)
+    watcher.start()
+    return p, log, watcher
+
+
+def _ddp_finish(work, procs, t):
+    """Wait for ``procs`` (name -> :func:`_ddp_start`'s) within
+    :data:`DDP_TIMEOUT_S` of ``t``, kill any left, print the log of any that
+    failed and fail; returns each one's seconds from ``t`` to its end."""
+    codes = {}
+    try:
+        for name, (p, _, watcher) in procs.items():
+            codes[name] = p.wait(timeout=max(1.0, DDP_TIMEOUT_S - (time.perf_counter() - t)))
+            watcher.join()
+    finally:
+        for p, log, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    for name, code in codes.items():
+        if code != 0:
+            with open(os.path.join(work, f"{name}.log")) as f:
+                print(f.read()[-3000:])
+    assert all(c == 0 for c in codes.values()), f"[ddp] processes exited with {codes}"
+    return {name: watcher.end - t for name, (_, _, watcher) in procs.items()}
+
+def phase_ddp(card):
+    """Data parallelism on the card. 1. NCCL: :func:`_ddp_nccl`. 2. Two
+    gloo ranks sharing cuda:0 (this process starts them with the launcher's
+    environment, ``RANK``/``WORLD_SIZE``...; each runs ``chip_smoke.py
+    --ddp-rank``): ``train.main`` for ``synthetic_interpolation``, then
+    ``synthetic_dyffusion`` from the registry by run id, at SST width with
+    ``trainer.devices=2`` (B64 global, 32 rows a rank, 8 steps a stage, f32,
+    TF32 off, dropout off, stage 2 at lr 1e-4), then ``mode=test`` on the
+    two ranks, and one spring-mesh ``SimpleConvNet`` step. Beside them, the two one-rank
+    witnesses of :data:`DDP_WITNESSES` in one process (``chip_smoke.py
+    --ddp-witness``). 3. The same commands with ``trainer.devices=1`` at B64
+    in this process, and beside them ``python3 -m dyffusion_tpu_torch.train
+    mode=test`` of the two-rank run, which spawns its two ranks itself.
+    Checks: the first step's loss of each stage within 1e-5 relative
+    (the same weights and rows; the sums' order differs), every step's
+    loss, the final weights (relative L2 of their change), the val metrics
+    and test/crps within 1e-2 of one rank's, for two ranks and for the
+    permuted witness (the order of the sums alone: stage 2 carries its
+    rounding on), while the planted fault's stage-2 loss, val metrics and
+    weights must each read above 1e-2; B1 launches per rank per command are
+    what 32-row steps and 3-row eval shards imply (the one-rank counts);
+    the spring step's loss, gradients and running statistics on two ranks
+    equal one rank's at the global batch (1e-4), and rank 0's rows with
+    their own statistics (the negative control) do not. Two ranks on one
+    card measure no scaling: the wall times are printed, not compared (the
+    witnesses share the card with the two ranks, the CLI's ranks with the
+    one-rank commands).
+    Returns the two-rank path's B1 launches (both ranks, all commands)."""
+    import numpy as np
+    import torch
+
+    from dyffusion_tpu_torch import train
+    from dyffusion_tpu_torch.interface import build_trainer
+    from dyffusion_tpu_torch.models.modules import LinearAttention
+    from dyffusion_tpu_torch.ops import linear_attention as la
+    from dyffusion_tpu_torch.utils import registry_api
+
+    _b1_path_check("ddp", DDP_B1, torch.float32)
+    _ddp_nccl()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_") as work:
+        data = os.path.join(work, "spring")
+        _physical_archive(data, "spring_mesh")
+        regs = {w: os.path.join(work, f"registry{w}") for w in (1, 2)}
+        regs.update({kind: os.path.join(work, f"registry_{kind}") for kind in DDP_WITNESSES})
+        cmds = {w: _ddp_commands(regs[w], w) for w in (1, 2)}
+        assert cmds[1][1:] == cmds[2][1:], "the run ids must hash the same global batch"
+        _, id1, id2 = cmds[2]
+        with open(os.path.join(work, "commands.json"), "w") as f:
+            json.dump({"commands": cmds[2][0], "spring": data}, f)
+        port = _free_port()
+        torch.cuda.empty_cache()  # three processes share the card next
+        t = time.perf_counter()
+        procs = {}
+        for rank in range(2):
+            env = {**os.environ, "RANK": str(rank), "LOCAL_RANK": str(rank), "WORLD_SIZE": "2",
+                   "LOCAL_WORLD_SIZE": "2", "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+            procs[f"rank{rank}"] = _ddp_start(work, f"rank{rank}", [os.path.abspath(__file__), "--ddp-rank", work], env)
+        procs["witnesses"] = _ddp_start(work, "witnesses", [os.path.abspath(__file__), "--ddp-witness", work])
+        two_ranks_s = _ddp_finish(work, procs, t)["rank1"]
+        ranks = []
+        for rank in range(2):
+            with open(os.path.join(work, f"rank{rank}.json")) as f:
+                ranks.append(json.load(f))
+        print(f"[ddp] two gloo ranks: {two_ranks_s:.1f} s in all; backends {[r['backend'] for r in ranks]}, "
+              f"devices cuda:{[r['device'] for r in ranks]}")
+        assert all(r["backend"] == "gloo" and r["device"] == "0" for r in ranks)
+
+        # the one-rank commands in this process, while the CLI, started as a user starts it,
+        # runs mode=test of the two-rank run on the two ranks it spawns itself
+        t = time.perf_counter()
+        cli = {"cli": _ddp_start(work, "cli", ["-m", "dyffusion_tpu_torch.train", "mode=test", f"run_id={id2}",
+                                               f"registry_dir={regs[2]}"])}
+        one = {}
+        try:
+            for name, argv in cmds[1][0]:
+                la.reset_launches()
+                t_cmd = time.perf_counter()
+                value = train.main(argv)
+                _sync()
+                one[name] = {"launches": la.launches, "seconds": time.perf_counter() - t_cmd, "value": value}
+        finally:
+            cli_test_s = _ddp_finish(work, cli, t)["cli"]
+        with open(os.path.join(work, "cli.log")) as f:
+            cli_test = [json.loads(x) for x in f if x.startswith('{"test/')][-1]["test/crps"]
+        for name in one:
+            print(f"[ddp] {name}: one rank {one[name]['seconds']:.1f} s, two ranks "
+                  f"{[round(r['commands'][name]['seconds'], 1) for r in ranks]} s; B1 one rank "
+                  f"{one[name]['launches']}, per rank {[r['commands'][name]['launches'] for r in ranks]}; on {card}")
+        print(f"[ddp] mode=test on two ranks started by the CLI itself: {cli_test_s:.1f} s (beside the one-rank commands)")
+
+        # B1 per rank per command: the one-rank counts (a rank's 32-row step runs the same forwards)
+        trainer = build_trainer({**registry_api.get_run_config(regs[1], id2), "trainer": {"devices": 1}}, device="cuda")
+        exp = trainer.experiment
+        n_attn = sum(isinstance(m, LinearAttention) for m in exp.model.modules())
+        per_sample = n_attn * (2 * len(exp.engine._steps.s) + 1)
+        n_eval, h = 4, exp.cfg.horizon
+        expected = {"stage 1": n_attn * (DDP_STEPS + n_eval * (h - 1)),
+                    "stage 2": DDP_STEPS * 4 * n_attn + n_eval * per_sample, "mode=test": n_eval * per_sample}
+        for name, want in expected.items():
+            got = [one[name]["launches"]] + [r["commands"][name]["launches"] for r in ranks]
+            assert got == [want] * 3, f"B1 launches of {name}: {got} != {want}"
+
+        # losses, weights, metrics: two ranks, and the two witnesses, against one rank
+        init = {}
+        for run_id in (id1, id2):
+            init_cfg = {**registry_api.get_run_config(regs[1], run_id), "trainer": {"devices": 1}}
+            init[run_id] = build_trainer(init_cfg, device="cpu").state.model.state_dict()
+        worst, losses = {run: {} for run in (2,) + DDP_WITNESSES}, {}
+        for run, run_id, stage in ((2, id1, "stage 1"), (2, id2, "stage 2"), ("permuted", id1, "stage 1"),
+                                   ("permuted", id2, "stage 2"), ("fault", id2, "stage 2")):  # the fault's stage 1 is the permuted one
+            got, losses[(run, stage)] = _ddp_disagreement(regs[run], regs[1], run_id, init[run_id])
+            worst[run].update({f"{stage} {k}": v for k, v in got.items()})
+        for stage in ("stage 1", "stage 2"):
+            print(f"[ddp] {stage} losses: one rank {[round(x, 6) for x in losses[(2, stage)][1]]}; relative "
+                  f"differences to it: " + "; ".join(
+                      f"{'two ranks' if run == 2 else run} {[float(f'{x:.2e}') for x in losses[(run, stage)][0]]}"
+                      for run in (2,) + DDP_WITNESSES if (run, stage) in losses))
+        tests = [one["mode=test"]["value"], ranks[0]["commands"]["mode=test"]["value"], cli_test]
+        worst[2]["test/crps"] = max(abs(x - tests[0]) / abs(tests[0]) for x in tests)
+        print(f"[ddp] test/crps: one rank {tests[0]:.6f}, two ranks {tests[1]:.6f}, two ranks from the CLI "
+              f"{tests[2]:.6f}")
+        for run in (2,) + DDP_WITNESSES:
+            print(f"[ddp] worst disagreement with one rank, {'two ranks' if run == 2 else run}: "
+                  f"{json.dumps(worst[run])}")
+        # the first step sees the same weights and rows: only the sums' order differs. Later
+        # steps drift by what the permuted witness shows the order of the sums alone makes;
+        # the limit lies between that and the planted fault
+        for run in (2, "permuted"):
+            for k, v in worst[run].items():
+                assert v <= (DDP_FIRST_TOL if "first" in k else DDP_TOL), f"{run} vs one rank: {k} {v:.3e}"
+        fault = min(v for k, v in worst["fault"].items() if k.startswith("stage 2") and "first" not in k)
+        assert fault > DDP_TOL, f"the planted fault reads {fault:.3e}, within the limit {DDP_TOL}: the check does not bite"
+
+        # the spring step
+        spring_one = _spring_step(_spring_config(data, DDP_BATCH, 1))
+        spring_two = [torch.load(os.path.join(work, f"spring{r}.pt"), weights_only=True) for r in range(2)]
+        alone = _spring_step(_spring_config(data, DDP_BATCH // 2, 1))  # rank 0's 32 rows, their own statistics
+        errs = {"loss": max(abs(s["loss"] - spring_one["loss"]) / abs(spring_one["loss"]) for s in spring_two)}
+        for what in ("grads", "stats"):
+            errs[what] = max(_max_rel(s[what], spring_one[what]) for s in spring_two)
+        control = {"loss": abs(alone["loss"] - spring_one["loss"]) / abs(spring_one["loss"]),
+                   "grads": _max_rel(alone["grads"], spring_one["grads"]),
+                   "stats": _max_rel(alone["stats"], spring_one["stats"])}
+        print(f"[ddp] spring step, two ranks vs one at B{DDP_BATCH}: {json.dumps(errs)}; negative control (rank 0's "
+              f"rows, own statistics): {json.dumps(control)}")
+        assert all(v <= 1e-4 for v in errs.values()), "the spring step disagrees between one and two ranks"
+        assert all(v > 1e-4 for v in control.values()), "the negative control passed: the spring check does not bite"
+    print("[ddp] two ranks on one card measure no scaling: the ranks share the card")
+    return sum(r["commands"][n]["launches"] for r in ranks for n in expected)
+
+
 def main(argv) -> int:
     import torch
 
     if len(argv) == 2 and argv[0] == "--serve-exported":  # the serving process of [export]
         return serve_exported_main(argv[1])
-    modes = ([], ["--profile"], ["--kernels"], ["--physical"], ["--baselines"], ["--ncsnpp"], ["--export"], ["--oisst"])
+    if len(argv) == 2 and argv[0] == "--ddp-rank":  # a rank of [ddp]'s two-rank run
+        return ddp_rank_main(argv[1])
+    if len(argv) == 2 and argv[0] == "--ddp-witness":  # the one-rank witnesses of [ddp]
+        return ddp_witness_main(argv[1])
+    modes = ([], ["--profile"], ["--kernels"], ["--physical"], ["--baselines"], ["--ncsnpp"], ["--export"], ["--oisst"],
+             ["--members"], ["--ddp"])
     if argv not in modes:
         raise SystemExit(
             "usage: python3 chip_smoke.py [--profile | --kernels | --physical | --baselines | --ncsnpp | --export "
-            "| --oisst]")
+            "| --oisst | --members | --ddp]")
     name, smi = phase_device()
     phase_build()
+    if argv == ["--members"]:
+        phase_members(smi)
+        return 0
+    if argv == ["--ddp"]:
+        phase_ddp(smi)
+        return 0
     if argv == ["--oisst"]:
         phase_oisst(smi)
         return 0
@@ -2645,6 +3331,8 @@ def main(argv) -> int:
             for p in pipelines.values():
                 p.stop()
     oisst, oisst_per_request = phase_oisst(smi)
+    members, members_per_request = phase_members(smi)
+    ddp = phase_ddp(smi)
     # B1's top-level numbers are the [train] path's (this slice's main path);
     # by_path keeps each path's own count, read after setting it to 0.
     # No single PyTorch call computes any of the three functions: library_ms is null
@@ -2658,7 +3346,9 @@ def main(argv) -> int:
                         for m, n in baselines.items()},
                      "ncsnpp": {"launches": ncsnpp["linear_attention_qkv"]},
                      "export": {"launches": export, "per_request": export_per_request},
-                     "oisst": {"launches": oisst, "per_request": oisst_per_request}}},
+                     "oisst": {"launches": oisst, "per_request": oisst_per_request},
+                     "members": {"launches": members, "per_request": members_per_request},
+                     "ddp": {"launches": ddp}}},
         {"name": "fused_leaky_relu", "route": "cuda", "source": fa.SOURCE, "replaces": fa.REPLACES,
          "launches": op_launches["fused_leaky_relu"], **b2, "library_ms": None,
          "by_path": {p: {"launches": c["fused_leaky_relu"]} for p, c in {**physical, "ncsnpp": ncsnpp}.items()}},

@@ -182,9 +182,11 @@ class PrefetchIterator:
     consumer.
 
     The order is that of ``DatasetSplit.batches``: one shuffle of
-    ``np.arange(n)`` by ``rng`` per iteration. A worker's error is raised in
-    the consumer; a consumer that stops early (a ``max_steps`` break) stops
-    and joins the worker."""
+    ``np.arange(n)`` by ``rng`` per iteration. ``rows`` (a slice) keeps
+    only those rows of every batch: a data-parallel rank gathers and stages
+    its own rows of the global batch, and nothing else. A worker's error is
+    raised in the consumer; a consumer that stops early (a ``max_steps``
+    break) stops and joins the worker."""
 
     def __init__(
         self,
@@ -195,6 +197,7 @@ class PrefetchIterator:
         drop_last: bool = True,
         device_put=None,
         prefetch: int = 2,
+        rows: Optional[slice] = None,
     ):
         self.tensors = tensors
         self.batch_size = batch_size
@@ -203,6 +206,7 @@ class PrefetchIterator:
         self.drop_last = drop_last
         self.device_put = device_put
         self.prefetch = prefetch
+        self.rows = rows
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         n = next(iter(self.tensors.values())).shape[0]
@@ -231,6 +235,8 @@ class PrefetchIterator:
                     if stop_evt.is_set():
                         return
                     sel = idx[s:s + self.batch_size]
+                    if self.rows is not None:
+                        sel = sel[self.rows]
                     batch = {k: gather_batch(v, sel) for k, v in self.tensors.items()}
                     put(self.device_put(batch) if self.device_put is not None else batch)
                 put(None)

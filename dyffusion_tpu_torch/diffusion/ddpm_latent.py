@@ -127,11 +127,11 @@ class LatentDDPMEngine:
 
     def draw(self, shape: Sequence[int], generator: Optional[torch.Generator], device: torch.device) -> torch.Tensor:
         """A standard-normal f32 tensor: every random tensor of the engine."""
-        return rng.randn(shape, generator, device)
+        return rng.row_randn(shape, generator, device)
 
     def draw_steps(self, n: int, generator: Optional[torch.Generator], device: torch.device) -> torch.Tensor:
         """The loss's per-row steps t ~ U{0..T-1}: the engine's only other random draw."""
-        return rng.randint(0, self.num_timesteps, (n,), generator, device)
+        return rng.row_randint(0, self.num_timesteps, n, generator, device)
 
     def q_sample(self, x_start: torch.Tensor, t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
         c = self.buffers.coef

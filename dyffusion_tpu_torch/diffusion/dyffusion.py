@@ -8,7 +8,9 @@ step still runs the two interpolator calls as ONE 2B-batch forward, and the
 last step is peeled. Tensors are NCHW.
 
 Randomness comes from one explicit ``torch.Generator``, drawn in a fixed
-order, so the same seed gives the same samples. In sampling the forecaster
+order, so the same seed gives the same samples; ``sample_ensemble`` runs the
+sampler once per ensemble member, each on a generator of its own (the
+unfolded layout). In sampling the forecaster
 runs deterministic and the interpolator's dropout is live when
 ``enable_interpolator_dropout`` is set and a generator is given; in the
 training loss both networks' dropout is live whenever a generator is given.
@@ -290,7 +292,7 @@ class DyffusionEngine:
             return condition
         # data+noise: blend the condition with N(0, 1) noise by t/(N-1)
         tfac = (t / (self.num_timesteps - 1)).reshape((-1,) + (1,) * (condition.ndim - 1))
-        noise = rng.randn(condition.shape, generator, condition.device, condition.dtype)
+        noise = rng.row_randn(condition.shape, generator, condition.device, condition.dtype)
         return tfac * condition + (1.0 - tfac) * noise
 
     def predict_x_last(
@@ -435,9 +437,7 @@ class DyffusionEngine:
         static_condition: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Draw t ~ U{0..N-1} per row from ``generator``, then :meth:`p_losses`."""
-        t = torch.randint(
-            0, self.num_timesteps, (condition.shape[0],), generator=generator, device=condition.device
-        )
+        t = rng.row_randint(0, self.num_timesteps, condition.shape[0], generator, condition.device)
         return self.p_losses(fc_params, ip_params, generator, xt_last, condition, t, static_condition)
 
     # ---- sampling ----
@@ -512,6 +512,48 @@ class DyffusionEngine:
                     out[int(i_n) - 1] = r.to(out.dtype)
 
         return out.transpose(0, 1)  # (B, h, C, H, W)
+
+    def sample_ensemble(
+        self,
+        fc_params: Params,
+        ip_params: Params,
+        generator: Union[rng.Generator, Sequence[rng.Generator]],
+        initial_condition: torch.Tensor,
+        static_condition: Optional[torch.Tensor] = None,
+        num_predictions: int = 1,
+        inputs_noise: float = 0.0,
+    ) -> torch.Tensor:
+        """The unfolded MC-dropout ensemble: :meth:`sample` once per member
+        at batch B, each member on a generator of its own. Returns
+        (N, B, h, C, H, W), the JAX package's (N, B, h, H, W, C) in NCHW.
+
+        ``generator`` is the request's generator, split into
+        ``num_predictions`` member generators (:func:`utils.rng.split`), or
+        the list of the N member generators themselves (their streams run
+        on: an autoregressive chain passes the same list to every window).
+        ``initial_condition`` is (B, window*C, H, W), shared by the members,
+        or (N, B, window*C, H, W), one per member. ``inputs_noise`` > 0 adds
+        N(0, inputs_noise^2) to each member's condition, drawn from its
+        generator before its sampler runs.
+
+        A loop over members, where the JAX package vmaps over member keys:
+        each member's dropout masks and noise come from its own generator,
+        and peak activation memory is that of one B-row sampler (about 1/N
+        of the folded layout's). ``torch.func.vmap`` is not used: it would
+        need a vmap rule for the B1 op, and its random draws would not take
+        the member generators."""
+        if isinstance(generator, (list, tuple)):
+            generators = list(generator)
+        else:
+            generators = rng.split(generator, num_predictions)
+        per_member = initial_condition.ndim == 5
+        preds = []
+        for i, g in enumerate(generators):
+            ic = initial_condition[i] if per_member else initial_condition
+            if inputs_noise > 0:
+                ic = ic + inputs_noise * rng.randn(ic.shape, g, ic.device, ic.dtype)
+            preds.append(self.sample(fc_params, ip_params, g, ic, static_condition))
+        return torch.stack(preds)
 
     def sample_at_times(
         self,

@@ -133,14 +133,16 @@ class McvdEngine:
     ) -> torch.Tensor:
         """Every random tensor of the engine: standard normal (f32), or,
         with ``concentration`` (broadcast to ``shape``), standard Gamma
-        draws of that shape parameter (scale 1)."""
+        draws of that shape parameter (scale 1). The normal draws of a
+        data-parallel train step are the global batch's
+        (``utils.rng.row_shard``); the Gamma draws are each rank's own."""
         if concentration is None:
-            return rng.randn(shape, generator, device)
+            return rng.row_randn(shape, generator, device)
         return rng.standard_gamma(concentration.expand(tuple(shape)).contiguous(), generator)
 
     def draw_steps(self, n: int, generator: Optional[torch.Generator], device: torch.device) -> torch.Tensor:
         """The loss's per-row steps t ~ U{0..T-1}: the engine's only other random draw."""
-        return rng.randint(0, self.num_timesteps, (n,), generator, device)
+        return rng.row_randint(0, self.num_timesteps, n, generator, device)
 
     # ---- building blocks ----
     def _noise_like(self, shape, t: torch.Tensor, generator, device) -> torch.Tensor:

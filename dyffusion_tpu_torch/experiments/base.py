@@ -73,7 +73,11 @@ class ExperimentConfig:
     # the loss boundary; master weights, optimizer state, EMA, gradients and
     # loss reductions stay f32
     train_dtype: Optional[str] = None  # None | 'bfloat16'
-    fold_members_into_batch: bool = True  # the only eval layout ported so far
+    # the ensemble layout of every eval: True folds the N members into the
+    # batch (one N*B-row pass); False runs them one after another at B rows,
+    # each on a generator of its own (``utils.rng.split``; the JAX package's
+    # member vmap)
+    fold_members_into_batch: bool = True
     use_ema: bool = False
     ema_decay: float = 0.9999
     optimizer: Dict[str, Any] = field(default_factory=lambda: {"name": "adamw", "lr": 3e-4})

@@ -13,8 +13,13 @@ Counterpart of ``dyffusion_tpu/experiments/forecasting.py``:
   the channels (time-major); with a diffusion engine (DDPM, LDM-DDPM, MCVD)
   the engine generates the stacked frames, conditioned on the window.
 
-Every eval runs in the FOLDED layout: the N ensemble members are folded
-into the batch, one (N*B)-row call per forward. The baselines' evals cast
+Two ensemble layouts (``module.fold_members_into_batch``): FOLDED (the
+default), the N members folded into the batch, one (N*B)-row call per
+forward, all members drawing from the request's generator; or UNFOLDED, one
+B-row pass per member (DYffusion: ``DyffusionEngine.sample_ensemble``),
+each member on a generator of its own (``utils.rng.split``) whose stream
+runs on from window to window, at about 1/N of the folded layout's peak
+activation memory. The baselines' evals cast
 no input: under ``eval_dtype=bfloat16`` their networks compute in f32 on
 bf16-rounded weights, as the JAX package's do (its trainer casts only the
 weights, and flax promotes). Predictions come back in f32.
@@ -22,8 +27,7 @@ Autoregressive windows chain ceil(prediction_horizon / horizon) windows,
 each member continuing its own trajectory, from the boundary-adjusted
 predictions of the window before: a datamodule with physics
 (``boundary_fn``, its ``boundary_conditions``) re-imposes its boundary
-conditions on every predicted frame at that frame's simulation time. The
-member-vmap layout is not ported yet.
+conditions on every predicted frame at that frame's simulation time.
 """
 from __future__ import annotations
 
@@ -109,12 +113,13 @@ class ForecastingExperiment(Experiment):
         generator: Optional[torch.Generator],
         split: str,
         autoregressive: bool,
-        window_fn: Callable[[torch.Tensor, Optional[torch.Tensor]], torch.Tensor],
+        window_fn: Callable[[torch.Tensor, Optional[torch.Tensor], Any], torch.Tensor],
     ) -> Dict[str, torch.Tensor]:
-        """The baselines' ensemble eval: the window's stacked inputs tiled
-        to N*B rows (member-major), ``prediction_inputs_noise`` added in every
-        window, ``window_fn(inputs, static_condition) -> (N*B, h, C, H, W)``,
-        and the autoregressive chain. Returns {'t{i}_preds': (N, B, H, W, C),
+        """The baselines' ensemble eval in the folded layout: the window's
+        stacked inputs tiled to N*B rows (member-major),
+        ``prediction_inputs_noise`` added in every window,
+        ``window_fn(inputs, static_condition, generator) -> (N*B, h, C, H,
+        W)``, and the autoregressive chain. Returns {'t{i}_preds': (N, B, H, W, C),
         't{i}_targets': (B, H, W, C)}, f32 tensors on the device."""
         n_members = self.num_members(split)
         noise = self.cfg.prediction_inputs_noise
@@ -136,10 +141,50 @@ class ForecastingExperiment(Experiment):
                 x = nxt.reshape((n_members * B,) + tuple(nxt.shape[2:]))
             if noise > 0:
                 x = x + noise * rng.randn(x.shape, generator, x.device, x.dtype)
-            p = window_fn(x, sc_flat).float()
+            p = window_fn(x, sc_flat, generator).float()
             p = p.reshape((n_members, B) + tuple(p.shape[1:])).permute(0, 1, 2, 4, 5, 3)  # (N, B, h, H, W, C)
             preds = self.record_window(out, p, meta, ar, dynamics)
         return out
+
+    def unfolded_rollout(
+        self,
+        batch: Dict[str, Any],
+        generator: Optional[torch.Generator],
+        split: str,
+        autoregressive: bool,
+        window_fn: Callable[[torch.Tensor, Optional[torch.Tensor], Any], torch.Tensor],
+    ) -> Dict[str, torch.Tensor]:
+        """The baselines' ensemble eval in the unfolded layout: per member,
+        on its own generator, ``prediction_inputs_noise`` added in every
+        window and ``window_fn(inputs, static_condition, generator) ->
+        (B, h, C, H, W)`` at batch B; the autoregressive chain continues
+        each member's trajectory on its generator. Returns what
+        :meth:`folded_rollout` returns."""
+        generators = rng.split(generator, self.num_members(split))
+        noise = self.cfg.prediction_inputs_noise
+        n_windows = (self.num_autoregressive_steps + 1) if autoregressive else 1
+        dynamics = self.to_device(batch["dynamics"]).float()
+        static = self.static_condition(batch)
+        meta = self.metadata(batch) if self.boundary_fn is not None else {}
+        x0 = stack_window(dynamics, self.cfg.window)
+        out: Dict[str, torch.Tensor] = {}
+        for ar in range(n_windows):
+            inputs = self.next_window_inputs(preds) if ar > 0 else None  # (N, B, w*C, H, W)
+            ps = []
+            for i, g in enumerate(generators):
+                x = x0 if inputs is None else inputs[i]
+                if noise > 0:
+                    x = x + noise * rng.randn(x.shape, g, x.device, x.dtype)
+                ps.append(window_fn(x, static, g).float())
+            p = torch.stack(ps).permute(0, 1, 2, 4, 5, 3)  # (N, B, h, H, W, C)
+            preds = self.record_window(out, p, meta, ar, dynamics)
+        return out
+
+    def ensemble_rollout(self, batch, generator, split: str, autoregressive: bool, window_fn) -> Dict[str, torch.Tensor]:
+        """:meth:`folded_rollout` or :meth:`unfolded_rollout`, as
+        ``fold_members_into_batch`` says."""
+        rollout = self.folded_rollout if self.cfg.fold_members_into_batch else self.unfolded_rollout
+        return rollout(batch, generator, split, autoregressive, window_fn)
 
 
 class DyffusionForecastingExperiment(ForecastingExperiment):
@@ -182,12 +227,14 @@ class DyffusionForecastingExperiment(ForecastingExperiment):
     def make_eval_fn(self, split: str = "val", autoregressive: bool = False) -> Callable:
         """``eval_fn(batch, generator=None, params=None) -> {'t{i}_preds':
         (N, B, H, W, C), 't{i}_targets': (B, H, W, C)}`` (f32 tensors on the
-        device): the full sampler over an N-member MC-dropout ensemble folded
-        into the batch. ``params`` replaces the forecaster's weights (e.g.
-        the EMA)."""
-        if not self.cfg.fold_members_into_batch:
-            raise NotImplementedError("only the folded ensemble layout is ported (fold_members_into_batch=True)")
+        device): the full sampler over an N-member MC-dropout ensemble,
+        folded into the batch or, with ``fold_members_into_batch=False``,
+        one ``sample_ensemble`` member after another, each member's
+        generator running on through the autoregressive windows (the JAX
+        package's ``fold_in(key, window)``). ``params`` replaces the
+        forecaster's weights (e.g. the EMA)."""
         engine = self.engine
+        fold = self.cfg.fold_members_into_batch
         n_members = self.num_members(split)
         noise = self.cfg.prediction_inputs_noise
         n_windows = (self.num_autoregressive_steps + 1) if autoregressive else 1
@@ -209,12 +256,24 @@ class DyffusionForecastingExperiment(ForecastingExperiment):
             static_cond = self.static_condition(batch)
             fc_params = cast_params(engine.forecaster, dtype, params)
             ip_params = cast_params(engine.interpolator, dtype)
+            out: Dict[str, torch.Tensor] = {}
+            meta = self.metadata(batch) if self.boundary_fn is not None else {}
+            if not fold:
+                condition = stack_window(dynamics, self.cfg.window).to(dtype)
+                sc = None if static_cond is None else static_cond.to(dtype)
+                generators = rng.split(generator, n_members)
+                for ar in range(n_windows):
+                    if ar > 0:
+                        condition = self.next_window_inputs(preds).to(dtype)  # (N, B, w*C, H, W)
+                    preds = engine.sample_ensemble(
+                        fc_params, ip_params, generators, condition, sc, inputs_noise=noise if ar == 0 else 0.0
+                    )
+                    preds = self.record_window(out, preds.float().permute(0, 1, 2, 4, 5, 3), meta, ar, dynamics)
+                return out
             cond_flat = _tile(stack_window(dynamics, self.cfg.window).to(dtype))
             sc_flat = None if static_cond is None else _tile(static_cond.to(dtype))
             if noise > 0:
                 cond_flat = cond_flat + noise * rng.randn(cond_flat.shape, generator, cond_flat.device, cond_flat.dtype)
-            out: Dict[str, torch.Tensor] = {}
-            meta = self.metadata(batch) if self.boundary_fn is not None else {}
             preds = _unfold(engine.sample(fc_params, ip_params, generator, cond_flat, sc_flat), B)
             preds = self.record_window(out, preds, meta, 0, dynamics)
             for ar in range(1, n_windows):
@@ -256,17 +315,16 @@ class TimeConditionedForecastingExperiment(ForecastingExperiment):
 
         def loss_fn(params, batch: Dict[str, Any], generator: Optional[torch.Generator]):
             B = int(batch["dynamics"].shape[0])
-            t = torch.randint(1, h + 1, (B,), generator=generator, device=self.device)
+            t = rng.row_randint(1, h + 1, B, generator, self.device)
             return self.p_losses(params, batch, t, generator)
 
         return loss_fn
 
     def make_eval_fn(self, split: str = "val", autoregressive: bool = False) -> Callable:
-        """``eval_fn(batch, generator=None, params=None)``: one (N*B)-row
-        forward per lead time t = 1..h, MC dropout on under
-        ``enable_inference_dropout`` (see :meth:`folded_rollout`)."""
-        if not self.cfg.fold_members_into_batch:
-            raise NotImplementedError("only the folded ensemble layout is ported (fold_members_into_batch=True)")
+        """``eval_fn(batch, generator=None, params=None)``: one forward per
+        lead time t = 1..h, at N*B rows (folded) or at B rows per member,
+        MC dropout on under ``enable_inference_dropout`` (see
+        :meth:`ensemble_rollout`)."""
         h = self.cfg.horizon
         use_dropout = self.cfg.enable_inference_dropout
         dtype = self.eval_dtype()
@@ -274,16 +332,15 @@ class TimeConditionedForecastingExperiment(ForecastingExperiment):
         @torch.no_grad()
         def eval_fn(batch: Dict[str, Any], generator: Optional[torch.Generator] = None, params=None):
             p = cast_params(self.model, dtype, params)
-            g = generator if use_dropout else None
 
-            def window(x, sc):
+            def window(x, sc, g):
                 preds = []
                 for t in range(1, h + 1):
                     t_b = torch.full((x.shape[0],), float(t), dtype=torch.float32, device=x.device)
-                    preds.append(apply_model(self.model, p, x, t_b, sc, g))
+                    preds.append(apply_model(self.model, p, x, t_b, sc, g if use_dropout else None))
                 return torch.stack(preds, dim=1)
 
-            return self.folded_rollout(batch, generator, split, autoregressive, window)
+            return self.ensemble_rollout(batch, generator, split, autoregressive, window)
 
         return eval_fn
 
@@ -361,13 +418,11 @@ class SimultaneousForecastingExperiment(ForecastingExperiment):
         return loss_fn
 
     def make_eval_fn(self, split: str = "val", autoregressive: bool = False) -> Callable:
-        """``eval_fn(batch, generator=None, params=None)``: one (N*B)-row
-        forward of the network (MC dropout on under
-        ``enable_inference_dropout``), or the engine's sampler, whose
-        denoiser runs without dropout: its members differ by their noise
-        (see :meth:`folded_rollout`)."""
-        if not self.cfg.fold_members_into_batch:
-            raise NotImplementedError("only the folded ensemble layout is ported (fold_members_into_batch=True)")
+        """``eval_fn(batch, generator=None, params=None)``: one forward of
+        the network (MC dropout on under ``enable_inference_dropout``), or
+        the engine's sampler, whose denoiser runs without dropout: its
+        members differ by their noise; at N*B rows (folded) or at B rows per
+        member (see :meth:`ensemble_rollout`)."""
         use_dropout = self.cfg.enable_inference_dropout
         dtype = self.eval_dtype()
 
@@ -375,13 +430,13 @@ class SimultaneousForecastingExperiment(ForecastingExperiment):
         def eval_fn(batch: Dict[str, Any], generator: Optional[torch.Generator] = None, params=None):
             p = cast_params(self.model, dtype, params)
 
-            def window(x, sc):
+            def window(x, sc, g):
                 if self.diffusion_engine is not None:
-                    out = self.diffusion_engine.sample(p, generator, self.diffusion_condition(x, sc))
+                    out = self.diffusion_engine.sample(p, g, self.diffusion_condition(x, sc))
                 else:
-                    out = apply_model(self.model, p, x, None, sc, generator if use_dropout else None)
+                    out = apply_model(self.model, p, x, None, sc, g if use_dropout else None)
                 return self.unstack(out)
 
-            return self.folded_rollout(batch, generator, split, autoregressive, window)
+            return self.ensemble_rollout(batch, generator, split, autoregressive, window)
 
         return eval_fn

@@ -3,7 +3,9 @@
 
 Inputs are the window frames channel-stacked plus the LAST frame; training
 draws a random i per row; evaluation runs an MC-dropout ensemble at EVERY i,
-the N members folded into the batch (one (N*B)-batch forward per i).
+the N members folded into the batch (one (N*B)-batch forward per i) or,
+with ``fold_members_into_batch=False``, one B-row forward per (member, i),
+each member on a generator of its own.
 """
 from __future__ import annotations
 
@@ -51,7 +53,7 @@ class InterpolationExperiment(Experiment):
         def loss_fn(params, batch: Dict[str, Any], generator: Optional[torch.Generator]):
             dynamics = self.to_device(batch["dynamics"])
             B = dynamics.shape[0]
-            t = torch.randint(1, h, (B,), generator=generator, device=dynamics.device)
+            t = rng.row_randint(1, h, B, generator, dynamics.device)
             targets = dynamics[torch.arange(B, device=dynamics.device), w + t - 1].permute(0, 3, 1, 2)
             preds, updates = apply_model_train(
                 self.model, params, self.get_inputs(dynamics), t.float(), self.static_condition(batch), generator
@@ -64,11 +66,11 @@ class InterpolationExperiment(Experiment):
     def make_eval_fn(self, split: str = "val") -> Callable:
         """``eval_fn(batch, generator=None, params=None) -> {'t{i}_preds':
         (N, B, H, W, C), 't{i}_targets': (B, H, W, C)}`` (f32 tensors on the
-        device): the N-member MC-dropout ensemble at every i, members folded
-        into the batch, in ``eval_dtype``. ``params`` replaces the model's
-        weights (e.g. the EMA)."""
-        if not self.cfg.fold_members_into_batch:
-            raise NotImplementedError("only the folded ensemble layout is ported (fold_members_into_batch=True)")
+        device): the N-member MC-dropout ensemble at every i, in
+        ``eval_dtype``: members folded into the batch, or, with
+        ``fold_members_into_batch=False``, one B-row forward per (member,
+        i), the member's noise and dropout drawn from its own generator.
+        ``params`` replaces the model's weights (e.g. the EMA)."""
         w, h = self.cfg.window, self.cfg.horizon
         n_members = self.num_members(split)
         noise = self.cfg.prediction_inputs_noise
@@ -84,11 +86,25 @@ class InterpolationExperiment(Experiment):
             B = dynamics.shape[0]
             cond = self.static_condition(batch)
             p = cast_params(self.model, dtype, params)
+            out = {}
+            if not self.cfg.fold_members_into_batch:
+                inputs = self.get_inputs(dynamics).to(dtype)
+                c = None if cond is None else cond.to(dtype)
+                preds = {i: [] for i in self.horizon_range}
+                for g in rng.split(generator, n_members):
+                    x = inputs + noise * rng.randn(inputs.shape, g, inputs.device, inputs.dtype) if noise > 0 else inputs
+                    for i in self.horizon_range:
+                        t_b = torch.full((B,), float(i), dtype=torch.float32, device=x.device)
+                        pred = apply_model(self.model, p, x, t_b, c, g if use_dropout else None)
+                        preds[i].append(pred.float().permute(0, 2, 3, 1))  # (B, H, W, C)
+                for i in self.horizon_range:
+                    out[f"t{i}_preds"] = torch.stack(preds[i])
+                    out[f"t{i}_targets"] = dynamics[:, w + i - 1]
+                return out
             x = _tile(self.get_inputs(dynamics).to(dtype))
             c_flat = None if cond is None else _tile(cond.to(dtype))
             if noise > 0:
                 x = x + noise * rng.randn(x.shape, generator, x.device, x.dtype)
-            out = {}
             for i in self.horizon_range:
                 t_b = torch.full((x.shape[0],), float(i), dtype=torch.float32, device=x.device)
                 pred = apply_model(self.model, p, x, t_b, c_flat, generator if use_dropout else None)

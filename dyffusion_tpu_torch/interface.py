@@ -12,8 +12,17 @@ baselines (``time_conditioned``; ``simultaneous``, alone or hosting the
 ``accumulation_layout``, ``create_train_state``, ``build_trainer``,
 ``run_experiment`` (run directory, checkpoints, resume, metrics log),
 ``reload_trainer`` and ``reload_and_test``. Everything runs on the CUDA
-device unless the caller passes ``device="cpu"``. Not ported yet: the
-device mesh (``trainer.devices`` > 1, ``trainer.spatial_shards`` > 1).
+device unless the caller passes ``device="cpu"``.
+
+Data parallelism: ``run_experiment``, ``build_trainer`` and
+``reload_trainer`` join the launcher's process group
+(``parallel.init_distributed``) and take its world from
+``trainer.devices`` (``auto``: the group's world; an int must equal it).
+The global train batch is ``datamodule.batch_size`` x world, each rank
+trains and evaluates on its rows, and ``mode=test`` reloads on the same
+world. ``python -m dyffusion_tpu_torch.train trainer.devices=N`` starts the
+N ranks itself. Not ported: spatial sharding (``trainer.spatial_shards`` >
+1, ROADMAP).
 """
 from __future__ import annotations
 
@@ -48,6 +57,8 @@ from dyffusion_tpu_torch.experiments import (
 )
 from dyffusion_tpu_torch.experiments.base import resolve_device
 from dyffusion_tpu_torch.models import build_backbone
+from dyffusion_tpu_torch.parallel import distributed
+from dyffusion_tpu_torch.parallel.mesh import replicate_state
 from dyffusion_tpu_torch.training import Trainer, TrainState, build_optimizer, mixed_precision_loss
 from dyffusion_tpu_torch.training.checkpoint import CheckpointManager, find_run_dir
 from dyffusion_tpu_torch.utils.logging import MetricsLogger, get_logger
@@ -253,7 +264,9 @@ def create_train_state(config: Dict[str, Any], model: nn.Module) -> TrainState:
     """The train state of ``model`` from the config: optimizer (module.
     optimizer, module.scheduler, trainer.gradient_clip_val, the accumulation
     layout), EMA (module.use_ema, module.ema_decay), and the step generator,
-    seeded from seed + 1 on the model's device."""
+    seeded from seed + 1 on the model's device (with more than one rank:
+    from seed + 1 and the rank, beside a row generator seeded from seed + 1
+    on every rank; see ``parallel.distributed.rank_seed``)."""
     mod = config.get("module", {})
     opt = dict(mod.get("optimizer") or {"name": "adamw", "lr": 3e-4})
     accumulate, fold_factor = accumulation_layout(config)
@@ -266,11 +279,17 @@ def create_train_state(config: Dict[str, Any], model: nn.Module) -> TrainState:
         **opt,
     )
     device = next(model.parameters()).device
+    seed = int(config.get("seed", 0)) + 1
     generator = torch.Generator(device=device)
-    generator.manual_seed(int(config.get("seed", 0)) + 1)
+    generator.manual_seed(distributed.rank_seed(seed))
+    row_generator = None
+    if distributed.world_size() > 1:
+        row_generator = torch.Generator(device=device)
+        row_generator.manual_seed(seed)
     return TrainState(
         model, optimizer, generator,
         use_ema=mod.get("use_ema", False), ema_decay=mod.get("ema_decay", 0.9999), fold_factor=fold_factor,
+        row_generator=row_generator,
     )
 
 
@@ -283,27 +302,31 @@ def build_trainer(
     run_dir: Optional[str] = None,
 ) -> Trainer:
     """The :class:`Trainer` of one stage, ready to ``fit``: datamodule set up
-    (its batch size scaled by the fold factor when accumulation is folded),
-    experiment, loss in the config's precision, train state.
-    ``module.train_dtype=bfloat16`` (or a half ``trainer.precision``) trains
-    in bf16 mixed precision. With ``run_dir`` the trainer keeps its
-    checkpoints there (unless ``trainer.save_checkpoints`` is false)."""
-    device = resolve_device(device)
+    (its batch size scaled by the world size and by the fold factor when
+    accumulation is folded: the GLOBAL batch, of which each rank takes its
+    rows), experiment, loss in the config's precision, train state (the
+    same on every rank). ``module.train_dtype=bfloat16`` (or a half
+    ``trainer.precision``) trains in bf16 mixed precision. With ``run_dir``
+    the trainer keeps its checkpoints there (unless
+    ``trainer.save_checkpoints`` is false)."""
+    device = _join_world(config, device)
     tr_cfg = config.get("trainer", {}) or {}
     datamodule = datamodule or get_datamodule(config)
     datamodule.setup()
     _, fold_factor = accumulation_layout(config)
-    if fold_factor > 1:  # the micro-batches of one step run as one physical batch
-        datamodule.batch_size = datamodule.batch_size * fold_factor
+    # the micro-batches of one step run as one physical batch; the global batch spans the ranks
+    datamodule.batch_size = datamodule.batch_size * fold_factor * distributed.world_size()
     exp, model, loss_fn, eval_fns, _ = build_experiment(config, datamodule, interpolator=interpolator, device=device)
     # trainer.precision is an alias of module.train_dtype: any half precision means bf16-mixed
     precision = str(tr_cfg.get("precision", 32))
     if exp.cfg.train_dtype in ("bfloat16", "bf16") or precision in ("16", "bf16", "bf16-mixed", "bfloat16", "16-mixed"):
         loss_fn = mixed_precision_loss(loss_fn, model)
+    state = create_train_state(config, model)
+    replicate_state(state)
     return Trainer(
         experiment=exp,
         datamodule=datamodule,
-        state=create_train_state(config, model),
+        state=state,
         loss_fn=loss_fn,
         eval_fns=eval_fns,
         max_epochs=tr_cfg.get("max_epochs", 10),
@@ -320,14 +343,28 @@ def build_trainer(
     )
 
 
-def _check_one_device(config: Dict[str, Any]) -> None:
-    """The port trains on one device: no mesh, no spatial sharding yet."""
+def _join_world(config: Dict[str, Any], device: torch.device | str) -> torch.device:
+    """Join the launcher's process group, check ``trainer.devices``
+    against its world, and return this rank's device for ``device``.
+    ``trainer.devices`` is ``auto`` (the group's world, 1 outside one), or
+    an int that must equal the world: the CLI starts N ranks for
+    ``trainer.devices=N``, ``torchrun`` starts its own. Spatial sharding is
+    not ported."""
     tr = config.get("trainer") or {}
-    devices = tr.get("devices", "auto")
-    if (devices not in ("auto", -1, None) and int(devices) > 1) or int(tr.get("spatial_shards", 1) or 1) > 1:
+    if int(tr.get("spatial_shards", 1) or 1) > 1:
         raise NotImplementedError(
-            "trainer.devices > 1 and trainer.spatial_shards > 1 need data parallelism, not ported yet (ROADMAP A9)"
+            "trainer.spatial_shards > 1 (spatial sharding over DTensor with conv halo exchange) is not ported "
+            "(ROADMAP A: spatial sharding)"
         )
+    distributed.init_distributed(device)
+    devices, world = tr.get("devices", "auto"), distributed.world_size()
+    if devices not in ("auto", -1, None) and int(devices) != world:
+        raise ValueError(
+            f"trainer.devices={devices} but this process runs in a world of {world}: start the ranks with "
+            f"`python -m dyffusion_tpu_torch.train ... trainer.devices={devices}` (it spawns them) or with "
+            f"`torchrun --nproc-per-node {devices}`, or set trainer.devices=auto"
+        )
+    return resolve_device(distributed.rank_device(device))
 
 
 def _apply_matmul_precision(config: Dict[str, Any]) -> None:
@@ -363,8 +400,7 @@ def run_experiment(
     receives every logged record. Stage 2 (``dyffusion``) loads its
     interpolator from the registry, or takes the stage-1 model in memory as
     ``interpolator``."""
-    device = resolve_device(device)
-    _check_one_device(config)
+    device = _join_world(config, device)
     _apply_matmul_precision(config)
     run_id = config.get("run_id") or get_run_id(config)
     run_dir = os.path.join(config.get("registry_dir", "runs"), run_id)
@@ -382,9 +418,10 @@ def run_experiment(
     trainer.log_fn = log
 
     def save_last() -> None:
-        # max(): a save before fit() restores its counter must not lower the meta's
+        # max(): a save before fit() restores its counter must not lower the meta's.
+        # No collective: a signal or a crash may reach one rank alone (rank 0 writes)
         epochs = max(trainer.epochs_completed, trainer.ckpt.epochs_done)
-        trainer.ckpt.save_last(trainer._state_tree(), trainer.state.step, epochs_done=epochs)
+        trainer.ckpt.save_last(trainer._state_tree(collective=False), trainer.state.step, epochs_done=epochs)
 
     def save_on_signal(signum, frame) -> None:
         if trainer.ckpt is not None:
@@ -401,6 +438,7 @@ def run_experiment(
         # copied without its slots): a stale best score must not suppress
         # the fresh run's best slot
         trainer.ckpt.reset_run_state()
+    distributed.barrier()  # rank 0's config and start-over, before any rank trains
     anomaly = torch.autograd.set_detect_anomaly(True) if config.get("jax_debug_nans") else contextlib.nullcontext()
     try:
         with anomaly:
@@ -425,15 +463,15 @@ def reload_trainer(
 ) -> Trainer:
     """A finished run as a ready :class:`Trainer`: its stored config with
     ``overrides`` applied over it, and its ``slot`` checkpoint (``last`` if
-    the run has no such slot) loaded."""
-    device = resolve_device(device)
+    the run has no such slot) loaded, on the world ``trainer.devices``
+    names (a run trained on N ranks reloads on N: ``trainer.devices=1``
+    among the ``overrides`` reloads it on one)."""
     run_dir = find_run_dir(registry_dir, run_id)
     config = CheckpointManager(run_dir, monitor="val/crps").load_config()
     for ov in overrides or []:
         apply_override(config, ov)
     config["registry_dir"] = registry_dir
     config["run_id"] = run_id
-    _check_one_device(config)
     trainer = build_trainer(config, device=device, run_dir=run_dir)
     if not trainer.maybe_resume(slot=slot) and not trainer.maybe_resume(slot="last"):
         raise FileNotFoundError(f"no checkpoint in {run_dir}")

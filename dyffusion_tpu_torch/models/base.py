@@ -27,6 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dyffusion_tpu_torch.parallel import distributed
+
 # the loss functions' metrics key under which a train-mode loss hands its
 # BatchNorm running-statistics updates to the train step (the JAX package's
 # ``_model_state_updates`` aux key)
@@ -64,7 +66,16 @@ class BatchNorm2d(nn.BatchNorm2d):
     with the BIASED batch variance, the statistics in f32. (torch's own
     update folds in the unbiased variance.) The buffers are left as they
     are: the second forecaster pass of the DYffusion loss must read the
-    same running averages as before the first."""
+    same running averages as before the first.
+
+    Inside a process group (data parallelism) the batch statistics are the
+    GLOBAL batch's, as flax's mean over a batch sharded on the JAX mesh's
+    ``'data'`` axis is: each rank's per-channel sum, sum of squares and
+    count go through one autograd-aware ``all_reduce``
+    (``torch.distributed.nn.functional``), so the gradient flows through
+    the global statistics too, and the variance is flax's
+    max(0, E[x^2] - E[x]^2) in f32. (``torch.nn.SyncBatchNorm`` refuses CPU
+    tensors, and the CPU tests run two gloo ranks.)"""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__(num_features, eps=eps)
@@ -73,6 +84,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor, batch_stats: Optional[dict] = None) -> torch.Tensor:
         if batch_stats is None:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
+        if distributed.active():
+            return self._global_batch_norm(x, batch_stats)
         with torch.no_grad():
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
             m = self.decay
@@ -82,6 +95,28 @@ class BatchNorm2d(nn.BatchNorm2d):
                 self.num_batches_tracked + 1,
             )
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _global_batch_norm(self, x: torch.Tensor, batch_stats: dict) -> torch.Tensor:
+        from torch.distributed.nn.functional import all_reduce
+
+        C = x.shape[1]
+        xf = x.float()
+        count = torch.full((1,), float(x.numel() // C), dtype=torch.float32, device=x.device)
+        # one autograd-aware sum over ranks of [sum, sum of squares, count]
+        total = all_reduce(torch.cat([xf.sum(dim=(0, 2, 3)), xf.square().sum(dim=(0, 2, 3)), count]))
+        mean = total[:C] / total[-1]
+        var = torch.clamp(total[C:2 * C] / total[-1] - mean.square(), min=0.0)
+        with torch.no_grad():
+            m = self.decay
+            batch_stats[self] = (
+                m * self.running_mean.float() + (1.0 - m) * mean.detach(),
+                m * self.running_var.float() + (1.0 - m) * var.detach(),
+                self.num_batches_tracked + 1,
+            )
+        row = (1, C, 1, 1)
+        scale = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (xf - mean.reshape(row)) * scale.reshape(row) + self.bias.float().reshape(row)
+        return y.to(x.dtype)
 
 
 def norm_call(norm: nn.Module, x: torch.Tensor, batch_stats: Optional[dict]) -> torch.Tensor:

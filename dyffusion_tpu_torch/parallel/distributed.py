@@ -1,0 +1,218 @@
+"""The process group of a data-parallel run, and its collectives.
+
+Counterpart of ``dyffusion_tpu/parallel/distributed.py``. The JAX package
+runs one controller per host over a mesh of chips; the port runs one process
+per rank, each on one device, joined by ``torch.distributed``:
+
+- :func:`init_distributed` joins the group the launcher describes in the
+  environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+  ``MASTER_PORT``: ``torchrun``, or the CLI's own workers), the counterpart
+  of ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
+  ``JAX_PROCESS_ID``. Idempotent; a no-op on one process.
+- The backend is NCCL when the run is on CUDA and every rank of the host
+  has a card of its own, gloo otherwise (on the CPU, or with more ranks
+  than cards: NCCL refuses two ranks on one card). Rank r runs on
+  ``cuda:{LOCAL_RANK}`` on a host with that many cards, else on
+  ``cuda:0``.
+- The port uses only ``all_reduce`` and ``broadcast`` on tensors and
+  ``barrier``, which gloo supports on CUDA tensors too. What is gathered
+  goes through an ``all_reduce`` of a zero-filled global buffer
+  (:func:`gather_rows`).
+
+Without a process group every function answers for one process: rank 0,
+world 1, collectives that return their input.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+from typing import Dict, Iterable, List, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+# elements per all_reduce of the flat gradients (32 MiB of f32)
+GRAD_BUCKET_ELEMENTS = 1 << 23
+
+
+def _int_env(name: str) -> Optional[int]:
+    v = os.environ.get(name)
+    return int(v) if v not in (None, "") else None
+
+
+def active() -> bool:
+    """True inside a process group."""
+    return dist.is_available() and dist.is_initialized()
+
+
+def rank() -> int:
+    return dist.get_rank() if active() else 0
+
+
+def world_size() -> int:
+    return dist.get_world_size() if active() else 1
+
+
+def launcher_world() -> Optional[int]:
+    """The world size a launcher set in the environment, if any."""
+    return _int_env("WORLD_SIZE")
+
+
+def _local_world() -> int:
+    return _int_env("LOCAL_WORLD_SIZE") or world_size()
+
+
+def _own_cards() -> bool:
+    """Every rank of this host has a card of its own."""
+    return torch.cuda.is_available() and _local_world() <= torch.cuda.device_count()
+
+
+def rank_device(device: torch.device | str) -> torch.device:
+    """This rank's device for a run on ``device``: on CUDA, ``cuda:
+    {LOCAL_RANK}`` where every rank of the host has its own card, else
+    ``cuda:0`` (``device`` itself outside a process group); the CPU as
+    asked."""
+    device = torch.device(device)
+    if device.type != "cuda" or not active():
+        return device
+    return torch.device("cuda", (_int_env("LOCAL_RANK") or 0) if _own_cards() else 0)
+
+
+def init_distributed(device: torch.device | str = "cuda", timeout_s: float = 1800.0) -> None:
+    """Join the launcher's process group (see the module docstring): NCCL
+    for a CUDA run where every rank has its own card, else gloo. Does
+    nothing when a group exists already or the environment names one
+    process."""
+    if active():
+        return
+    world = launcher_world()
+    if world is None or world <= 1:
+        return
+    device = torch.device(device)
+    backend = "nccl" if device.type == "cuda" and _own_cards() else "gloo"
+    if backend == "nccl":
+        torch.cuda.set_device(_int_env("LOCAL_RANK") or 0)
+    dist.init_process_group(
+        backend, init_method="env://", rank=_int_env("RANK") or 0, world_size=world,
+        timeout=datetime.timedelta(seconds=timeout_s),
+    )
+
+
+def backend() -> Optional[str]:
+    return dist.get_backend() if active() else None
+
+
+def collective_device() -> torch.device:
+    """Where the host-side collectives' tensors live: this rank's card under
+    NCCL (it reduces only CUDA tensors), the CPU under gloo."""
+    if backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def barrier() -> None:
+    if active():
+        dist.barrier()
+
+
+def effective_batch_size(per_rank_batch: int, accumulate_grad_batches: int = 1) -> int:
+    """Global batch = per-rank batch x ranks x gradient accumulation."""
+    return per_rank_batch * world_size() * accumulate_grad_batches
+
+
+def rank_seed(seed: int) -> int:
+    """The seed of this rank's generators: ``seed`` itself on one process
+    (so a one-process run draws as it always has), else a seed drawn from
+    ``seed`` and the rank by numpy's ``SeedSequence``. The JAX package's
+    partitionable threefry, whose draw on a sharded batch is the slice of
+    the global draw, has no torch counterpart: each rank draws its own
+    dropout masks, so a run with dropout differs between world sizes in its
+    masks (not in their distribution). The per-row draws of a train loss
+    are the global batch's (``utils.rng.row_shard``)."""
+    if world_size() == 1:
+        return int(seed)
+    return int(np.random.SeedSequence([int(seed), rank()]).generate_state(1, np.uint64)[0] & (2**63 - 1))
+
+
+def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
+    """The sum of ``t`` over ranks, in place; ``t`` outside a group."""
+    if active():
+        dist.all_reduce(t, op=dist.ReduceOp.SUM)
+    return t
+
+
+def all_reduce_mean(values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Scalar tensors averaged over ranks, in one collective."""
+    if not active() or not values:
+        return values
+    keys = list(values)
+    flat = torch.stack([values[k].detach().float().reshape(()) for k in keys])
+    all_reduce_sum(flat)
+    flat /= world_size()
+    return {k: flat[i] for i, k in enumerate(keys)}
+
+
+@torch.no_grad()
+def all_reduce_gradients(params: Iterable[torch.nn.Parameter], bucket_elements: int = GRAD_BUCKET_ELEMENTS) -> None:
+    """Average the parameters' gradients over ranks: flat buckets of at
+    most ``bucket_elements`` elements per dtype, one ``all_reduce`` each.
+    A weight the loss does not reach (``grad`` None) enters as zeros on
+    every rank (or the ranks would wait on one another) and leaves with a
+    zero gradient."""
+    if not active():
+        return
+    params = list(params)
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    world = world_size()
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for p in params:
+        by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+    for grads in by_dtype.values():
+        buckets: List[List[torch.Tensor]] = [[]]
+        size = 0
+        for g in grads:
+            if buckets[-1] and size + g.numel() > bucket_elements:
+                buckets.append([])
+                size = 0
+            buckets[-1].append(g)
+            size += g.numel()
+        for bucket in buckets:
+            flat = torch.cat([g.reshape(-1) for g in bucket])
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+            flat /= world
+            offset = 0
+            for g in bucket:
+                g.copy_(flat[offset:offset + g.numel()].view_as(g))
+                offset += g.numel()
+
+
+def gather_rows(t: torch.Tensor, first_row: int, total_rows: int, dim: int = 0) -> torch.Tensor:
+    """Every rank's rows of a tensor split along ``dim``: this rank's
+    ``t`` placed at ``first_row`` of a zero-filled ``total_rows`` buffer,
+    then summed over ranks."""
+    if not active():
+        return t
+    shape = list(t.shape)
+    shape[dim] = total_rows
+    buf = torch.zeros(shape, dtype=t.dtype, device=t.device)
+    buf.narrow(dim, first_row, t.shape[dim]).copy_(t)
+    return all_reduce_sum(buf)
+
+
+def gather_bytes(data: torch.Tensor) -> List[torch.Tensor]:
+    """Each rank's uint8 tensor (of one size on every rank), as a list by
+    rank, through :func:`gather_rows` (int32 on the collective device)."""
+    if not active():
+        return [data]
+    local = data.reshape(1, -1).to(collective_device(), torch.int32)
+    full = gather_rows(local, rank(), world_size())
+    return [row.to("cpu", torch.uint8) for row in full]
+
+
+def broadcast_(t: torch.Tensor, src: int = 0) -> None:
+    """``t`` overwritten in place by rank ``src``'s."""
+    if active():
+        dist.broadcast(t, src=src)

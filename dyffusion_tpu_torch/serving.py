@@ -161,6 +161,10 @@ def build_experiment_predict_fn(
     return predict, input_specs, info
 
 
+# serving runs on one device, whatever world the run trained on
+ONE_DEVICE = ("trainer.devices=1",)
+
+
 def build_predict_fn(
     registry_dir: str,
     run_id: str,
@@ -176,11 +180,12 @@ def build_predict_fn(
     eval path with the run's eval weights: ``(predict, input_specs, info)``
     as :func:`build_experiment_predict_fn` returns them, ``info`` also
     naming the run and slot. ``split`` sets the ensemble size (``test``:
-    ``module.num_predictions_test``)."""
+    ``module.num_predictions_test``). Serving runs on one device: a run
+    trained on several ranks is reloaded with ``trainer.devices=1``."""
     _check_reduce(reduce)  # before the reload
     from dyffusion_tpu_torch.interface import reload_trainer
 
-    trainer = reload_trainer(registry_dir, run_id, overrides, slot=slot, device=device)
+    trainer = reload_trainer(registry_dir, run_id, [*ONE_DEVICE, *(overrides or [])], slot=slot, device=device)
     predict, specs, info = build_experiment_predict_fn(
         trainer.experiment, trainer.eval_fns, trainer.datamodule, trainer.state.eval_params(),
         split=split, batch_size=batch_size, reduce=reduce,
@@ -375,13 +380,12 @@ def export_run(
     pins it to ``batch_size`` (default: the run's eval batch size).
     ``reduce='mean_std'`` ships the on-device ensemble reduction instead of
     the raw members. Not ported: ``devices > 1`` (the data-parallel
-    artifact waits for the port's data parallelism) and a multi-platform
-    artifact."""
+    artifact, ROADMAP A) and a multi-platform artifact."""
     _check_reduce(reduce)  # before the reload
     if devices > 1:
         raise NotImplementedError(
-            "devices > 1 (the data-parallel artifact) is not ported: it waits for the port's "
-            "DistributedDataParallel path; export with devices=1"
+            "devices > 1 (the data-parallel artifact) is not ported (ROADMAP A: the data-parallel artifact); "
+            "export with devices=1"
         )
     device = torch.device(device)
     if platforms is not None:
@@ -391,7 +395,7 @@ def export_run(
             raise ValueError(f"platforms={list(platforms)} does not name the export device {device}")
     from dyffusion_tpu_torch.interface import reload_trainer
 
-    trainer = reload_trainer(registry_dir, run_id, overrides and list(overrides), slot=slot, device=device)
+    trainer = reload_trainer(registry_dir, run_id, [*ONE_DEVICE, *(overrides or [])], slot=slot, device=device)
     exported, manifest = export_experiment(
         trainer.experiment, trainer.eval_fns, trainer.datamodule, trainer.state.eval_params(), split=split,
         batch_size=batch_size, polymorphic_batch=polymorphic_batch, reduce=reduce,

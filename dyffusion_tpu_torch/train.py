@@ -17,6 +17,14 @@ test metrics (the test-size ensemble). The same arguments give the same
 runs on the CPU); it is not part of the config. Without CUDA the default
 raises.
 
+Data parallelism: ``trainer.devices=N`` (N > 1) outside a process group
+starts N local ranks (``torch.multiprocessing``, ``MASTER_ADDR=localhost``
+and a free port), each running this same command; ``mode=test`` reads N
+from the run's stored config (and the overrides). Under a launcher
+(``torchrun``, which sets ``WORLD_SIZE``) the command joins the launcher's
+group, and ``trainer.devices`` must be ``auto`` or the world size. Rank 0
+alone prints the final JSON line.
+
 Sweeps: ``-m``/``--multirun`` expands every comma-valued override into the
 cartesian product of runs, each under its own run id; commas inside
 brackets stay literal (``model.dim_mults=(1,2)`` is one value).
@@ -25,11 +33,16 @@ from __future__ import annotations
 
 import itertools
 import json
+import os
+import socket
 import sys
-from typing import List, Optional
+import tempfile
+from typing import Any, Dict, List, Optional
 
-from dyffusion_tpu_torch.config import get_config, list_presets
+from dyffusion_tpu_torch.config import apply_override, get_config, list_presets
 from dyffusion_tpu_torch.interface import reload_and_test, run_experiment
+from dyffusion_tpu_torch.parallel import distributed
+from dyffusion_tpu_torch.training.checkpoint import CheckpointManager, find_run_dir
 
 
 def _split_sweep_values(value: str) -> List[str]:
@@ -75,6 +88,48 @@ def expand_multirun(args: List[str]) -> List[List[str]]:
     return combos
 
 
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _requested_ranks(config: Dict[str, Any]) -> int:
+    devices = (config.get("trainer") or {}).get("devices", "auto")
+    return 1 if devices in ("auto", -1, None) else int(devices)
+
+
+def _rank_main(rank: int, world: int, port: int, argv: List[str], device: str, result: str) -> None:
+    """One rank of :func:`spawn_ranks`: the launcher's environment, then
+    the command; rank 0 writes its result to ``result``."""
+    import torch
+
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    torch.set_num_threads(max(1, torch.get_num_threads() // world))
+    try:
+        value = main(argv, device=device)
+        if rank == 0:
+            with open(result, "w") as f:
+                json.dump(value, f)
+    finally:
+        if distributed.active():
+            torch.distributed.destroy_process_group()
+
+
+def spawn_ranks(world: int, argv: List[str], device: str) -> float:
+    """Run the command ``argv`` on ``world`` local ranks (new processes,
+    joined; a rank that fails ends the others and raises here); returns
+    rank 0's result."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="dyffusion_ranks_") as tmp:
+        result = os.path.join(tmp, "result.json")
+        mp.spawn(_rank_main, args=(world, _free_port(), argv, device, result), nprocs=world, join=True)
+        with open(result) as f:
+            return float(json.load(f))
+
+
 def main(argv: Optional[List[str]] = None, device: str = "cuda") -> float:
     """Run the command ``argv`` (default ``sys.argv[1:]``); returns the best
     monitored score (training) or ``test/crps`` (``mode=test``).
@@ -116,12 +171,25 @@ def main(argv: Optional[List[str]] = None, device: str = "cuda") -> float:
     if mode == "test":
         if not run_id:
             raise ValueError("mode=test requires run_id=<id>")
+        config = CheckpointManager(find_run_dir(registry, run_id), monitor="val/crps").load_config()
+        for ov in overrides:
+            apply_override(config, ov)
+    else:
+        config = get_config(preset, overrides)
+    ranks = _requested_ranks(config)
+    if ranks > 1 and distributed.launcher_world() is None:
+        return spawn_ranks(ranks, argv + [f"--device={device}"], device)
+
+    if mode == "test":
         metrics = reload_and_test(registry, run_id, overrides, device=device)
-        print(json.dumps(metrics))
+        if distributed.rank() == 0:
+            print(json.dumps(metrics))
         return metrics.get("test/crps", float("nan"))
 
-    trainer, best = run_experiment(get_config(preset, overrides), device=device)
-    print(json.dumps({"best": best, "monitor": trainer.monitor, "run_dir": trainer.ckpt.run_dir if trainer.ckpt else None}))
+    trainer, best = run_experiment(config, device=device)
+    if distributed.rank() == 0:
+        print(json.dumps({"best": best, "monitor": trainer.monitor,
+                          "run_dir": trainer.ckpt.run_dir if trainer.ckpt else None}))
     return best
 
 

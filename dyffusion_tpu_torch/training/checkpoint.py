@@ -10,6 +10,13 @@ monitored metric) and ``last`` slots, ``meta.json`` (``best_score``,
 package's slots are orbax directories, which the port cannot read and says
 so. A slot is written to ``<slot>.tmp`` and then moved into place, so a
 crash mid-save leaves the previous slot whole.
+
+Under data parallelism rank 0 alone writes slots, meta, config and the
+rotation of a start-over; every rank reads. The registry must then be on a
+filesystem every rank sees: a manager checks it when it is made (a probe
+file written by rank 0, looked for by every rank). A barrier
+(``parallel.distributed.barrier``) follows each write that other ranks
+will read.
 """
 from __future__ import annotations
 
@@ -20,6 +27,9 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+from dyffusion_tpu_torch.parallel import distributed
+from dyffusion_tpu_torch.utils.logging import is_rank_zero
 
 STATE_FILE = "state.pt"
 
@@ -32,7 +42,26 @@ class CheckpointManager:
         os.makedirs(self.run_dir, exist_ok=True)
         self.monitor = monitor
         self.mode = mode
+        if distributed.world_size() > 1:
+            self._assert_shared_filesystem()
         self.best_score: Optional[float] = self._read_meta().get("best_score")  # a resumed run's best so far
+
+    def _assert_shared_filesystem(self) -> None:
+        """Raise on every rank unless every rank sees rank 0's probe file
+        in the run directory."""
+        probe = os.path.join(self.run_dir, ".shared_fs_probe")
+        if is_rank_zero():
+            with open(probe, "w") as f:
+                f.write("shared-filesystem probe of the checkpoint manager")
+        distributed.barrier()
+        seen = torch.tensor([float(os.path.exists(probe))], device=distributed.collective_device())
+        missing = distributed.world_size() - int(distributed.all_reduce_sum(seen).item())
+        if missing:
+            raise RuntimeError(
+                f"checkpoint dir {self.run_dir!r} is not visible from every rank ({missing} of "
+                f"{distributed.world_size()} do not see it): a data-parallel run needs registry_dir on a "
+                "filesystem all ranks share"
+            )
 
     def _slot_dir(self, slot: str) -> str:
         return os.path.join(self.run_dir, slot)
@@ -45,6 +74,8 @@ class CheckpointManager:
         return {}
 
     def _write_meta(self, meta: Dict[str, Any]) -> None:
+        if not is_rank_zero():
+            return
         with open(os.path.join(self.run_dir, "meta.json"), "w") as f:
             json.dump(meta, f, indent=2, default=str)
 
@@ -53,6 +84,8 @@ class CheckpointManager:
 
     def save_config(self, config: Dict[str, Any]) -> None:
         """Persist the full run config as ``config.json``."""
+        if not is_rank_zero():
+            return
         with open(os.path.join(self.run_dir, "config.json"), "w") as f:
             json.dump(config, f, indent=2, default=str)
 
@@ -61,6 +94,8 @@ class CheckpointManager:
             return json.load(f)
 
     def _save_slot(self, slot: str, state: Dict[str, Any]) -> None:
+        if not is_rank_zero():
+            return
         path = self._slot_dir(slot)
         tmp = path + ".tmp"
         if os.path.exists(tmp):
@@ -123,6 +158,8 @@ class CheckpointManager:
         and ``curves/`` to ``<name>.<n>`` so the directory holds one run's
         outputs."""
         self.best_score = None
+        if not is_rank_zero():
+            return
         for slot in ("best", "last"):
             path = self._slot_dir(slot)
             if os.path.exists(path):

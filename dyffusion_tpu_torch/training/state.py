@@ -33,10 +33,13 @@ class TrainState:
         use_ema: bool = True,
         ema_decay: float = 0.9999,
         fold_factor: int = 1,
+        row_generator: Optional[torch.Generator] = None,
     ):
         self.model = model
         self.optimizer = optimizer
         self.generator = generator  # the dropout / time draws of every step, in order
+        # data parallelism: the per-row draws of the global batch, seeded alike on every rank
+        self.row_generator = row_generator
         self.params: Dict[str, nn.Parameter] = {n: p for n, p in model.named_parameters() if p.requires_grad}
         self.use_ema = use_ema
         self.ema_decay = ema_decay

@@ -1,6 +1,7 @@
 """The trainer: train step, metric sums, the fit loop and streamed evaluation.
 
-Counterpart of ``dyffusion_tpu/training/trainer.py`` on one device:
+Counterpart of ``dyffusion_tpu/training/trainer.py``, on one device or on
+every rank of a data-parallel process group:
 
 - :func:`make_train_step`: loss, backward, the optimizer step and the EMA,
   with the ``grad_norm`` and ``zero_grad_frac`` metrics, and with
@@ -15,15 +16,25 @@ Counterpart of ``dyffusion_tpu/training/trainer.py`` on one device:
   ``max_steps``, log cadence, validation
   cadence, early stopping, the best monitored score, the ``best`` and
   ``last`` checkpoints at each validation, resume by epoch), ``evaluate``
-  (the experiment's folded ensemble eval function over a split, CRPS/MSE/SSR
+  (the experiment's ensemble eval function over a split, CRPS/MSE/SSR
   reduced as streamed per-batch sums on the device), ``predict`` and
   ``test`` (which saves the per-horizon curves).
 
-Not ported yet: data parallelism (and with it the padding of eval batches
-to the data axis, which off a mesh never pads).
+Data parallelism (``parallel/``): each rank trains on its rows of the
+global batch; after each backward the gradients are averaged across ranks
+before ``grad_norm``, ``zero_grad_frac``, ``watch_gradients`` and clipping
+read them, the per-row draws of the loss are the global batch's
+(``utils.rng.row_shard``), and the logged train metrics are means over
+ranks. Eval batches are padded to a multiple of the world size by repeating
+their last row (``pad_batch``); each rank evaluates its rows, the padded
+ones masked out of ``metric_sums``, and the sums are all-reduced once per
+split, so every rank reads the same metrics and early stopping stops them
+at the same step. Each rank's train and eval generators are seeded from the
+seed and the rank (``parallel.distributed.rank_seed``).
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import defaultdict
 from typing import Any, Callable, Dict, List, Optional
@@ -34,9 +45,12 @@ from torch import nn
 
 from dyffusion_tpu_torch.data.native_loader import DeviceStager
 from dyffusion_tpu_torch.models.base import MODEL_STATE_UPDATES
+from dyffusion_tpu_torch.parallel import distributed
+from dyffusion_tpu_torch.parallel.mesh import process_local_rows
 from dyffusion_tpu_torch.training.checkpoint import CheckpointManager
 from dyffusion_tpu_torch.training.state import TrainState
-from dyffusion_tpu_torch.utils.logging import save_arrays_as_line_plot
+from dyffusion_tpu_torch.utils import rng
+from dyffusion_tpu_torch.utils.logging import is_rank_zero, save_arrays_as_line_plot
 
 # loss_fn(params, batch, generator) -> (loss, metrics); params replaces the
 # model's weights for the call (None: its own)
@@ -98,14 +112,27 @@ def make_train_step(loss_fn: LossFn, watch_gradients: bool = False) -> Callable[
     respect to the model's trainable weights, then
     :meth:`TrainState.apply_gradients` with the BatchNorm updates the loss
     returned under ``MODEL_STATE_UPDATES``. ``state`` is updated in place.
-    ``watch_gradients`` adds :func:`gradient_watch_metrics`."""
+    ``watch_gradients`` adds :func:`gradient_watch_metrics`. In a process
+    group of more than one rank the loss's per-row draws come from
+    ``state.row_generator`` for the global batch, the gradients are
+    averaged across ranks after the backward, and the loss metrics are
+    means over ranks."""
 
     def train_step(state: TrainState, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        loss, metrics = loss_fn(None, batch, state.generator)
+        world = distributed.world_size()
+        rows = contextlib.nullcontext()
+        if world > 1:
+            n = int(next(iter(batch.values())).shape[0])
+            rows = rng.row_shard(state.row_generator, n * world, distributed.rank() * n)
+        with rows:
+            loss, metrics = loss_fn(None, batch, state.generator)
         metrics = dict(metrics)
         updates = metrics.pop(MODEL_STATE_UPDATES, None)
         loss.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if world > 1:
+            distributed.all_reduce_gradients(state.params.values())
+            metrics = distributed.all_reduce_mean(metrics)
         with torch.no_grad():
             grads = [p.grad for p in state.params.values() if p.grad is not None]
             n_total = sum(p.numel() for p in state.params.values())
@@ -121,21 +148,39 @@ def make_train_step(loss_fn: LossFn, watch_gradients: bool = False) -> Callable[
     return train_step
 
 
-def metric_sums(preds: torch.Tensor, targets: torch.Tensor) -> Dict[str, torch.Tensor]:
+def metric_sums(
+    preds: torch.Tensor, targets: torch.Tensor, valid: Optional[torch.Tensor] = None
+) -> Dict[str, torch.Tensor]:
     """Per-batch sums {n, sq, var, crps} of the streaming ensemble metrics,
     preds (m, B, ...) and targets (B, ...): mse = sq/n, crps = crps/n,
     ssr = sqrt(var/n)/sqrt(sq/n). CRPS uses the sorted O(m log m)
-    estimator."""
+    estimator. ``valid`` (B,) bool marks the rows that count: padded rows
+    are masked out of every sum and of n (the JAX package's masked sums)."""
     preds, targets = preds.float(), targets.float()
     m = preds.shape[0]
-    n = torch.tensor(float(targets.numel()), device=preds.device)
-    sq = ((preds.mean(dim=0) - targets) ** 2).sum()
-    var = preds.var(dim=0, unbiased=False).sum()
+    if valid is None:
+        valid = torch.ones(targets.shape[0], dtype=torch.bool)
+    mask = valid.to(device=preds.device, dtype=torch.float32).reshape((-1,) + (1,) * (targets.ndim - 1))
+    n = mask.sum() * float(np.prod(targets.shape[1:]))
+    sq = (((preds.mean(dim=0) - targets) ** 2) * mask).sum()
+    var = (preds.var(dim=0, unbiased=False) * mask).sum()
     x = torch.sort(preds, dim=0).values
     skill = (x - targets[None]).abs().mean(dim=0)
     i = torch.arange(1, m + 1, device=preds.device, dtype=torch.float32).reshape((m,) + (1,) * targets.ndim)
     spread = (x * (2 * i - m - 1)).sum(dim=0) / (m * m)
-    return {"n": n, "sq": sq, "var": var, "crps": (skill - spread).sum()}
+    return {"n": n, "sq": sq, "var": var, "crps": ((skill - spread) * mask).sum()}
+
+
+def pad_batch(batch: Dict[str, Any], target: int):
+    """Pad a host batch to ``target`` rows by repeating its last row;
+    returns ``(padded batch, number of real rows)``."""
+    n = int(next(iter(batch.values())).shape[0])
+    if n == target:
+        return batch, n
+    if n > target:
+        raise ValueError(f"a batch of {n} rows exceeds the pad target {target}")
+    idx = np.concatenate([np.arange(n), np.full(target - n, n - 1, dtype=np.int64)])
+    return {k: np.asarray(v)[idx] for k, v in batch.items()}, n
 
 
 class Trainer:
@@ -191,12 +236,31 @@ class Trainer:
         # per-horizon curves {metric: {"t": [...], "value": [...]}} of the last evaluate()
         self.last_eval_curves: Dict[str, Dict[str, list]] = {}
 
-    def _state_tree(self) -> Dict[str, Any]:
-        """The checkpoint of the train state (``TrainState.state_dict``)."""
-        return self.state.state_dict()
+    def _state_tree(self, collective: bool = True) -> Dict[str, Any]:
+        """The checkpoint of the train state (``TrainState.state_dict``).
+        With more than one rank it also holds every rank's step generator
+        (``rank_generators``, gathered from all ranks: a collective, unless
+        ``collective=False``, as a save on a signal or a crash of one rank
+        must be) and the shared row generator."""
+        tree = self.state.state_dict()
+        if distributed.world_size() > 1:
+            tree["row_generator"] = self.state.row_generator.get_state()
+            if collective:
+                tree["rank_generators"] = distributed.gather_bytes(self.state.generator.get_state())
+        return tree
 
     def _load_state_tree(self, tree: Dict[str, Any]) -> None:
+        """Load a checkpoint; each rank takes its own step generator where
+        the checkpoint has one per rank of this world."""
+        world = distributed.world_size()
+        per_rank = tree.get("rank_generators")
+        if world > 1 and per_rank is not None and len(per_rank) == world:
+            tree = {**tree, "generator": per_rank[distributed.rank()]}
+        elif world > 1:  # saved by another world: keep this rank's freshly seeded stream
+            tree = {**tree, "generator": self.state.generator.get_state()}
         self.state.load_state_dict(tree)
+        if world > 1 and tree.get("row_generator") is not None:
+            self.state.row_generator.set_state(tree["row_generator"])
 
     def maybe_resume(self, slot: str = "last") -> bool:
         """Load the ``slot`` checkpoint of the run directory, if it has one."""
@@ -220,6 +284,8 @@ class Trainer:
             if self.ckpt.best_score is not None and np.isfinite(self.ckpt.best_score):
                 best = float(self.ckpt.best_score)
         self.epochs_completed = start_epoch
+        world = distributed.world_size()
+        rows = process_local_rows(self.datamodule.batch_size, distributed.rank(), world) if world > 1 else None
         for epoch in range(start_epoch, self.max_epochs):
             epoch_start = time.time()
             n_batches = 0
@@ -229,7 +295,7 @@ class Trainer:
                 break  # a resumed run already at the cap trains no more
             # the loader gathers and stages the next batches while this step runs; the
             # loop holds its only reference, so a break or a raising step stops its worker
-            for batch in self.datamodule.train_loader(rng=self._np_rng, device_put=self._put):
+            for batch in self.datamodule.train_loader(rng=self._np_rng, device_put=self._put, rows=rows):
                 metrics = self.train_step(self.state, batch)
                 loss_parts.append(metrics["loss"])
                 n_batches += 1
@@ -271,6 +337,7 @@ class Trainer:
                     tree = self._state_tree()
                     improved = self.ckpt.save_best_if_improved(tree, score, step)
                     self.ckpt.save_last(tree, step, epochs_done=self.epochs_completed)
+                    distributed.barrier()  # the others read these slots after the run
                 if np.isfinite(score):
                     prev_best = best
                     best = score if np.isnan(best) else (min if self.monitor_mode == "min" else max)(best, score)
@@ -292,27 +359,56 @@ class Trainer:
             "predict": self.datamodule.predict_batches,
         }[split]()
 
+    def _eval_generator(self, split: str) -> torch.Generator:
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(distributed.rank_seed(self.seed + {"val": 1, "test": 2, "predict": 3}[split]))
+        return generator
+
+    def _local_eval_batches(self, split: str):
+        """``(this rank's rows of the batch, their valid mask, first row,
+        padded rows, real rows)`` per eval batch: each batch padded to a
+        multiple of the world size by repeating its last row, then split
+        into equal blocks of rows (one process: the whole batch, all valid)."""
+        world, rank = distributed.world_size(), distributed.rank()
+        for batch in self._eval_batches(split):
+            n = int(next(iter(batch.values())).shape[0])
+            target = -(-n // world) * world
+            padded, n_valid = pad_batch(batch, target)
+            rows = process_local_rows(target, rank, world)
+            valid = torch.arange(rows.start, rows.stop) < n_valid
+            yield {k: v[rows] for k, v in padded.items()}, valid, rows.start, target, n_valid
+
     def evaluate(self, split: str = "val") -> Dict[str, float]:
         """Streaming ensemble evaluation over a split with the train state's
         eval weights (the EMA when on): {split/t{i}/mse|crps|ssr,
         split/avg/*, split/crps, split/mse, split/ssr}. Per-batch sums reduce
-        on the device; the host reads them once, at the end."""
+        on the device (each rank's rows, padding masked out) and over ranks
+        in one collective; the host reads them once, at the end.
+        ``frames_per_sec_per_chip`` counts the real frames of all ranks per
+        second and rank."""
         eval_fn = self.eval_fns[split]
-        generator = torch.Generator(device=self.device)
-        generator.manual_seed(self.seed + {"val": 1, "test": 2, "predict": 3}[split])
+        generator = self._eval_generator(split)
         params = self.state.eval_params()
         sums: Dict[str, Dict[str, torch.Tensor]] = {}
         n_frames = 0
         sample_start = time.time()
-        for batch in self._eval_batches(split):
+        for batch, valid, _, _, _ in self._local_eval_batches(split):
             out = eval_fn(batch, generator, params)
             for k, v in out.items():
                 if not k.endswith("_preds") or f"{k[:-6]}_targets" not in out:
                     continue
                 prefix = k[: -len("_preds")]
-                part = metric_sums(v, out[f"{prefix}_targets"])
+                part = metric_sums(v, out[f"{prefix}_targets"], valid)
                 sums[prefix] = part if prefix not in sums else {m: sums[prefix][m] + part[m] for m in part}
-                n_frames += v.shape[0] * v.shape[1]
+                n_frames += v.shape[0] * int(valid.sum())
+        world = distributed.world_size()
+        if world > 1:  # one all_reduce of every sum and the frame count
+            keys = [(p, m) for p in sorted(sums) for m in sorted(sums[p])]
+            flat = torch.stack([sums[p][m].float() for p, m in keys] + [torch.tensor(float(n_frames), device=self.device)])
+            flat = distributed.all_reduce_sum(flat.to(distributed.collective_device()))
+            for j, (p, m) in enumerate(keys):
+                sums[p][m] = flat[j]
+            n_frames = float(flat[-1])
         sums_host = {p: {m: float(t) for m, t in s.items()} for p, s in sums.items()}  # the one sync
         sampling_time = time.time() - sample_start
 
@@ -336,21 +432,25 @@ class Trainer:
             metrics[f"{split}/{name}"] = metrics[f"{split}/avg/{name}"]
         self.last_eval_curves = dict(curves)
         if n_frames and sampling_time > 0:
-            metrics[f"{split}/frames_per_sec_per_chip"] = n_frames / sampling_time
+            metrics[f"{split}/frames_per_sec_per_chip"] = n_frames / sampling_time / world
         return metrics
 
     def predict(self, split: str = "predict") -> Dict[str, np.ndarray]:
         """The split's raw ensemble predictions and targets on the host,
         concatenated over batches (``*_preds`` along the batch axis 1, the
-        rest along axis 0), with the train state's eval weights."""
+        rest along axis 0), with the train state's eval weights. Under data
+        parallelism every rank gets every row (gathered through a zero-filled
+        buffer summed over ranks), the padding dropped."""
         eval_fn = self.eval_fns[split]
-        generator = torch.Generator(device=self.device)
-        generator.manual_seed(self.seed + {"val": 1, "test": 2, "predict": 3}[split])
+        generator = self._eval_generator(split)
         params = self.state.eval_params()
         acc: Dict[str, List[np.ndarray]] = defaultdict(list)
-        for batch in self._eval_batches(split):
+        for batch, valid, first, total, n_valid in self._local_eval_batches(split):
             for k, v in eval_fn(batch, generator, params).items():
-                acc[k].append(v.cpu().numpy())
+                dim = 1 if k.endswith("_preds") else 0
+                if distributed.world_size() > 1:
+                    v = distributed.gather_rows(v.to(distributed.collective_device()), first, total, dim)
+                acc[k].append(v.narrow(dim, 0, n_valid).cpu().numpy())
         return {k: np.concatenate(vs, axis=1 if k.endswith("_preds") else 0) for k, vs in acc.items()}
 
     def test(self, save_curves: bool = True) -> Dict[str, float]:
@@ -358,7 +458,7 @@ class Trainer:
         ``module.num_predictions_test``) and save the per-horizon curves
         under the run directory's ``curves/`` (``test_crps`` etc.)."""
         metrics = self.evaluate("test")
-        if save_curves and self.ckpt is not None:
+        if save_curves and self.ckpt is not None and is_rank_zero():
             for name, curve in self.last_eval_curves.items():
                 if not curve["t"]:
                     continue

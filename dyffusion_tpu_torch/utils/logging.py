@@ -8,7 +8,9 @@
   under ``curves/``;
 - :func:`get_logger`: a python logger.
 
-The port trains on one process (no DDP yet), so every process is rank zero.
+Under data parallelism only rank zero of the process group writes the
+metric stream, the hyperparameters and the wandb mirror, and only its
+logger speaks at INFO.
 """
 from __future__ import annotations
 
@@ -22,7 +24,10 @@ import numpy as np
 
 
 def is_rank_zero() -> bool:
-    return True
+    """Rank zero of the process group, or the one process outside one."""
+    from dyffusion_tpu_torch.parallel import distributed
+
+    return distributed.rank() == 0
 
 
 def get_logger(name: str = "dyffusion_tpu_torch") -> logging.Logger:

@@ -4,13 +4,18 @@ Each loss takes an optional ``mask`` of shape (B,) over the leading (batch)
 axis: masked rows contribute nothing and the mean runs over the unmasked
 rows only, a static-shape form of ``criterion(pred[rows], target[rows])``.
 Reductions always run in f32, so bf16 predictions under mixed-precision
-training keep their gradient signal.
+training keep their gradient signal. In a data-parallel train step
+(``utils.rng.row_shard``) a masked mean counts the unmasked rows of the
+GLOBAL batch, so that the mean of the ranks' losses is the global batch's.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
 import torch
+
+from dyffusion_tpu_torch.parallel import distributed
+from dyffusion_tpu_torch.utils import rng
 
 LossFn = Callable[..., torch.Tensor]
 
@@ -23,6 +28,10 @@ def _masked_mean(per_elem: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.
         return per_elem.mean()
     mask = mask.to(per_elem.dtype)
     row_mean = per_elem.reshape(per_elem.shape[0], -1).mean(dim=-1)
+    if rng.row_sharded():  # this rank's share of the global masked mean
+        count = distributed.all_reduce_sum(mask.sum().detach().to(distributed.collective_device()))
+        count = count.to(mask.device) / distributed.world_size()
+        return (row_mean * mask).sum() / torch.clamp(count, min=1.0 / distributed.world_size())
     return (row_mean * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 

@@ -67,12 +67,15 @@ _VOLATILE_MODEL = ("remat",)
 
 def _data_axis_size(config: Dict[str, Any]) -> int:
     """The data-parallel axis that scales the global batch: ``trainer.devices``
-    over ``trainer.spatial_shards``. ``devices`` auto is 1: the port trains
-    on one device (no DDP yet), whatever the host holds, so a host with
-    several cards does not fork the run id."""
+    over ``trainer.spatial_shards``. ``devices`` auto is the world size of
+    the process group (1 outside one), whatever cards the host holds: a
+    host with several cards does not fork the run id, and a launcher's
+    world is hashed as an explicit ``trainer.devices`` would be."""
+    from dyffusion_tpu_torch.parallel import distributed
+
     tr = config.get("trainer") or {}
     devices = tr.get("devices", "auto")
-    n = 1 if devices in ("auto", -1, None) else max(int(devices), 1)
+    n = distributed.world_size() if devices in ("auto", -1, None) else max(int(devices), 1)
     return max(n // max(int(tr.get("spatial_shards", 1) or 1), 1), 1)
 
 

@@ -19,11 +19,19 @@ through these functions. ``generator`` is one of:
 A fresh ``torch.Generator`` seeded with s and a device's default generator
 after ``manual_seed(s)`` give the same draws, so one seed answers the same
 eagerly and in the artifact.
+
+:func:`split` gives each ensemble member of the unfolded layout a generator
+of its own (the counterpart of ``jax.random.split``), and :func:`row_shard`
+makes the per-row draws of a data-parallel train step those of the global
+batch (see there).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+import contextlib
+import contextvars
+from typing import Iterator, List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 
@@ -60,3 +68,79 @@ def randint(low: int, high: int, shape: Sequence[int], generator: Generator, dev
 def standard_gamma(concentration: torch.Tensor, generator: Generator) -> torch.Tensor:
     """Gamma(concentration, 1), one draw per element, on its device."""
     return torch._standard_gamma(concentration, **_kw(generator))
+
+
+def split(generator: Generator, n: int) -> List[Generator]:
+    """``n`` member generators from the request's ``generator``, the
+    counterpart of ``jax.random.split(rng, n)``. A ``torch.Generator``
+    gives one 62-bit draw (advancing it once, whatever ``n``), and member i
+    a new generator on its device seeded from that draw and i through
+    numpy's ``SeedSequence`` (so member i's stream does not depend on
+    ``n``). :data:`DEVICE_DEFAULT` and ``None`` are handed to every member:
+    their draws run on, member after member, through the one default
+    generator, which is how the exported sampler stays seeded by the
+    device's default generator at every draw site."""
+    if generator is None or generator is DEVICE_DEFAULT:
+        return [generator] * n
+    base = int(randint(0, 2**62, (1,), generator, generator.device).item())
+    out = []
+    for i in range(n):
+        g = torch.Generator(device=generator.device)
+        state = np.random.SeedSequence(base, spawn_key=(i,)).generate_state(1, np.uint64)[0]
+        g.manual_seed(int(state) & (2**63 - 1))
+        out.append(g)
+    return out
+
+
+# the data-parallel train step's row shard: (generator, global rows, first row), or None
+_ROW_SHARD: contextvars.ContextVar = contextvars.ContextVar("row_shard", default=None)
+
+
+@contextlib.contextmanager
+def row_shard(generator: torch.Generator, global_rows: int, first_row: int) -> Iterator[None]:
+    """Within this context the per-row draws of a train loss
+    (:func:`row_randint`, :func:`row_randn`) are drawn for ``global_rows``
+    rows from ``generator``, which every rank seeds alike, and this rank
+    keeps its rows from ``first_row`` on: the draws of a global batch split
+    over ranks, as the JAX package's draws of a global shape are on a batch
+    sharded over its mesh. Outside it they come from the generator the loss
+    was given, as they always have."""
+    token = _ROW_SHARD.set((generator, int(global_rows), int(first_row)))
+    try:
+        yield
+    finally:
+        _ROW_SHARD.reset(token)
+
+
+def row_sharded() -> bool:
+    """True inside :func:`row_shard` (a data-parallel train step)."""
+    return _ROW_SHARD.get() is not None
+
+
+def _rows(n: int):
+    if _ROW_SHARD.get() is None:
+        return None
+    generator, total, first = _ROW_SHARD.get()
+    if first + n > total:
+        raise ValueError(f"a row draw of {n} rows from row {first} exceeds the global batch of {total}")
+    return generator, total, first
+
+
+def row_randint(low: int, high: int, n: int, generator: Generator, device) -> torch.Tensor:
+    """Integers in [low, high), one per row of an ``n``-row batch (see
+    :func:`row_shard`)."""
+    shard = _rows(n)
+    if shard is None:
+        return randint(low, high, (n,), generator, device)
+    g, total, first = shard
+    return randint(low, high, (total,), g, g.device)[first:first + n].to(device)
+
+
+def row_randn(shape: Sequence[int], generator: Generator, device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """N(0, 1) of ``shape``, whose first axis is the batch's rows (see
+    :func:`row_shard`)."""
+    shard = _rows(int(shape[0]))
+    if shard is None:
+        return randn(shape, generator, device, dtype)
+    g, total, first = shard
+    return randn((total,) + tuple(shape[1:]), g, g.device, dtype)[first:first + int(shape[0])].to(device)
