@@ -170,10 +170,24 @@ non-zero:
    limit) and a planted fault (stage 2 on half the rows from step 2,
    which must exceed it). Prints the wall times; two ranks on one card
    measure no scaling.
+20. spatial: spatial sharding on the eval path. The split B1 kernel (its
+   partial pass, merge and output pass, two ranks emulated) against B1's
+   plain version over all tokens at the per-rank SST shapes, bf16 and f32
+   (negative control: rank 0's tokens alone), with its per-rank times;
+   then, on ``[ddp]``'s one-rank stage-2 run (trained here when the phase
+   runs alone), two gloo ranks sharing cuda:0 (``chip_smoke.py
+   --spatial-rank``) split the grid's H axis for one-batch requests (f32
+   with the workload's dropout; the same with every halo zeroed, the
+   negative control, both with the sampler cut to 13 forwards; a full bf16
+   request without dropout), beside a one-rank witness and the CLI's own
+   two ranks running ``mode=test`` (cut alike) on the W axis: answers
+   within 1e-3 of max|one rank| (the zeroed halos beyond it), B1 378 split
+   calls per full request on each rank, each rank's peak device memory at
+   most 0.7x one rank's.
 
 Each path (slice, train, fit, each cli command, ns, spring, each baseline
 command and request, ncsnpp, each export request, each oisst command, the
-unfolded members, ddp) sets the launch counts to 0 before it runs and reads
+unfolded members, ddp, spatial) sets the launch counts to 0 before it runs and reads
 them after. The line before
 the last is the kernel summary as JSON
 (B1's top-level launches and times are the train path's; ``by_path`` has
@@ -213,8 +227,9 @@ runs phases 1, 2 and 17 (the OISST path) and stops, with no ``ok`` line.
 
     python3 chip_smoke.py --members
     python3 chip_smoke.py --ddp
+    python3 chip_smoke.py --spatial
 
-run phases 1, 2 and 18 (or 19) and stop, with no ``ok`` line.
+run phases 1, 2 and 18 (or 19, or 20) and stop, with no ``ok`` line.
 
     python3 chip_smoke.py --kernels
 
@@ -223,6 +238,7 @@ plain versions, and their times) and stops, with no ``ok`` line.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -3092,7 +3108,7 @@ def _ddp_finish(work, procs, t):
     assert all(c == 0 for c in codes.values()), f"[ddp] processes exited with {codes}"
     return {name: watcher.end - t for name, (_, _, watcher) in procs.items()}
 
-def phase_ddp(card):
+def phase_ddp(card, work=None):
     """Data parallelism on the card. 1. NCCL: :func:`_ddp_nccl`. 2. Two
     gloo ranks sharing cuda:0 (this process starts them with the launcher's
     environment, ``RANK``/``WORLD_SIZE``...; each runs ``chip_smoke.py
@@ -3119,7 +3135,9 @@ def phase_ddp(card):
     card measure no scaling: the wall times are printed, not compared (the
     witnesses share the card with the two ranks, the CLI's ranks with the
     one-rank commands).
-    Returns the two-rank path's B1 launches (both ranks, all commands)."""
+    ``work``: a directory to work in, which keeps the runs (default: a
+    temporary one). Returns the two-rank path's B1 launches (both ranks, all
+    commands)."""
     import numpy as np
     import torch
 
@@ -3131,7 +3149,7 @@ def phase_ddp(card):
 
     _b1_path_check("ddp", DDP_B1, torch.float32)
     _ddp_nccl()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_") as work:
+    with contextlib.nullcontext(work) if work else tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_") as work:
         data = os.path.join(work, "spring")
         _physical_archive(data, "spring_mesh")
         regs = {w: os.path.join(work, f"registry{w}") for w in (1, 2)}
@@ -3243,6 +3261,417 @@ def phase_ddp(card):
     return sum(r["commands"][n]["launches"] for r in ranks for n in expected)
 
 
+# [spatial]: spatial sharding on the eval path. Two gloo ranks sharing
+# cuda:0 (chip_smoke.py --spatial-rank) split the SST grid's H (or W) axis,
+# beside a one-rank witness of the same commands in a process of its own.
+SPATIAL_TOL = 1e-3  # relative to max|one rank|: f32 (TF32 off), sums over slabs in another order
+SPATIAL_MEMORY_LIMIT = 0.7  # a rank's peak memory over the one-rank request's
+SPATIAL_DROPOUT = ["model.block_dropout=0.3", "model.attn_dropout=0.1"]  # the SST workload's
+SPATIAL_NO_DROPOUT = ["model.block_dropout=0", "model.attn_dropout=0"]
+# the per-rank tokens of B1 at K = 2 on H: 60 -> 30 -> 15 rows, split 30/30,
+# 15/15 and 8/7, times the 60, 30 and 15 columns
+SPATIAL_B1 = ((1800, 1800), (450, 450), (120, 105))
+
+
+def _b1_split_emulated(parts, heads=4, dim_head=32, scale=32**-0.5):
+    """The split B1 kernel over ``parts``, each one rank's (B, N_r, 3hd)
+    tokens, the ranks emulated in one process: the partial pass of each,
+    the maximum over them, the merge of each, the sum, the output pass of
+    each."""
+    import torch
+
+    from dyffusion_tpu_torch.ops import linear_attention as la
+
+    steps = [la.split_partial(q, heads, dim_head) for q in parts]
+    top = torch.stack([m for _, _, m in steps]).amax(dim=0)
+    merged = sum(la.split_merge(q, ws, S, top) for q, (ws, S, _) in zip(parts, steps))
+    n = sum(q.shape[1] for q in parts)
+    return [la.split_output(q, merged, heads, dim_head, scale, n) for q in parts]
+
+
+def _spatial_b1_check():
+    """The split B1 kernel against B1's plain version over all the tokens,
+    two ranks emulated, at the per-rank SST shapes (120 rows), bf16 and
+    f32; times one rank's three steps (no collectives) against the plain
+    split (one rank's arithmetic) and its bound. Negative control: the
+    output pass of rank 0 with its own tokens' partial alone (k's softmax
+    over the local N)."""
+    import torch
+
+    from dyffusion_tpu_torch.ops import linear_attention as la
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    times = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype)[6:]
+        for n0, n1 in SPATIAL_B1:
+            full = _qkv(120, n0 + n1, dtype, True, gen)
+            parts = [full[:, :n0], full[:, n0:]]
+            got = torch.cat(_b1_split_emulated(parts), dim=1)
+            want = la.linear_attention_qkv_plain(full, 4, 32, 32**-0.5)
+            _check_vs_plain(f"[spatial] split B1 B=120 N={n0}+{n1} {dt}", got, want, REL_TOL[dt],
+                            negative_controls=n0 == 1800)
+            ws, S, m = la.split_partial(parts[0], 4, 32)
+            local = la.split_output(parts[0], la.split_merge(parts[0], ws, S, m), 4, 32, 32**-0.5, n0)
+            ok = _within(local, want[:, :n0], REL_TOL[dt])[0]
+            assert not ok, "the split B1 check accepts rank 0's tokens alone (k's softmax over the local N)"
+
+            def kernel(q=parts[0], n=n0 + n1):
+                ws, S, m = la.split_partial(q, 4, 32)
+                return la.split_output(q, la.split_merge(q, ws, S, m), 4, 32, 32**-0.5, n)
+
+            ms, plain_ms = _time_pair(kernel, lambda q=parts[0]: la.linear_attention_qkv_split_plain(
+                q, 4, 32, 32**-0.5, n0 + n1))
+            bound, by = _bound(120 * n0 * 512 * full.element_size(), 0)
+            times[f"(120, {n0}, 384) {dt}"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound}
+            print(f"[spatial] split B1, one rank of two, (120, {n0}, 384) {dt}: {ms:.4f} ms (three steps, no "
+                  f"collectives), plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}); local-only control rejected")
+    return times
+
+
+# On two ranks sharing the card each Unet forward waits on ~80 gloo round
+# trips (1.4-2.1 ms each): a full request (63 forwards) takes 21-52 s. So
+# the checks of the answers run the sampler without its 25 auxiliary steps
+# (13 forwards), and only the bf16 request (memory, B1 per request) runs in
+# full. mode=test: the test split's 23 rows as one batch (10 members)
+SPATIAL_SHORT = ["diffusion.additional_interpolation_steps=0", *SPATIAL_DROPOUT]
+SPATIAL_TEST = ["datamodule.eval_batch_size=24", *SPATIAL_SHORT]
+# one forecaster forward at a request's 120 rows (6 rows x 20 members),
+# dropout off: the sharded answer at the eval precision, bf16, against one
+# rank's (bf16 rounds each layer's output, the two layouts' convs and norms
+# sum in other orders), between the sound reading and the zeroed halos
+SPATIAL_FORWARD_ROWS = 120
+SPATIAL_BF16_TOL = 5e-2  # relative to max|one rank|
+
+
+def _spatial_commands(k):
+    """The [spatial] process's work at ``k`` ranks (1: the witness), on the
+    H axis: each (name, kind, overrides over the stored run) of its
+    one-batch requests of the predict split (6 rows, 20 members), of the
+    forecaster forward and, for the witness, of mode=test (the two ranks
+    run it through the CLI, on W)."""
+    layout = [f"trainer.devices={k}", f"trainer.spatial_shards={k}"]
+    out = [("request f32", "request", layout + SPATIAL_SHORT)]
+    if k > 1:  # the negative control
+        out.append(("request f32, halos zeroed", "request", layout + SPATIAL_SHORT))
+    bf16 = layout + SPATIAL_NO_DROPOUT + ["module.eval_dtype=bfloat16"]
+    out.append(("request bf16", "request", bf16))
+    out.append(("forward", "forward", bf16))  # casts the weights itself; the bf16 request's trainer
+    if k == 1:
+        out.append(("test f32", "test", layout + SPATIAL_TEST))
+    return out
+
+
+def _spatial_request(trainer):
+    """One request: the first batch of the predict split, this rank's box
+    of it (``Trainer.local_eval_batches``), through the predict eval
+    function inside ``Trainer.sharded``; every rank of the model group and
+    the witness draw from one seed. This rank's slab of the predictions."""
+    import torch
+
+    batch = next(iter(trainer.local_eval_batches("predict")))[0]
+    generator = torch.Generator(device=trainer.device).manual_seed(SEED)
+    with trainer.sharded():
+        out = trainer.eval_fns["predict"](batch, generator, trainer.state.eval_params())
+    return {k: v.cpu().numpy() for k, v in out.items() if k.endswith("_preds")}
+
+
+def _spatial_forward(trainer, halo_all_reduce):
+    """The stored forecaster's forward at a request's rows, f32 and bf16
+    (its weights cast as the bf16 eval casts them), on seeded inputs at the
+    global grid, this rank taking its slab of H inside ``Trainer.sharded``;
+    on two ranks also bf16 with every halo zeroed. This rank's output slab
+    of each."""
+    import torch
+
+    from dyffusion_tpu_torch.experiments.base import cast_params
+    from dyffusion_tpu_torch.models.base import apply_model
+    from dyffusion_tpu_torch.parallel import distributed, spatial
+
+    net = trainer.experiment.engine.forecaster
+    n_cond = net.num_conditional_channels
+    H, W = trainer.experiment.dims["spatial"]
+    dev = trainer.device
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((SPATIAL_FORWARD_ROWS, net.init_conv.in_channels - n_cond, H, W), generator=gen, device=dev)
+    cond = torch.randn((SPATIAL_FORWARD_ROWS, n_cond, H, W), generator=gen, device=dev) if n_cond else None
+    t = torch.rand((SPATIAL_FORWARD_ROWS,), generator=gen, device=dev)
+    a, b = spatial.blocks(H, distributed.model_size())[distributed.model_rank()]
+    x = x[:, :, a:b]
+    cond = None if cond is None else cond[:, :, a:b]
+    runs = [("f32", torch.float32, halo_all_reduce), ("bf16", torch.bfloat16, halo_all_reduce)]
+    if distributed.model_size() > 1:
+        runs.append(("bf16, halos zeroed", torch.bfloat16, lambda buf: buf))
+    out = {}
+    for name, dtype, transfer in runs:
+        spatial._halo_all_reduce = transfer
+        try:
+            with torch.no_grad(), trainer.sharded():
+                y = apply_model(net, cast_params(net, dtype), x.to(dtype), t,
+                                None if cond is None else cond.to(dtype))
+            out[name] = y.float().cpu().numpy()
+        finally:
+            spatial._halo_all_reduce = halo_all_reduce
+    return out
+
+
+def _peak_blocks(snapshot, top=3):
+    """The ``top`` largest blocks alive at the peak of a memory history
+    (``torch.cuda.memory._snapshot()`` with ``stacks='python'``): the peak
+    over what the history allocated, and each block's MiB with the two
+    innermost frames of this repo that allocated it."""
+    trace = [e for dev in snapshot["device_traces"] for e in dev]
+    total = peak = peak_at = 0
+    for i, e in enumerate(trace):
+        if e["action"] == "alloc":
+            total += e["size"]
+            if total > peak:
+                peak, peak_at = total, i
+        elif e["action"] == "free_requested":
+            total -= e["size"]
+    live = {}
+    for e in trace[:peak_at + 1]:
+        if e["action"] == "alloc":
+            live[e["addr"]] = e
+        elif e["action"] == "free_requested":
+            live.pop(e["addr"], None)
+    blocks = []
+    for e in sorted(live.values(), key=lambda e: -e["size"])[:top]:
+        frames = [f"{os.path.basename(f['filename'])}:{f['line']} {f['name']}" for f in e.get("frames", [])
+                  if "dyffusion_tpu_torch" in f["filename"]][:2]
+        blocks.append({"MiB": round(e["size"] / 2**20, 1), "at": frames})
+    return {"peak_MiB": round(peak / 2**20, 1), "blocks": blocks}
+
+
+def spatial_rank_main(work):
+    """One process of ``[spatial]`` (a rank of the two-rank group, or the
+    one-rank witness with WORLD_SIZE=1): each of :func:`_spatial_commands`,
+    a request (:func:`_spatial_request`), the forward
+    (:func:`_spatial_forward`) or ``interface.reload_and_test``
+    (mode=test), each with its B1 launches, split B1 launches, wall time
+    and peak device memory; the zeroed-halo request under a memory history
+    (:func:`_peak_blocks`); results in ``work``."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from dyffusion_tpu_torch.interface import reload_and_test, reload_trainer
+    from dyffusion_tpu_torch.ops import linear_attention as la
+    from dyffusion_tpu_torch.parallel import distributed, spatial
+
+    with open(os.path.join(work, "spatial.json")) as f:
+        spec = json.load(f)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    rank = int(os.environ.get("RANK", "0"))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    out, arrays, history = {}, {}, None
+    halo = spatial._halo_all_reduce
+    trainer, loaded = None, None  # consecutive commands with the same overrides share one trainer
+    for name, kind, overrides in _spatial_commands(world):
+        if overrides != loaded:
+            trainer, loaded = None, None
+        gc.collect()
+        torch.cuda.empty_cache()
+        zeroed = "zeroed" in name
+        try:
+            la.reset_launches()
+            _sync()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            value = None
+            if kind == "test":
+                value = reload_and_test(spec["registry"], spec["run_id"], overrides, device="cuda")
+            else:
+                if trainer is None:
+                    trainer = reload_trainer(spec["registry"], spec["run_id"], overrides, device="cuda")
+                    loaded = overrides
+                _sync()
+                if zeroed:
+                    spatial._halo_all_reduce = lambda buf: buf
+                    torch.cuda.memory._record_memory_history(max_entries=2_000_000, stacks="python")
+                torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+                got = _spatial_request(trainer) if kind == "request" else _spatial_forward(trainer, halo)
+                _sync()
+                arrays.update({f"{name}|{k}": v for k, v in got.items()})
+                if zeroed:
+                    history = _peak_blocks(torch.cuda.memory._snapshot())
+                    torch.cuda.memory._record_memory_history(enabled=None)
+            _sync()
+            out[name] = {"seconds": time.perf_counter() - t, "launches": la.launches, "split": la.split_launches,
+                         "peak": torch.cuda.max_memory_allocated(), "value": value}
+        finally:
+            spatial._halo_all_reduce = halo
+    del trainer
+    np.savez(os.path.join(work, f"out{world}_rank{rank}.npz"), **arrays)
+    # the host round trip of one collective over the model group: a GroupNorm's
+    # moments at 120 rows (2 x 120 x 8 f32) on the card, and the same on the host,
+    # timed with the card idle
+    round_trip = {}
+    if distributed.model_size() > 1:
+        for where in ("cuda", "cpu"):
+            moments = torch.ones((2, 120, 8), device=where)
+            for _ in range(20):
+                distributed.model_all_reduce(moments)
+            _sync()
+            t = time.perf_counter()
+            for _ in range(200):
+                distributed.model_all_reduce(moments)
+            _sync()
+            round_trip[where] = (time.perf_counter() - t) / 200
+    with open(os.path.join(work, f"spatial{world}_rank{rank}.json"), "w") as f:
+        json.dump({"commands": out, "backend": distributed.backend(), "model_size": distributed.model_size(),
+                   "all_reduce_s": round_trip, "history": history}, f)
+    distributed.barrier()
+    if distributed.active():
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def _metrics_rel(got, want):
+    """The largest |got - want| / max(|want|) over the test metrics (no
+    throughput)."""
+    keys = [k for k in want if "frames_per_sec" not in k]
+    scale = max(abs(want[k]) for k in keys)
+    return max(abs(got[k] - want[k]) for k in keys) / scale
+
+
+def phase_spatial(card, reg=None, run_id=None):
+    """Spatial sharding on the card (eval path). 1. The split B1 kernel
+    against its plain version at the per-rank SST shapes
+    (:func:`_spatial_b1_check`). 2. The SST stages trained on one rank
+    (``[ddp]``'s one-rank commands: 8 steps a stage, f32, TF32 off; the
+    full run reuses ``[ddp]``'s run, ``reg``/``run_id``). 3. Two gloo ranks
+    sharing cuda:0 (``chip_smoke.py --spatial-rank``, the launcher's
+    environment) split the grid's H axis, beside a one-rank witness
+    (``WORLD_SIZE=1``) and the CLI's own spawn of two ranks on the W axis
+    (``mode=test``, the test split's 23 rows as one batch of 10 members):
+    requests of the predict split (6 rows, 20 members): in f32 with the SST
+    workload's dropout, the same with every halo zeroed (the negative
+    control, under a memory history), both, and ``mode=test``, with the
+    sampler cut to 13 forwards (no auxiliary steps; :data:`SPATIAL_SHORT`);
+    one full bf16 request with dropout off; one forecaster forward in f32,
+    bf16 and bf16 with every halo zeroed. Checks: the f32 request within
+    1e-3 of max|one rank| and the zeroed-halo request beyond it; the bf16
+    forward within 5e-2 of max|one rank| and its zeroed halos beyond it;
+    the W-axis test metrics within 1e-3 relative; B1 378 calls per full
+    request (78 per cut one) on each rank, every one split across the
+    ranks; each rank's peak device memory for the bf16 request at most
+    0.7x the witness's. Returns the two ranks' B1 launches, the
+    per-request count and the split kernel's times."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    times = _spatial_b1_check()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spatial_") as work:
+        if reg is None:  # train the SST stages on one rank, as [ddp] does
+            from dyffusion_tpu_torch import train
+
+            reg = os.path.join(work, "registry")
+            commands, _, run_id = _ddp_commands(reg, 1)
+            for _, argv in commands[:2]:
+                train.main(argv)
+        with open(os.path.join(work, "spatial.json"), "w") as f:
+            json.dump({"registry": reg, "run_id": run_id}, f)
+        port = _free_port()
+        procs = {}
+        t = time.perf_counter()
+        for rank in range(2):
+            env = {**os.environ, "RANK": str(rank), "LOCAL_RANK": str(rank), "WORLD_SIZE": "2",
+                   "LOCAL_WORLD_SIZE": "2", "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+            procs[f"rank{rank}"] = _ddp_start(work, f"rank{rank}", [os.path.abspath(__file__), "--spatial-rank", work],
+                                              env)
+        env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+        procs["witness"] = _ddp_start(work, "witness", [os.path.abspath(__file__), "--spatial-rank", work], env)
+        procs["cli w"] = _ddp_start(work, "cli_w", [
+            "-m", "dyffusion_tpu_torch.train", "mode=test", f"run_id={run_id}", f"registry_dir={reg}",
+            "trainer.devices=2", "trainer.spatial_shards=2", "trainer.spatial_axis=w", *SPATIAL_TEST])
+        seconds = _ddp_finish(work, procs, t)
+        ranks = [json.load(open(os.path.join(work, f"spatial2_rank{r}.json"))) for r in range(2)]
+        one = json.load(open(os.path.join(work, "spatial1_rank0.json")))
+        with open(os.path.join(work, "cli_w.log")) as f:
+            cli_w = [json.loads(x) for x in f if x.startswith('{"test/')][-1]
+        slabs = [np.load(os.path.join(work, f"out2_rank{r}.npz")) for r in range(2)]
+        p1 = dict(np.load(os.path.join(work, "out1_rank0.npz")))
+        # the two ranks' H slabs joined: axis 2 of (members, rows, H, W, C) and of NCHW
+        p2 = {k: np.concatenate([s[k] for s in slabs], axis=2) for k in slabs[0].files}
+    print(f"[spatial] processes: {json.dumps({k: round(v, 1) for k, v in seconds.items()})} s (sharing the card); "
+          f"backends {[r['backend'] for r in ranks]}, model axis {[r['model_size'] for r in ranks]}; one gloo "
+          f"all_reduce of a GroupNorm's moments (7.7 KB on cuda:0 and on the host), card idle, ms: "
+          f"{json.dumps([{k: round(v * 1e3, 3) for k, v in r['all_reduce_s'].items()} for r in ranks])}")
+    assert all(r["backend"] == "gloo" and r["model_size"] == 2 for r in ranks)
+    for name, c1 in one["commands"].items():
+        print(f"[spatial] {name}: one rank {c1['seconds']:.2f} s, peak {c1['peak'] / 2**30:.3f} GiB, B1 "
+              f"{c1['launches']}; on {card}")
+    for name in ranks[0]["commands"]:
+        print(f"[spatial] {name}: two ranks " + "; ".join(
+            f"{r['commands'][name]['seconds']:.2f} s, peak {r['commands'][name]['peak'] / 2**30:.3f} GiB, "
+            f"B1 {r['commands'][name]['launches']} ({r['commands'][name]['split']} split)" for r in ranks)
+            + f"; on {card}")
+
+    # the answers, relative to max|one rank|
+    def rel(name2, name1):
+        keys = [k for k in p1 if k.startswith(f"{name1}|")]
+        assert keys, name1
+        return max(float(np.abs(p2[k.replace(name1, name2, 1)] - p1[k]).max()) / float(np.abs(p1[k]).max())
+                   for k in keys)
+
+    req = rel("request f32", "request f32")
+    zeroed = rel("request f32, halos zeroed", "request f32")
+    bf16 = rel("request bf16", "request bf16")
+    t_w = _metrics_rel(cli_w, one["commands"]["test f32"]["value"])
+    print(f"[spatial] two ranks vs one, rel. to max|one rank|: f32 request (dropout on, no auxiliary steps) "
+          f"{req:.3e}, the same with every halo zeroed {zeroed:.3e} (must exceed {SPATIAL_TOL}), bf16 request "
+          f"(dropout off, full) {bf16:.3e}; mode=test f32 metrics on W (the CLI's own ranks) {t_w:.3e}, "
+          f"test/crps one rank {one['commands']['test f32']['value']['test/crps']:.6f}, two ranks "
+          f"{cli_w['test/crps']:.6f}")
+    assert req <= SPATIAL_TOL and t_w <= SPATIAL_TOL, "two ranks disagree with one rank"
+    assert zeroed > SPATIAL_TOL, "the zeroed halos pass the check: it does not bite"
+
+    # the forecaster's forward: bf16 (the eval precision) and f32, two ranks against one
+    fwd = {name: float(np.abs(p2[f"forward|{name}"] - p1[f"forward|{ref}"]).max())
+           / float(np.abs(p1[f"forward|{ref}"]).max())
+           for name, ref in (("f32", "f32"), ("bf16", "bf16"), ("bf16, halos zeroed", "bf16"))}
+    bf16_vs_f32 = float(np.abs(p1["forward|bf16"] - p1["forward|f32"]).max()) / float(np.abs(p1["forward|f32"]).max())
+    print(f"[spatial] one forecaster forward ({SPATIAL_FORWARD_ROWS} rows, dropout off), two ranks vs one, rel. to "
+          f"max|one rank|: f32 {fwd['f32']:.3e}, bf16 {fwd['bf16']:.3e} (limit {SPATIAL_BF16_TOL}), bf16 with every "
+          f"halo zeroed {fwd['bf16, halos zeroed']:.3e} (must exceed it); one rank's bf16 vs its f32 {bf16_vs_f32:.3e}")
+    assert fwd["f32"] <= SPATIAL_TOL and fwd["bf16"] <= SPATIAL_BF16_TOL, "the sharded forward disagrees with one rank"
+    assert fwd["bf16, halos zeroed"] > SPATIAL_BF16_TOL, "the zeroed halos pass the bf16 check: it does not bite"
+
+    # B1: on each rank the one-rank count of each request (378 at full depth), every call split
+    per_request = one["commands"]["request bf16"]["launches"]
+    assert per_request == 378, per_request
+    for r in ranks:
+        for name, c in r["commands"].items():
+            want = one["commands"][name.replace(", halos zeroed", "")]["launches"]
+            if name == "forward":  # the ranks' three forwards (the zeroed one too) against the witness's two
+                want = want * 3 // 2
+            assert c["launches"] == want == c["split"], (name, c["launches"], c["split"], want)
+    assert all(c["split"] == 0 for c in one["commands"].values())
+
+    # memory: each rank's peak for the dropout-off bf16 request against one rank's (the check), and
+    # for the dropout-on f32 request (printed), with the largest blocks alive at the zeroed-halo
+    # request's peak (the same request under a memory history)
+    def ratios(name):
+        return [r["commands"][name]["peak"] / one["commands"][name]["peak"] for r in ranks]
+
+    ratio = max(ratios("request bf16"))
+    print(f"[spatial] peak device memory of the bf16 request (dropout off), per rank over one rank's: "
+          f"{', '.join(f'{x:.3f}' for x in ratios('request bf16'))} (limit {SPATIAL_MEMORY_LIMIT}); of the f32 request "
+          f"(dropout on, no auxiliary steps): {', '.join(f'{x:.3f}' for x in ratios('request f32'))}")
+    for r, rk in enumerate(ranks):
+        print(f"[spatial] rank {r}, the f32 request with its halos zeroed under a memory history: the largest blocks "
+              f"alive at its peak: {json.dumps(rk['history'])}")
+    assert ratio <= SPATIAL_MEMORY_LIMIT, f"a rank's peak memory is {ratio:.3f} of one rank's"
+    print(f"[spatial] two ranks on one card measure no scaling and no NVLink traffic; phase wall time "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    launches = sum(c["launches"] for r in ranks for c in r["commands"].values())
+    return launches, per_request, times
+
+
 def main(argv) -> int:
     import torch
 
@@ -3252,14 +3681,19 @@ def main(argv) -> int:
         return ddp_rank_main(argv[1])
     if len(argv) == 2 and argv[0] == "--ddp-witness":  # the one-rank witnesses of [ddp]
         return ddp_witness_main(argv[1])
+    if len(argv) == 2 and argv[0] == "--spatial-rank":  # a rank (or the witness) of [spatial]
+        return spatial_rank_main(argv[1])
     modes = ([], ["--profile"], ["--kernels"], ["--physical"], ["--baselines"], ["--ncsnpp"], ["--export"], ["--oisst"],
-             ["--members"], ["--ddp"])
+             ["--members"], ["--ddp"], ["--spatial"])
     if argv not in modes:
         raise SystemExit(
             "usage: python3 chip_smoke.py [--profile | --kernels | --physical | --baselines | --ncsnpp | --export "
-            "| --oisst | --members | --ddp]")
+            "| --oisst | --members | --ddp | --spatial]")
     name, smi = phase_device()
     phase_build()
+    if argv == ["--spatial"]:
+        phase_spatial(smi)
+        return 0
     if argv == ["--members"]:
         phase_members(smi)
         return 0
@@ -3332,7 +3766,10 @@ def main(argv) -> int:
                 p.stop()
     oisst, oisst_per_request = phase_oisst(smi)
     members, members_per_request = phase_members(smi)
-    ddp = phase_ddp(smi)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_") as work:
+        ddp = phase_ddp(smi, work)  # [spatial] tests [ddp]'s one-rank stage-2 run
+        spatial, spatial_per_request, spatial_times = phase_spatial(
+            smi, os.path.join(work, "registry1"), _ddp_commands(os.path.join(work, "registry1"), 1)[2])
     # B1's top-level numbers are the [train] path's (this slice's main path);
     # by_path keeps each path's own count, read after setting it to 0.
     # No single PyTorch call computes any of the three functions: library_ms is null
@@ -3348,7 +3785,9 @@ def main(argv) -> int:
                      "export": {"launches": export, "per_request": export_per_request},
                      "oisst": {"launches": oisst, "per_request": oisst_per_request},
                      "members": {"launches": members, "per_request": members_per_request},
-                     "ddp": {"launches": ddp}}},
+                     "ddp": {"launches": ddp},
+                     "spatial": {"launches": spatial, "per_request": spatial_per_request,
+                                 "split_per_rank": spatial_times}}},
         {"name": "fused_leaky_relu", "route": "cuda", "source": fa.SOURCE, "replaces": fa.REPLACES,
          "launches": op_launches["fused_leaky_relu"], **b2, "library_ms": None,
          "by_path": {p: {"launches": c["fused_leaky_relu"]} for p, c in {**physical, "ncsnpp": ncsnpp}.items()}},

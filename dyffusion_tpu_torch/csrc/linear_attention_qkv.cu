@@ -55,8 +55,20 @@
 //    layout), else through a shared tile, one token's channels per warp
 //    store.
 //
+// Split across ranks (spatial sharding: each rank of a model group holds
+// some of the N tokens). The entry points run the passes one at a time:
+// the partial pass over the rank's tokens (linear_attention_qkv_partials),
+// then a merge of its S chunks (linear_attention_qkv_merge: first each
+// (b, h, d)'s maximum m over the chunks; the caller takes the global
+// maximum M over the ranks; then, in a second call, one partial per (b, h)
+// with l and C rescaled by e^{m_s - M} and summed over the chunks, its
+// m set to 0: the sum over ranks of such partials is the global one), and,
+// once the caller has summed that partial over the ranks, the output pass
+// over the rank's tokens with S = 1 and the global N in its v / N
+// (linear_attention_qkv_output).
+//
 // Plain C interface, loaded with ctypes; returns the first CUDA error of
-// the two launches (cudaGetLastError() after each).
+// the launches (cudaGetLastError() after each).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -380,7 +392,7 @@ template <typename T, int VEC>
 __global__ void __launch_bounds__(OUT_THREADS, output_min_blocks<T>())
 linear_attention_qkv_output_kernel(const T* __restrict__ q, const float* __restrict__ ws, T* __restrict__ out,
                                    int N, int heads, int S, int64_t sb, int64_t sn, int64_t sc, int64_t ob,
-                                   int64_t on, int64_t oc, float scale) {
+                                   int64_t on, int64_t oc, int n_norm, float scale) {
   __shared__ __align__(16) float ctx[D * D];
   __shared__ float tile[OUT_THREADS * LDO];
   const int bh = blockIdx.x, b = bh / heads, h = bh % heads, tid = threadIdx.x;
@@ -402,7 +414,7 @@ linear_attention_qkv_output_kernel(const T* __restrict__ q, const float* __restr
       c[0] = fmaf(w, a.x, c[0]); c[1] = fmaf(w, a.y, c[1]); c[2] = fmaf(w, a.z, c[2]); c[3] = fmaf(w, a.w, c[3]);
       c[4] = fmaf(w, r.x, c[4]); c[5] = fmaf(w, r.y, c[5]); c[6] = fmaf(w, r.z, c[6]); c[7] = fmaf(w, r.w, c[7]);
     }
-    const float f = scale / (L * (float)N);
+    const float f = scale / (L * (float)n_norm);  // v / N with the N of every rank's tokens
     st4(ctx + d * D + e0, c[0] * f, c[1] * f, c[2] * f, c[3] * f);
     st4(ctx + d * D + e0 + 4, c[4] * f, c[5] * f, c[6] * f, c[7] * f);
   }
@@ -475,6 +487,8 @@ struct Args {
   int B, N, heads;
   int64_t sb, sn, sc, ob, on, oc;
   int S, S2;
+  int n_norm;  // the N of v / N: N, or all ranks' tokens when split
+  int passes;  // 1: partial pass, 2: output pass, 3: both
   float scale;
   cudaStream_t stream;
 };
@@ -494,12 +508,14 @@ cudaError_t run(const Args& a, int* occupancy) {
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &occupancy[1], linear_attention_qkv_output_kernel<T, OUT_VEC>, OUT_THREADS, 0);
   }
-  linear_attention_qkv_partial_kernel<T, VEC, TOKENS_FAST><<<dim3(a.B * a.heads, a.S), THREADS, smem, a.stream>>>(
-      (const T*)a.k, (const T*)a.v, a.ws, a.N, a.heads, a.sb, a.sn, a.sc);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (a.passes & 1) {
+    linear_attention_qkv_partial_kernel<T, VEC, TOKENS_FAST><<<dim3(a.B * a.heads, a.S), THREADS, smem, a.stream>>>(
+        (const T*)a.k, (const T*)a.v, a.ws, a.N, a.heads, a.sb, a.sn, a.sc);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || !(a.passes & 2)) return err;
+  }
   linear_attention_qkv_output_kernel<T, OUT_VEC><<<dim3(a.B * a.heads, a.S2), OUT_THREADS, 0, a.stream>>>(
-      (const T*)a.q, a.ws, (T*)a.out, a.N, a.heads, a.S, a.sb, a.sn, a.sc, a.ob, a.on, a.oc, a.scale);
+      (const T*)a.q, a.ws, (T*)a.out, a.N, a.heads, a.S, a.sb, a.sn, a.sc, a.ob, a.on, a.oc, a.n_norm, a.scale);
   return cudaGetLastError();
 }
 
@@ -539,7 +555,7 @@ extern "C" int linear_attention_qkv_launch(const void* q, const void* k, const v
                                            int64_t oc, int S, int S2, float scale, void* stream) {
   if (dim_head != D || B <= 0 || N <= 0 || heads <= 0 || S <= 0 || S2 <= 0 || S > 65535 || S2 > 65535)
     return (int)cudaErrorInvalidValue;
-  const Args a{q, k, v, out, (float*)ws, B, N, heads, sb, sn, sc, ob, on, oc, S, S2, scale, (cudaStream_t)stream};
+  const Args a{q, k, v, out, (float*)ws, B, N, heads, sb, sn, sc, ob, on, oc, S, S2, N, 3, scale, (cudaStream_t)stream};
   return (int)dispatch(is_bf16, vec, tokens_fast, a, nullptr);
 }
 
@@ -548,4 +564,86 @@ extern "C" int linear_attention_qkv_launch(const void* q, const void* k, const v
 extern "C" int linear_attention_qkv_occupancy(int is_bf16, int vec, int tokens_fast, int* blocks_per_sm) {
   const Args a{};
   return (int)dispatch(is_bf16, vec, tokens_fast, a, blocks_per_sm);
+}
+
+// The partial pass alone over (B, N, heads*D) k and v (the base pointers of
+// linear_attention_qkv_launch): ws receives B*heads*S partials.
+extern "C" int linear_attention_qkv_partials(const void* k, const void* v, void* ws, int is_bf16, int vec,
+                                             int tokens_fast, int B, int N, int heads, int dim_head, int64_t sb,
+                                             int64_t sn, int64_t sc, int S, void* stream) {
+  if (dim_head != D || B <= 0 || N <= 0 || heads <= 0 || S <= 0 || S > 65535) return (int)cudaErrorInvalidValue;
+  const Args a{nullptr, k, v, nullptr, (float*)ws, B, N, heads, sb, sn, sc, 0, 0, 0, S, 1, N, 1, 0.f,
+               (cudaStream_t)stream};
+  return (int)dispatch(is_bf16, vec, tokens_fast, a, nullptr);
+}
+
+// The output pass alone: ws holds one partial per (b, h) (S = 1 after a
+// merge), n_norm the N of v / N.
+extern "C" int linear_attention_qkv_output(const void* q, void* out, const void* ws, int is_bf16, int vec,
+                                           int tokens_fast, int B, int N, int heads, int dim_head, int64_t sb,
+                                           int64_t sn, int64_t sc, int64_t ob, int64_t on, int64_t oc, int S,
+                                           int S2, int n_norm, float scale, void* stream) {
+  if (dim_head != D || B <= 0 || N <= 0 || heads <= 0 || S <= 0 || S2 <= 0 || S2 > 65535 || n_norm <= 0)
+    return (int)cudaErrorInvalidValue;
+  const Args a{q, nullptr, nullptr, out, (float*)ws, B, N, heads, sb, sn, sc, ob, on, oc, S, S2, n_norm, 2, scale,
+               (cudaStream_t)stream};
+  return (int)dispatch(is_bf16, vec, tokens_fast, a, nullptr);
+}
+
+namespace {
+
+constexpr int MERGE_THREADS = D * D / 4;  // 4 context elements per thread
+
+// Block bh of the merge over the S chunk partials of one (b, h) in ws.
+// M == nullptr: maxima[bh][d] = max_s m_s[d]. Else, with M the maxima over
+// every rank: merged[bh] = the partial of the rank's tokens at M, C[d][e]
+// and l[d] times e^{m_s[d] - M[d]} summed over the chunks (an empty chunk,
+// m = -inf, adds nothing), its m 0.
+__global__ void __launch_bounds__(MERGE_THREADS)
+linear_attention_qkv_merge_kernel(const float* __restrict__ ws, int S, const float* __restrict__ M,
+                                  float* __restrict__ maxima, float* __restrict__ merged) {
+  const int bh = blockIdx.x, tid = threadIdx.x;
+  const float* part = ws + (int64_t)bh * S * PART;
+  if (M == nullptr) {
+    if (tid < D) {
+      float m = -CUDART_INF_F;
+      for (int s = 0; s < S; ++s) m = fmaxf(m, part[s * PART + D * D + tid]);
+      maxima[bh * D + tid] = m;
+    }
+    return;
+  }
+  float* dst = merged + (int64_t)bh * PART;
+  const int idx = tid * 4, d = idx / D;  // four elements of row d of C
+  const float Md = M[bh * D + d];
+  float4 c = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < S; ++s) {
+    const float m = part[s * PART + D * D + d];
+    const float w = m == -CUDART_INF_F ? 0.f : expf(m - Md);
+    const float4 r = ld4(part + s * PART + idx);
+    c.x = fmaf(w, r.x, c.x); c.y = fmaf(w, r.y, c.y); c.z = fmaf(w, r.z, c.z); c.w = fmaf(w, r.w, c.w);
+  }
+  *reinterpret_cast<float4*>(dst + idx) = c;
+  if (tid < D) {
+    const float Mt = M[bh * D + tid];
+    float l = 0.f;
+    for (int s = 0; s < S; ++s) {
+      const float m = part[s * PART + D * D + tid];
+      l = fmaf(part[s * PART + D * D + D + tid], m == -CUDART_INF_F ? 0.f : expf(m - Mt), l);
+    }
+    dst[D * D + tid] = 0.f;
+    dst[D * D + D + tid] = l;
+  }
+}
+
+}  // namespace
+
+// ws: BH*S partials of the partial pass. M == nullptr: write each (b, h,
+// d)'s maximum over the chunks to maxima (BH*D floats). Else: write to
+// merged (BH*(D*D + 2*D) floats) one partial per (b, h) at the maxima M.
+extern "C" int linear_attention_qkv_merge(const void* ws, int BH, int S, const void* M, void* maxima, void* merged,
+                                          void* stream) {
+  if (BH <= 0 || S <= 0 || (M == nullptr ? maxima == nullptr : merged == nullptr)) return (int)cudaErrorInvalidValue;
+  linear_attention_qkv_merge_kernel<<<BH, MERGE_THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)ws, S, (const float*)M, (float*)maxima, (float*)merged);
+  return (int)cudaGetLastError();
 }

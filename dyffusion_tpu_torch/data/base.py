@@ -5,13 +5,19 @@ the JAX package), so the same seed gives identical arrays in both packages:
 trajectories become (example, time, H, W, C) windows, batched by simple
 host-side iterators. Arrays keep the JAX package's channels-last layout; the
 experiments move channels in front when they hand data to the models.
+:func:`local_eval_batches` gives each rank of a process group its box of
+every eval batch: its data index's rows of the batch padded to the data
+axis and, under spatial sharding, its model index's slab of every grid
+value (``parallel.mesh.process_local_box``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Iterator, Optional
+from typing import Any, Dict, Iterable, Iterator, Optional
 
 import numpy as np
+
+from dyffusion_tpu_torch.parallel.mesh import local_batch, process_local_rows
 
 
 def sliding_window_multi_horizon(trajectory: np.ndarray, window: int, horizon: int) -> np.ndarray:
@@ -51,6 +57,37 @@ def build_examples(
     for k, v in meta_out.items():
         out[k] = np.concatenate(v, axis=0)
     return out
+
+
+def pad_batch(batch: Dict[str, Any], target: int):
+    """Pad a host batch to ``target`` rows by repeating its last row;
+    returns ``(padded batch, number of real rows)``."""
+    n = int(next(iter(batch.values())).shape[0])
+    if n == target:
+        return batch, n
+    if n > target:
+        raise ValueError(f"a batch of {n} rows exceeds the pad target {target}")
+    idx = np.concatenate([np.arange(n), np.full(target - n, n - 1, dtype=np.int64)])
+    return {k: np.asarray(v)[idx] for k, v in batch.items()}, n
+
+
+def local_eval_batches(batches: Iterable[Dict[str, Any]], data_rank: int = 0, data_size: int = 1, axis: str = "h",
+                       model_rank: int = 0, model_size: int = 1):
+    """``(this rank's box of the batch, the valid mask of its rows, first
+    row, padded rows, real rows)`` per eval batch: each batch padded to a
+    multiple of ``data_size`` by repeating its last row, then split into
+    equal blocks of rows, and with ``model_size`` > 1 each grid value's H
+    or W axis (``axis``) into equal slabs (one rank: the whole batch, all
+    valid)."""
+    import torch
+
+    for batch in batches:
+        n = int(next(iter(batch.values())).shape[0])
+        target = -(-n // data_size) * data_size
+        padded, n_valid = pad_batch(batch, target)
+        rows = process_local_rows(target, data_rank, data_size)
+        valid = torch.arange(rows.start, rows.stop) < n_valid
+        yield local_batch(padded, rows, axis, model_rank, model_size), valid, rows.start, target, n_valid
 
 
 @dataclasses.dataclass

@@ -292,7 +292,7 @@ class DyffusionEngine:
             return condition
         # data+noise: blend the condition with N(0, 1) noise by t/(N-1)
         tfac = (t / (self.num_timesteps - 1)).reshape((-1,) + (1,) * (condition.ndim - 1))
-        noise = rng.row_randn(condition.shape, generator, condition.device, condition.dtype)
+        noise = rng.row_randn(condition.shape, generator, condition.device, condition.dtype, grid=True)
         return tfac * condition + (1.0 - tfac) * noise
 
     def predict_x_last(
@@ -551,7 +551,7 @@ class DyffusionEngine:
         for i, g in enumerate(generators):
             ic = initial_condition[i] if per_member else initial_condition
             if inputs_noise > 0:
-                ic = ic + inputs_noise * rng.randn(ic.shape, g, ic.device, ic.dtype)
+                ic = ic + inputs_noise * rng.grid_randn(ic.shape, g, ic.device, ic.dtype)
             preds.append(self.sample(fc_params, ip_params, g, ic, static_condition))
         return torch.stack(preds)
 

@@ -37,6 +37,7 @@ import torch
 
 from dyffusion_tpu_torch.experiments.base import Experiment, cast_params, stack_window
 from dyffusion_tpu_torch.models.base import MODEL_STATE_UPDATES, apply_model, apply_model_train
+from dyffusion_tpu_torch.parallel import spatial
 from dyffusion_tpu_torch.utils import rng
 from dyffusion_tpu_torch.utils.loss import get_loss_fn
 
@@ -140,7 +141,7 @@ class ForecastingExperiment(Experiment):
                 nxt = self.next_window_inputs(preds)  # (N, B, w*C, H, W)
                 x = nxt.reshape((n_members * B,) + tuple(nxt.shape[2:]))
             if noise > 0:
-                x = x + noise * rng.randn(x.shape, generator, x.device, x.dtype)
+                x = x + noise * rng.grid_randn(x.shape, generator, x.device, x.dtype)
             p = window_fn(x, sc_flat, generator).float()
             p = p.reshape((n_members, B) + tuple(p.shape[1:])).permute(0, 1, 2, 4, 5, 3)  # (N, B, h, H, W, C)
             preds = self.record_window(out, p, meta, ar, dynamics)
@@ -174,7 +175,7 @@ class ForecastingExperiment(Experiment):
             for i, g in enumerate(generators):
                 x = x0 if inputs is None else inputs[i]
                 if noise > 0:
-                    x = x + noise * rng.randn(x.shape, g, x.device, x.dtype)
+                    x = x + noise * rng.grid_randn(x.shape, g, x.device, x.dtype)
                 ps.append(window_fn(x, static, g).float())
             p = torch.stack(ps).permute(0, 1, 2, 4, 5, 3)  # (N, B, h, H, W, C)
             preds = self.record_window(out, p, meta, ar, dynamics)
@@ -273,7 +274,8 @@ class DyffusionForecastingExperiment(ForecastingExperiment):
             cond_flat = _tile(stack_window(dynamics, self.cfg.window).to(dtype))
             sc_flat = None if static_cond is None else _tile(static_cond.to(dtype))
             if noise > 0:
-                cond_flat = cond_flat + noise * rng.randn(cond_flat.shape, generator, cond_flat.device, cond_flat.dtype)
+                cond_flat = cond_flat + noise * rng.grid_randn(
+                    cond_flat.shape, generator, cond_flat.device, cond_flat.dtype)
             preds = _unfold(engine.sample(fc_params, ip_params, generator, cond_flat, sc_flat), B)
             preds = self.record_window(out, preds, meta, 0, dynamics)
             for ar in range(1, n_windows):
@@ -432,6 +434,7 @@ class SimultaneousForecastingExperiment(ForecastingExperiment):
 
             def window(x, sc, g):
                 if self.diffusion_engine is not None:
+                    spatial.refuse(f"the {type(self.diffusion_engine).__name__} sampler", spatial.BACKBONES)
                     out = self.diffusion_engine.sample(p, g, self.diffusion_condition(x, sc))
                 else:
                     out = apply_model(self.model, p, x, None, sc, g if use_dropout else None)

@@ -92,7 +92,9 @@ class InterpolationExperiment(Experiment):
                 c = None if cond is None else cond.to(dtype)
                 preds = {i: [] for i in self.horizon_range}
                 for g in rng.split(generator, n_members):
-                    x = inputs + noise * rng.randn(inputs.shape, g, inputs.device, inputs.dtype) if noise > 0 else inputs
+                    x = inputs
+                    if noise > 0:
+                        x = inputs + noise * rng.grid_randn(inputs.shape, g, inputs.device, inputs.dtype)
                     for i in self.horizon_range:
                         t_b = torch.full((B,), float(i), dtype=torch.float32, device=x.device)
                         pred = apply_model(self.model, p, x, t_b, c, g if use_dropout else None)
@@ -104,7 +106,7 @@ class InterpolationExperiment(Experiment):
             x = _tile(self.get_inputs(dynamics).to(dtype))
             c_flat = None if cond is None else _tile(cond.to(dtype))
             if noise > 0:
-                x = x + noise * rng.randn(x.shape, generator, x.device, x.dtype)
+                x = x + noise * rng.grid_randn(x.shape, generator, x.device, x.dtype)
             for i in self.horizon_range:
                 t_b = torch.full((x.shape[0],), float(i), dtype=torch.float32, device=x.device)
                 pred = apply_model(self.model, p, x, t_b, c_flat, generator if use_dropout else None)

@@ -57,7 +57,7 @@ from dyffusion_tpu_torch.experiments import (
 )
 from dyffusion_tpu_torch.experiments.base import resolve_device
 from dyffusion_tpu_torch.models import build_backbone
-from dyffusion_tpu_torch.parallel import distributed
+from dyffusion_tpu_torch.parallel import distributed, spatial
 from dyffusion_tpu_torch.parallel.mesh import replicate_state
 from dyffusion_tpu_torch.training import Trainer, TrainState, build_optimizer, mixed_precision_loss
 from dyffusion_tpu_torch.training.checkpoint import CheckpointManager, find_run_dir
@@ -302,20 +302,24 @@ def build_trainer(
     run_dir: Optional[str] = None,
 ) -> Trainer:
     """The :class:`Trainer` of one stage, ready to ``fit``: datamodule set up
-    (its batch size scaled by the world size and by the fold factor when
+    (its batch size scaled by the data axis and by the fold factor when
     accumulation is folded: the GLOBAL batch, of which each rank takes its
     rows), experiment, loss in the config's precision, train state (the
     same on every rank). ``module.train_dtype=bfloat16`` (or a half
     ``trainer.precision``) trains in bf16 mixed precision. With ``run_dir``
     the trainer keeps its checkpoints there (unless
-    ``trainer.save_checkpoints`` is false)."""
+    ``trainer.save_checkpoints`` is false). Under ``trainer.spatial_shards=K``
+    the world is a D x K grid and the trainer evaluates on slabs of the
+    grid's ``trainer.spatial_axis`` (training raises)."""
     device = _join_world(config, device)
     tr_cfg = config.get("trainer", {}) or {}
     datamodule = datamodule or get_datamodule(config)
     datamodule.setup()
+    axis = str(tr_cfg.get("spatial_axis", "h") or "h")
+    _check_spatial_divisibility(datamodule, distributed.model_size(), axis)
     _, fold_factor = accumulation_layout(config)
-    # the micro-batches of one step run as one physical batch; the global batch spans the ranks
-    datamodule.batch_size = datamodule.batch_size * fold_factor * distributed.world_size()
+    # the micro-batches of one step run as one physical batch; the global batch spans the data axis
+    datamodule.batch_size = datamodule.batch_size * fold_factor * distributed.data_size()
     exp, model, loss_fn, eval_fns, _ = build_experiment(config, datamodule, interpolator=interpolator, device=device)
     # trainer.precision is an alias of module.train_dtype: any half precision means bf16-mixed
     precision = str(tr_cfg.get("precision", 32))
@@ -340,7 +344,36 @@ def build_trainer(
         run_dir=run_dir,
         save_checkpoints=tr_cfg.get("save_checkpoints", True),
         watch_gradients=tr_cfg.get("watch_gradients", False),
+        spatial_axis=axis,
     )
+
+
+def _check_spatial_divisibility(datamodule: DataModule, n_model: int, axis: str = "h") -> None:
+    """The JAX package's check (``interface._check_spatial_divisibility``):
+    K must divide the grid's sharded extent (the port's lower levels may
+    split unevenly, but the batches split into equal slabs)."""
+    if n_model <= 1:
+        return
+    if axis not in ("h", "w"):
+        raise ValueError(f"trainer.spatial_axis must be 'h' or 'w', got {axis!r}")
+    extent = int(datamodule.dims["spatial"][0 if axis == "h" else 1])
+    name = "height H" if axis == "h" else "width W"
+    if extent % n_model:
+        raise ValueError(
+            f"trainer.spatial_shards={n_model} must divide the grid {name}={extent} "
+            f"(got {extent} % {n_model} = {extent % n_model}); pick a divisor of "
+            f"{extent} or shard the other axis (trainer.spatial_axis)"
+        )
+
+
+def refuse_spatial_training(config: Dict[str, Any]) -> None:
+    """Training under ``trainer.spatial_shards > 1`` raises: only the eval
+    path is ported (ROADMAP A1, spatial training)."""
+    k = int((config.get("trainer") or {}).get("spatial_shards", 1) or 1)
+    if k > 1:
+        raise NotImplementedError(
+            f"training under trainer.spatial_shards={k} is not ported; mode=test, Trainer.evaluate and "
+            f"Trainer.predict run sharded (ROADMAP {spatial.TRAINING})")
 
 
 def _join_world(config: Dict[str, Any], device: torch.device | str) -> torch.device:
@@ -348,14 +381,10 @@ def _join_world(config: Dict[str, Any], device: torch.device | str) -> torch.dev
     against its world, and return this rank's device for ``device``.
     ``trainer.devices`` is ``auto`` (the group's world, 1 outside one), or
     an int that must equal the world: the CLI starts N ranks for
-    ``trainer.devices=N``, ``torchrun`` starts its own. Spatial sharding is
-    not ported."""
+    ``trainer.devices=N``, ``torchrun`` starts its own.
+    ``trainer.spatial_shards=K`` must divide the world, which becomes a
+    D x K grid (``distributed.set_model_axis``)."""
     tr = config.get("trainer") or {}
-    if int(tr.get("spatial_shards", 1) or 1) > 1:
-        raise NotImplementedError(
-            "trainer.spatial_shards > 1 (spatial sharding over DTensor with conv halo exchange) is not ported "
-            "(ROADMAP A: spatial sharding)"
-        )
     distributed.init_distributed(device)
     devices, world = tr.get("devices", "auto"), distributed.world_size()
     if devices not in ("auto", -1, None) and int(devices) != world:
@@ -364,6 +393,7 @@ def _join_world(config: Dict[str, Any], device: torch.device | str) -> torch.dev
             f"`python -m dyffusion_tpu_torch.train ... trainer.devices={devices}` (it spawns them) or with "
             f"`torchrun --nproc-per-node {devices}`, or set trainer.devices=auto"
         )
+    distributed.set_model_axis(int(tr.get("spatial_shards", 1) or 1))
     return resolve_device(distributed.rank_device(device))
 
 
@@ -399,7 +429,8 @@ def run_experiment(
     ``last``, and so does a crash before it re-raises. ``log_fn`` also
     receives every logged record. Stage 2 (``dyffusion``) loads its
     interpolator from the registry, or takes the stage-1 model in memory as
-    ``interpolator``."""
+    ``interpolator``. Under ``trainer.spatial_shards > 1`` it raises."""
+    refuse_spatial_training(config)
     device = _join_world(config, device)
     _apply_matmul_precision(config)
     run_id = config.get("run_id") or get_run_id(config)
@@ -465,13 +496,15 @@ def reload_trainer(
     ``overrides`` applied over it, and its ``slot`` checkpoint (``last`` if
     the run has no such slot) loaded, on the world ``trainer.devices``
     names (a run trained on N ranks reloads on N: ``trainer.devices=1``
-    among the ``overrides`` reloads it on one)."""
+    among the ``overrides`` reloads it on one), with the run's
+    ``matmul_precision``."""
     run_dir = find_run_dir(registry_dir, run_id)
     config = CheckpointManager(run_dir, monitor="val/crps").load_config()
     for ov in overrides or []:
         apply_override(config, ov)
     config["registry_dir"] = registry_dir
     config["run_id"] = run_id
+    _apply_matmul_precision(config)
     trainer = build_trainer(config, device=device, run_dir=run_dir)
     if not trainer.maybe_resume(slot=slot) and not trainer.maybe_resume(slot="last"):
         raise FileNotFoundError(f"no checkpoint in {run_dir}")

@@ -11,6 +11,13 @@ Dropout takes an explicit ``torch.Generator`` (or
 :data:`dyffusion_tpu_torch.utils.rng.DEVICE_DEFAULT`, the device's default
 generator, as the exported sampler draws); ``generator=None`` means
 deterministic, as ``dropout_rng=None`` does in the JAX package.
+
+Under spatial sharding (``parallel/spatial.py``) the ``Unet``'s blocks take
+the ``level`` of their input, this rank's slab of one resolution of the
+grid: dropout draws the global mask and keeps the slab's rows, the linear
+attention runs B1 split across the ranks, the mid-block attention takes
+this rank's queries against every rank's keys and values. ``level=None``
+is the one-device path, unchanged.
 """
 from __future__ import annotations
 
@@ -23,16 +30,21 @@ from torch import nn
 
 from dyffusion_tpu_torch.models.base import BatchNorm2d
 from dyffusion_tpu_torch.ops.linear_attention import linear_attention_qkv
+from dyffusion_tpu_torch.parallel import spatial
 from dyffusion_tpu_torch.utils import rng
 
 
-def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(
+    x: torch.Tensor, p: float, generator: Optional[torch.Generator], slab: Optional[rng.Slab] = None
+) -> torch.Tensor:
     """Inverted dropout with an explicit generator: keep each element with
     probability 1-p and scale it by 1/(1-p) (flax ``nn.Dropout``).
-    ``generator=None`` or ``p == 0`` returns ``x``."""
+    ``generator=None`` or ``p == 0`` returns ``x``. With ``slab`` (spatial
+    sharding), ``x`` is a rank's slab and its mask the slab of the global
+    draw."""
     if generator is None or p == 0.0:
         return x
-    keep = rng.rand(x.shape, generator, x.device) < 1.0 - p
+    keep = rng.rand(x.shape, generator, x.device, slab=slab) < 1.0 - p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -139,10 +151,16 @@ class WSConv(nn.Conv2d):
     def __init__(self, dim_in: int, dim_out: int, kernel_size: int = 3):
         super().__init__(dim_in, dim_out, kernel_size, padding=kernel_size // 2)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        eps = 1e-5 if x.dtype == torch.float32 else 1e-3
-        w = weight_standardize(self.weight, eps).to(x.dtype)
-        return F.conv2d(x, w, self.bias.to(x.dtype), padding=self.padding)
+    def standardized(self, dtype: torch.dtype) -> torch.Tensor:
+        """The standardized weight for an input of ``dtype``."""
+        eps = 1e-5 if dtype == torch.float32 else 1e-3
+        return weight_standardize(self.weight, eps).to(dtype)
+
+    def forward(self, x: torch.Tensor, level: Optional[spatial.Level] = None) -> torch.Tensor:
+        w, b = self.standardized(x.dtype), self.bias.to(x.dtype)
+        if level is not None:
+            return spatial.conv2d(x, w, b, level, padding=self.padding[0])[0]
+        return F.conv2d(x, w, b, padding=self.padding)
 
 
 class LinearAttention(nn.Module):
@@ -159,12 +177,20 @@ class LinearAttention(nn.Module):
         self.to_qkv = nn.ModuleList([Dropout(dropout), nn.Conv2d(dim, hidden * 3, 1, bias=False)])
         self.to_out = nn.Conv2d(hidden, dim, 1)
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                level: Optional[spatial.Level] = None) -> torch.Tensor:
         B, C, H, W = x.shape
         N = H * W
         scale = self.dim_head**-0.5
         hidden = self.heads * self.dim_head
-        qkv = self.to_qkv[1](self.to_qkv[0](x, generator))  # (B, 3*hidden, H, W)
+        x = dropout(x, self.to_qkv[0].p, generator, None if level is None else level.slab)
+        qkv = self.to_qkv[1](x)  # (B, 3*hidden, H, W)
+        if level is not None:
+            if self.rescale != "qkv":
+                raise NotImplementedError("the 'qk' linear attention under spatial sharding is not ported "
+                                          f"(ROADMAP {spatial.BACKBONES})")
+            out = spatial.linear_attention(qkv.flatten(2).transpose(1, 2), self.heads, self.dim_head, scale, level)
+            return self.to_out(out.transpose(1, 2).reshape(B, hidden, H, W))
         if self.rescale == "qkv":
             out = linear_attention_qkv(qkv.flatten(2).transpose(1, 2), self.heads, self.dim_head, scale)
             out = out.transpose(1, 2).reshape(B, hidden, H, W)
@@ -188,9 +214,20 @@ class Attention(nn.Module):
         self.to_qkv = nn.Conv2d(dim, hidden * 3, 1, bias=False)
         self.to_out = nn.Conv2d(hidden, dim, 1)
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                level: Optional[spatial.Level] = None) -> torch.Tensor:
         B, C, H, W = x.shape
         scale = self.dim_head**-0.5
+        if level is not None:  # this rank's queries against every rank's keys and values
+            qkv = self.to_qkv(x).reshape(B, 3, self.heads, self.dim_head, H, W)
+            q = qkv[:, 0].flatten(-2)
+            k, v = spatial.gather(qkv[:, 1:], level).flatten(-2).unbind(1)
+            sim = torch.einsum("bhdi,bhdj->bhij", q * scale, k)
+            # the mask of this rank's query rows: the slab of the global (B, h, H, W, N) draw
+            attn = torch.softmax(sim, dim=-1).reshape(B, self.heads, H, W, -1)
+            attn = dropout(attn, self.p, generator, level.slab._replace(dim=level.dim - 1)).flatten(2, 3)
+            out = torch.einsum("bhij,bhdj->bhdi", attn, v)
+            return self.to_out(out.reshape(B, self.heads * self.dim_head, H, W))
         q, k, v = self.to_qkv(x).reshape(B, 3, self.heads, self.dim_head, H * W).unbind(1)  # (B, h, d, N)
         sim = torch.einsum("bhdi,bhdj->bhij", q * scale, k)
         attn = dropout(torch.softmax(sim, dim=-1), self.p, generator)
@@ -204,7 +241,10 @@ class _PreNorm(nn.Module):
         self.fn = fn
         self.norm = ChannelLayerNorm(dim)
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                level: Optional[spatial.Level] = None) -> torch.Tensor:
+        if level is not None:
+            return self.fn(self.norm(x), generator, level=level)
         return self.fn(self.norm(x), generator)
 
 
@@ -216,8 +256,9 @@ class PreNormResidual(nn.Module):
         super().__init__()
         self.fn = _PreNorm(dim, fn)
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return self.fn(x, generator) + x
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                level: Optional[spatial.Level] = None) -> torch.Tensor:
+        return self.fn(x, generator, level) + x
 
 
 class DoubleConv(nn.Module):

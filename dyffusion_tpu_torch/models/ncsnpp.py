@@ -31,6 +31,7 @@ from torch import nn
 
 from dyffusion_tpu_torch.models.modules import PromotingLinear, dropout
 from dyffusion_tpu_torch.models.unet import remat_call
+from dyffusion_tpu_torch.parallel import spatial
 from dyffusion_tpu_torch.ops.upfirdn2d import conv_downsample_2d, downsample_2d, upsample_2d, upsample_conv_2d
 
 FIR_KERNEL = [1, 3, 3, 1]
@@ -472,6 +473,7 @@ class NCSNpp(_NCSNppBase):
         generator: Optional[torch.Generator] = None,
         cond_mask: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
+        spatial.refuse("NCSNpp", spatial.BACKBONES)
         if condition is not None:
             x = torch.cat([x, condition], dim=1)  # x first
         modules = iter(self.all_modules)
@@ -536,6 +538,7 @@ class SPADENCSNpp(_NCSNppBase):
         generator: Optional[torch.Generator] = None,
         cond_mask: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
+        spatial.refuse("SPADENCSNpp", spatial.BACKBONES)
         assert condition is not None, "SPADENCSNpp requires conditioning frames"
         modules = iter(self.all_modules)
         emb = timestep_embedding(time, self.nf) if self.with_time_emb else None

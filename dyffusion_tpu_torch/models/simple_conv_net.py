@@ -18,6 +18,7 @@ from torch import nn
 
 from dyffusion_tpu_torch.models.modules import PromotingLinear, TimeEmbedder, dropout
 from dyffusion_tpu_torch.models.base import BatchNorm2d, norm_call
+from dyffusion_tpu_torch.parallel import spatial
 
 
 class ChannelLayerNorm(nn.Module):
@@ -131,6 +132,7 @@ class SimpleConvNet(nn.Module):
         generator: Optional[torch.Generator] = None,
         batch_stats: Optional[dict] = None,
     ) -> torch.Tensor:
+        spatial.refuse("SimpleConvNet", spatial.BACKBONES)
         if self.num_conditional_channels > 0:
             assert condition is not None, "model built with conditional channels but condition is None"
             x = torch.cat([x, condition], dim=1)  # inputs first

@@ -9,6 +9,14 @@ optional outer resample. Submodules carry the original reference's names
 (``downs.{i}.{0..3}``, ``ups.{i}.3.1``, ``mid_attn``, ``time_emb_mlp``, ...).
 ``remat=True`` checkpoints every ResNet block and every pre-norm attention
 block (the JAX ``nn.remat`` granularity) with ``torch.utils.checkpoint``.
+
+Inside ``parallel.spatial.sharded`` the forward runs on this rank's slab of
+the grid (:meth:`Unet._forward_sharded`): halo-exchanged convs (``init_conv``
+halo 3, the 3x3 convs halo 1, the stride-2 downsample, the upsample's
+source rows), GroupNorm moments summed over the model group, B1 split
+across ranks, the mid-block attention against gathered keys and values;
+1x1 convs, FiLM, SiLU and the channel norms stay local. Eval only: with
+gradients enabled, or with ``outer_sample_mode``, it raises.
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from dyffusion_tpu_torch.models.base import concat_condition
+from dyffusion_tpu_torch.parallel import spatial
 from dyffusion_tpu_torch.models.modules import (
     Attention,
     LinearAttention,
@@ -39,7 +48,10 @@ class Block(nn.Module):
         self.proj = WSConv(dim_in, dim_out, 3)
         self.norm = nn.GroupNorm(groups, dim_out, eps=1e-5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, level: Optional[spatial.Level] = None) -> torch.Tensor:
+        if level is not None:
+            n = self.norm
+            return spatial.group_norm(self.proj(x, level), n.num_groups, n.weight, n.bias, n.eps, level)
         return self.norm(self.proj(x))
 
 
@@ -68,15 +80,18 @@ class ResnetBlock(nn.Module):
         self.dropout1, self.dropout2 = float(dropout1), float(dropout2)
 
     def forward(
-        self, x: torch.Tensor, time_emb: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None
+        self, x: torch.Tensor, time_emb: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
+        level: Optional[spatial.Level] = None,
     ) -> torch.Tensor:
-        h = self.block1(x)
+        slab = None if level is None else level.slab
+        h = self.block1(x) if level is None else self.block1(x, level)
         if self.mlp is not None and time_emb is not None:
             scale, shift = self.mlp(time_emb)[:, :, None, None].chunk(2, dim=1)
             h = h * (scale.to(h.dtype) + 1.0) + shift.to(h.dtype)
-        h = dropout(F.silu(h), self.dropout1, generator)
+        h = dropout(F.silu(h), self.dropout1, generator, slab)
         if self.block2 is not None:
-            h = dropout(F.silu(self.block2(h)), self.dropout2, generator)
+            h2 = self.block2(h) if level is None else self.block2(h, level)
+            h = dropout(F.silu(h2), self.dropout2, generator, slab)
         return h + self.residual_conv(x)
 
 
@@ -226,6 +241,9 @@ class Unet(nn.Module):
         condition: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
+        shard = spatial.current()
+        if shard is not None:
+            return self._forward_sharded(x, time, condition, generator, shard)
         g, blk = generator, self._block
         x = concat_condition(x, condition, self.num_conditional_channels)
         orig_shape = tuple(x.shape[-2:])
@@ -261,3 +279,56 @@ class Unet(nn.Module):
         if self.outer_sample_mode is not None:
             x = self._resize(x, orig_shape)
         return x
+
+    def _forward_sharded(
+        self,
+        x: torch.Tensor,
+        time: Optional[torch.Tensor],
+        condition: Optional[torch.Tensor],
+        generator: Optional[torch.Generator],
+        shard: spatial.Shard,
+    ) -> torch.Tensor:
+        """:meth:`forward` on this rank's slab of the grid (see the module
+        docstring): every block on the level of its input, each conv that
+        reads across rows through the level's halo."""
+        if self.outer_sample_mode is not None:
+            raise NotImplementedError("the Unet's outer_sample_mode under spatial sharding is not ported "
+                                      f"(ROADMAP {spatial.BACKBONES})")
+        if torch.is_grad_enabled():
+            raise NotImplementedError(f"the Unet's backward under spatial sharding is not ported: run it under "
+                                      f"torch.no_grad() (ROADMAP {spatial.TRAINING})")
+        g = generator
+        x = concat_condition(x, condition, self.num_conditional_channels)
+        lv = shard.top()
+        c = self.init_conv
+        x, lv = spatial.conv2d(x, c.weight, c.bias, lv, padding=c.padding[0])
+        r = dropout(x, self.input_dropout, g, lv.slab)
+        x = dropout(x, self.input_dropout, g, lv.slab)
+        t = self.time_emb_mlp(time) if self.time_emb_mlp is not None else None
+
+        def resample(conv, x, lv):
+            if isinstance(conv, Upsample):
+                return spatial.upsample_conv(x, conv[1].weight, conv[1].bias, lv)
+            return spatial.conv2d(x, conv.weight, conv.bias, lv, stride=conv.stride[0], padding=conv.padding[0])
+
+        hs = []
+        for block1, block2, attn, down in self.downs:
+            x = block1(x, t, g, lv)
+            hs.append(x)
+            x = block2(x, t, g, lv)
+            x = attn(x, g, lv)
+            hs.append(x)
+            x, lv = resample(down, x, lv)
+
+        x = self.mid_block1(x, t, g, lv)
+        x = self.mid_attn(x, g, lv)
+        x = self.mid_block2(x, t, g, lv)
+
+        for block1, block2, attn, up in self.ups:
+            x = block1(torch.cat([x, hs.pop()], dim=1), t, g, lv)
+            x = block2(torch.cat([x, hs.pop()], dim=1), t, g, lv)
+            x = attn(x, g, lv)
+            x, lv = resample(up, x, lv)
+
+        x = self.final_res_block(torch.cat([x, r], dim=1), t, g, lv)
+        return self.final_conv(x)

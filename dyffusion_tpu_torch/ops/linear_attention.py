@@ -26,6 +26,17 @@ back. On a CPU tensor it runs its plain version, the same arithmetic in
 plain PyTorch, which is also what the kernel is checked against. Each
 backward replays the plain composition, as the JAX package's
 ``_pallas_qkv_bwd`` and ``_pallas_core_bwd`` replay their XLA references.
+
+:func:`linear_attention_qkv_split` is B1 with the tokens split across the
+ranks of a process group (spatial sharding): q's softmax stays per token,
+k's softmax over the tokens and the context sum span every rank's tokens,
+and v / N takes the global N. Its kernel path runs the partial pass over
+the rank's tokens, merges the chunks into one partial per (batch, head) at
+the global maximum (an ``all_reduce`` of the max between the merge's two
+calls), sums that partial over the group (one ``all_reduce`` of
+B*heads*(32*32 + 2*32) floats) and runs the output pass over the rank's
+tokens from it. Its plain version is the same arithmetic in PyTorch over
+the same collectives. Eval only: no backward.
 """
 from __future__ import annotations
 
@@ -64,13 +75,16 @@ MAX_STEPS_PER_BLOCK = 8
 # show that it went through the kernel.
 launches = 0
 core_launches = 0
+# of them, B1 calls split across ranks (each also counts in ``launches``)
+split_launches = 0
 
 _qkv_fn = None
+_split_fns = None
 
 
 def reset_launches() -> None:
-    global launches, core_launches
-    launches = core_launches = 0
+    global launches, core_launches, split_launches
+    launches = core_launches = split_launches = 0
 
 
 def linear_attention_qkv_plain(qkv: torch.Tensor, heads: int, dim_head: int, scale: float) -> torch.Tensor:
@@ -96,6 +110,35 @@ def linear_attention_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     vf = v.float() / N
     context = torch.einsum("bdn,ben->bde", kf, vf)
     return torch.einsum("bde,bdn->ben", context, qf).to(q.dtype)
+
+
+def _all_reduce(t: torch.Tensor, op, group) -> torch.Tensor:
+    import torch.distributed as dist
+
+    if group is not None:
+        dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+def linear_attention_qkv_split_plain(qkv: torch.Tensor, heads: int, dim_head: int, scale: float, n_total: int,
+                                     group=None) -> torch.Tensor:
+    """Plain PyTorch version of the split B1: this rank's (B, N_local,
+    3*heads*dim_head) tokens of ``n_total`` over the ranks of ``group``
+    (None: one rank). k's per-channel maximum over the group, then the
+    sums of e^{k - M} and of e^{k - M} v over it, in f32."""
+    import torch.distributed as dist
+
+    B, N, _ = qkv.shape
+    x = qkv.float().reshape(B, N, 3, heads, dim_head)
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]  # (B, N, h, d)
+    m = _all_reduce(k.amax(dim=1), dist.ReduceOp.MAX, group)
+    p = torch.exp(k - m[:, None])
+    sums = torch.cat([torch.einsum("bnhd,bnhe->bhde", p, v).flatten(2), p.sum(dim=1)], dim=-1)  # (B, h, d*d + d)
+    sums = _all_reduce(sums, dist.ReduceOp.SUM, group)
+    context = sums[..., : dim_head * dim_head].reshape(B, heads, dim_head, dim_head)
+    context = context * (scale / (sums[..., dim_head * dim_head:, None] * n_total))
+    out = torch.einsum("bnhd,bhde->bnhe", torch.softmax(q, dim=-1), context)
+    return out.reshape(B, N, heads * dim_head).to(qkv.dtype)
 
 
 def _check(qkv: torch.Tensor, heads: int, dim_head: int) -> None:
@@ -196,6 +239,106 @@ def _qkv_library():
                               + [ctypes.c_int] * 7 + [ctypes.c_int64] * 6 + [ctypes.c_int] * 2
                               + [ctypes.c_float, ctypes.c_void_p])
     return _qkv_fn
+
+
+def _split_library():
+    """The split path's three entry points: partials, merge, output."""
+    global _split_fns
+    if _split_fns is None:
+        ptr, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        _split_fns = (
+            _library_fn("linear_attention_qkv", "linear_attention_qkv_partials",
+                        [ptr] * 3 + [i] * 7 + [i64] * 3 + [i, ptr]),
+            _library_fn("linear_attention_qkv", "linear_attention_qkv_merge", [ptr, i, i, ptr, ptr, ptr, ptr]),
+            _library_fn("linear_attention_qkv", "linear_attention_qkv_output",
+                        [ptr] * 3 + [i] * 7 + [i64] * 6 + [i] * 3 + [ctypes.c_float, ptr]),
+        )
+    return _split_fns
+
+
+def _split_call(qkv: torch.Tensor, fn, *args) -> None:
+    """``fn(*args, stream)`` on qkv's device; raises on a CUDA error."""
+    current = qkv.device.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if current else torch.cuda.device(qkv.device):
+        err = fn(*args, torch.cuda.current_stream(qkv.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"split linear attention kernel launch failed: cudaError {err}")
+
+
+def split_partial(qkv: torch.Tensor, heads: int, dim_head: int) -> tuple:
+    """The split B1's first step on this rank's tokens (CUDA): the partial
+    pass over its S chunks per (batch, head), then each (b, h, d)'s maximum
+    over them. Returns (workspace, S, maxima (B*heads, dim_head))."""
+    B, N, _ = qkv.shape
+    _check_kernel_args(qkv.dtype, dim_head, qkv.stride())
+    partials, merge, _ = _split_library()
+    bh = B * heads
+    S = split_counts(bh, N)[0]
+    vec, tokens_fast = load_width(qkv)
+    ws = torch.empty(bh * S * PARTIAL_FLOATS, dtype=torch.float32, device=qkv.device)
+    maxima = torch.empty((bh, dim_head), dtype=torch.float32, device=qkv.device)
+    third = heads * dim_head * qkv.stride(2) * qkv.element_size()
+    _split_call(qkv, partials, qkv.data_ptr() + third, qkv.data_ptr() + 2 * third, ws.data_ptr(),
+                int(qkv.dtype == torch.bfloat16), vec, int(tokens_fast), B, N, heads, dim_head, *qkv.stride(), S)
+    _split_call(qkv, merge, ws.data_ptr(), bh, S, None, maxima.data_ptr(), None)
+    return ws, S, maxima
+
+
+def split_merge(qkv: torch.Tensor, ws: torch.Tensor, S: int, maxima: torch.Tensor) -> torch.Tensor:
+    """The split B1's second step (CUDA): one partial per (batch, head) of
+    this rank's tokens at the global ``maxima``; summed over the ranks it is
+    the partial of all tokens."""
+    merged = torch.empty((maxima.shape[0], PARTIAL_FLOATS), dtype=torch.float32, device=qkv.device)
+    _split_call(qkv, _split_library()[1], ws.data_ptr(), maxima.shape[0], S, maxima.data_ptr(), None,
+                merged.data_ptr())
+    return merged
+
+
+def split_output(qkv: torch.Tensor, merged: torch.Tensor, heads: int, dim_head: int, scale: float,
+                 n_total: int) -> torch.Tensor:
+    """The split B1's last step (CUDA): the output pass over this rank's
+    tokens from the partial of all tokens, v / ``n_total``."""
+    B, N, _ = qkv.shape
+    out = _qkv_out(qkv, heads * dim_head)
+    vec, tokens_fast = load_width(qkv)
+    _split_call(qkv, _split_library()[2], qkv.data_ptr(), out.data_ptr(), merged.data_ptr(),
+                int(qkv.dtype == torch.bfloat16), vec, int(tokens_fast), B, N, heads, dim_head, *qkv.stride(),
+                *out.stride(), 1, split_counts(B * heads, N)[1], int(n_total), float(scale))
+    return out
+
+
+def _launch_split(qkv: torch.Tensor, heads: int, dim_head: int, scale: float, n_total: int, group) -> torch.Tensor:
+    """The kernel path of :func:`linear_attention_qkv_split`: the three
+    steps with the two all_reduces between them."""
+    import torch.distributed as dist
+
+    global launches, split_launches
+    ws, S, maxima = split_partial(qkv, heads, dim_head)
+    merged = split_merge(qkv, ws, S, _all_reduce(maxima, dist.ReduceOp.MAX, group))
+    out = split_output(qkv, _all_reduce(merged, dist.ReduceOp.SUM, group), heads, dim_head, scale, n_total)
+    launches += 1
+    split_launches += 1
+    return out
+
+
+def linear_attention_qkv_split(qkv: torch.Tensor, heads: int, dim_head: int, scale: float, n_total: int,
+                               group=None) -> torch.Tensor:
+    """B1 over ``n_total`` tokens split across the ranks of ``group``
+    (None: this rank's are all of them), this rank holding ``qkv`` (B,
+    N_local, 3*heads*dim_head): the softmax of k over all tokens, the
+    context summed over all, v / ``n_total``; the output of this rank's
+    tokens. CUDA tensor: the B1 kernels (partial pass, merge, output pass)
+    with two all_reduces between them, or an error. CPU tensor: the plain
+    version (:func:`linear_attention_qkv_split_plain`). Every rank of the
+    group must call it. No backward."""
+    _check(qkv, heads, dim_head)
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        raise NotImplementedError("the split linear attention has no backward (ROADMAP A1, spatial training)")
+    if qkv.device.type == "cuda":
+        return _launch_split(qkv, heads, dim_head, scale, n_total, group)
+    if qkv.device.type != "cpu":
+        raise ValueError(f"linear_attention_qkv_split takes CPU or CUDA tensors, got device {qkv.device}")
+    return linear_attention_qkv_split_plain(qkv, heads, dim_head, scale, n_total, group)
 
 
 def qkv_occupancy(dtype: torch.dtype, vec: int, tokens_fast: bool) -> tuple:

@@ -1,7 +1,8 @@
-"""Data parallelism over ``torch.distributed`` (counterpart of
-``dyffusion_tpu/parallel``): the process group and its collectives
-(:mod:`.distributed`), the row layout of batches and the replicated train
-state (:mod:`.mesh`)."""
+"""Data parallelism and spatial sharding over ``torch.distributed``
+(counterpart of ``dyffusion_tpu/parallel``): the process group, its D x K
+grid and its collectives (:mod:`.distributed`), the layout of batches and
+the replicated train state (:mod:`.mesh`), the sharded network's halos,
+norms and attention (:mod:`.spatial`)."""
 from dyffusion_tpu_torch.parallel.distributed import (  # noqa: F401
     active,
     all_reduce_gradients,
@@ -11,4 +12,9 @@ from dyffusion_tpu_torch.parallel.distributed import (  # noqa: F401
     rank,
     world_size,
 )
-from dyffusion_tpu_torch.parallel.mesh import process_local_rows, replicate_state, shard_batch  # noqa: F401
+from dyffusion_tpu_torch.parallel.mesh import (  # noqa: F401
+    process_local_box,
+    process_local_rows,
+    replicate_state,
+    shard_batch,
+)

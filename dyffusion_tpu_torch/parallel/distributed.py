@@ -17,7 +17,15 @@ per rank, each on one device, joined by ``torch.distributed``:
 - The port uses only ``all_reduce`` and ``broadcast`` on tensors and
   ``barrier``, which gloo supports on CUDA tensors too. What is gathered
   goes through an ``all_reduce`` of a zero-filled global buffer
-  (:func:`gather_rows`).
+  (:func:`gather_box`).
+- Spatial sharding (:func:`set_model_axis`): the ranks form a D x K grid
+  in the order of the JAX package's mesh (``devices.reshape(n_data,
+  n_model)``), rank r at ``(r // K, r % K)``: one ``model`` group per data
+  index (the K ranks that split one example's grid) and one ``data`` group
+  per model index. :func:`model_rank`, :func:`model_size`,
+  :func:`data_rank`, :func:`data_size` and :func:`model_all_reduce` read
+  them; without a model axis the model group is one rank and the data axis
+  the world.
 
 Without a process group every function answers for one process: rank 0,
 world 1, collectives that return their input.
@@ -52,6 +60,82 @@ def rank() -> int:
 
 def world_size() -> int:
     return dist.get_world_size() if active() else 1
+
+
+# the spatial layout of the world: (K, this rank's model group, its data group,
+# the world's group), set by set_model_axis; None means K = 1
+_MODEL_AXIS: Optional[tuple] = None
+
+
+def _axis() -> Optional[tuple]:
+    """The model axis of the current world (None without one, or once the
+    world it was made for is gone)."""
+    if _MODEL_AXIS is None or not active() or _MODEL_AXIS[3] is not dist.group.WORLD:
+        return None
+    return _MODEL_AXIS
+
+
+def set_model_axis(k: int) -> None:
+    """Split the world into a D x K grid (see the module docstring): every
+    rank creates every group, in the same order. ``k`` must divide the
+    world; ``k = 1`` drops the grid. Idempotent for the same ``k``."""
+    global _MODEL_AXIS
+    k = int(k)
+    world = world_size()
+    if world % k:
+        raise ValueError(f"trainer.devices={world} not divisible by trainer.spatial_shards={k}")
+    if k == 1:
+        _MODEL_AXIS = None
+        return
+    if _axis() is not None and _MODEL_AXIS[0] == k:
+        return
+    me = rank()
+    model = data = None
+    for d in range(world // k):
+        g = dist.new_group([d * k + m for m in range(k)])
+        if me // k == d:
+            model = g
+    for m in range(k):
+        g = dist.new_group([d * k + m for d in range(world // k)])
+        if me % k == m:
+            data = g
+    _MODEL_AXIS = (k, model, data, dist.group.WORLD)
+
+
+def model_size() -> int:
+    """K: the ranks that split one example's grid (1 without a model axis)."""
+    axis = _axis()
+    return axis[0] if axis is not None else 1
+
+
+def model_rank() -> int:
+    """This rank's index in its model group."""
+    return rank() % model_size()
+
+
+def data_size() -> int:
+    """D: the data-parallel axis, world / K."""
+    return world_size() // model_size()
+
+
+def data_rank() -> int:
+    """This rank's index on the data axis (its model group's)."""
+    return rank() // model_size()
+
+
+def model_group():
+    """This rank's model group (None without a model axis)."""
+    axis = _axis()
+    return axis[1] if axis is not None else None
+
+
+def model_all_reduce(t: torch.Tensor, op=None) -> torch.Tensor:
+    """``t`` reduced over this rank's model group in place (``op``: the
+    sum unless given); ``t`` without a model axis."""
+    group = model_group()
+    if group is not None:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM if op is None else op, group=group)
+    return t
 
 
 def launcher_world() -> Optional[int]:
@@ -117,22 +201,24 @@ def barrier() -> None:
 
 
 def effective_batch_size(per_rank_batch: int, accumulate_grad_batches: int = 1) -> int:
-    """Global batch = per-rank batch x ranks x gradient accumulation."""
-    return per_rank_batch * world_size() * accumulate_grad_batches
+    """Global batch = per-rank batch x data axis x gradient accumulation."""
+    return per_rank_batch * data_size() * accumulate_grad_batches
 
 
 def rank_seed(seed: int) -> int:
     """The seed of this rank's generators: ``seed`` itself on one process
-    (so a one-process run draws as it always has), else a seed drawn from
-    ``seed`` and the rank by numpy's ``SeedSequence``. The JAX package's
+    or one data index (so a one-process run draws as it always has, and
+    the K ranks of a model group draw alike: each keeps its slab of the
+    same global draw, ``utils.rng.spatial_shard``), else a seed drawn from
+    ``seed`` and the data index by numpy's ``SeedSequence``. The JAX package's
     partitionable threefry, whose draw on a sharded batch is the slice of
     the global draw, has no torch counterpart: each rank draws its own
     dropout masks, so a run with dropout differs between world sizes in its
     masks (not in their distribution). The per-row draws of a train loss
     are the global batch's (``utils.rng.row_shard``)."""
-    if world_size() == 1:
+    if data_size() == 1:
         return int(seed)
-    return int(np.random.SeedSequence([int(seed), rank()]).generate_state(1, np.uint64)[0] & (2**63 - 1))
+    return int(np.random.SeedSequence([int(seed), data_rank()]).generate_state(1, np.uint64)[0] & (2**63 - 1))
 
 
 def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
@@ -189,26 +275,27 @@ def all_reduce_gradients(params: Iterable[torch.nn.Parameter], bucket_elements: 
                 offset += g.numel()
 
 
-def gather_rows(t: torch.Tensor, first_row: int, total_rows: int, dim: int = 0) -> torch.Tensor:
-    """Every rank's rows of a tensor split along ``dim``: this rank's
-    ``t`` placed at ``first_row`` of a zero-filled ``total_rows`` buffer,
-    then summed over ranks."""
+def gather_box(t: torch.Tensor, starts, shape) -> torch.Tensor:
+    """Every rank's block of a tensor split into boxes: this rank's ``t``
+    placed at ``starts`` (one per axis) of a zero-filled buffer of
+    ``shape``, then summed over ranks."""
     if not active():
         return t
-    shape = list(t.shape)
-    shape[dim] = total_rows
-    buf = torch.zeros(shape, dtype=t.dtype, device=t.device)
-    buf.narrow(dim, first_row, t.shape[dim]).copy_(t)
+    buf = torch.zeros(tuple(shape), dtype=t.dtype, device=t.device)
+    box = buf
+    for dim, (start, n) in enumerate(zip(starts, t.shape)):
+        box = box.narrow(dim, start, n)
+    box.copy_(t)
     return all_reduce_sum(buf)
 
 
 def gather_bytes(data: torch.Tensor) -> List[torch.Tensor]:
     """Each rank's uint8 tensor (of one size on every rank), as a list by
-    rank, through :func:`gather_rows` (int32 on the collective device)."""
+    rank, through :func:`gather_box` (int32 on the collective device)."""
     if not active():
         return [data]
     local = data.reshape(1, -1).to(collective_device(), torch.int32)
-    full = gather_rows(local, rank(), world_size())
+    full = gather_box(local, (rank(), 0), (world_size(), local.shape[1]))
     return [row.to("cpu", torch.uint8) for row in full]
 
 

@@ -26,11 +26,22 @@ before ``grad_norm``, ``zero_grad_frac``, ``watch_gradients`` and clipping
 read them, the per-row draws of the loss are the global batch's
 (``utils.rng.row_shard``), and the logged train metrics are means over
 ranks. Eval batches are padded to a multiple of the world size by repeating
-their last row (``pad_batch``); each rank evaluates its rows, the padded
+their last row (``data.base.pad_batch``); each rank evaluates its rows, the padded
 ones masked out of ``metric_sums``, and the sums are all-reduced once per
 split, so every rank reads the same metrics and early stopping stops them
 at the same step. Each rank's train and eval generators are seeded from the
 seed and the rank (``parallel.distributed.rank_seed``).
+
+Spatial sharding (``trainer.spatial_shards=K``, eval only): the ranks form
+a D x K grid (``distributed.set_model_axis``); ``evaluate``, ``test`` and
+``predict`` give each rank its data index's rows and its slab of the grid
+(``data.base.local_eval_batches``) and run the eval functions inside
+``parallel.spatial.sharded``, where the ``Unet`` exchanges halos across
+its model group and the K ranks of a group draw alike (their eval
+generators share the data index's seed). The metric sums run over the
+rank's slab (n counts its pixels) and are all-reduced over every rank;
+``predict`` gathers rows and slabs. ``fit`` and the train step raise
+(ROADMAP A1, spatial training).
 """
 from __future__ import annotations
 
@@ -43,10 +54,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from dyffusion_tpu_torch.data.base import local_eval_batches
 from dyffusion_tpu_torch.data.native_loader import DeviceStager
 from dyffusion_tpu_torch.models.base import MODEL_STATE_UPDATES
-from dyffusion_tpu_torch.parallel import distributed
-from dyffusion_tpu_torch.parallel.mesh import process_local_rows
+from dyffusion_tpu_torch.parallel import distributed, spatial
+from dyffusion_tpu_torch.parallel.mesh import process_local_rows, slab_axis
 from dyffusion_tpu_torch.training.checkpoint import CheckpointManager
 from dyffusion_tpu_torch.training.state import TrainState
 from dyffusion_tpu_torch.utils import rng
@@ -119,6 +131,7 @@ def make_train_step(loss_fn: LossFn, watch_gradients: bool = False) -> Callable[
     means over ranks."""
 
     def train_step(state: TrainState, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        _refuse_spatial_training()
         world = distributed.world_size()
         rows = contextlib.nullcontext()
         if world > 1:
@@ -171,16 +184,12 @@ def metric_sums(
     return {"n": n, "sq": sq, "var": var, "crps": ((skill - spread) * mask).sum()}
 
 
-def pad_batch(batch: Dict[str, Any], target: int):
-    """Pad a host batch to ``target`` rows by repeating its last row;
-    returns ``(padded batch, number of real rows)``."""
-    n = int(next(iter(batch.values())).shape[0])
-    if n == target:
-        return batch, n
-    if n > target:
-        raise ValueError(f"a batch of {n} rows exceeds the pad target {target}")
-    idx = np.concatenate([np.arange(n), np.full(target - n, n - 1, dtype=np.int64)])
-    return {k: np.asarray(v)[idx] for k, v in batch.items()}, n
+def _refuse_spatial_training() -> None:
+    if distributed.model_size() > 1:
+        raise NotImplementedError(
+            f"training under trainer.spatial_shards={distributed.model_size()} is not ported: the backward through "
+            f"the halos, B1's backward over the global softmax and the gradient sum over the model group "
+            f"(ROADMAP {spatial.TRAINING})")
 
 
 class Trainer:
@@ -208,6 +217,7 @@ class Trainer:
         save_checkpoints: bool = True,
         monitor_mode: str = "min",
         watch_gradients: bool = False,
+        spatial_axis: str = "h",
     ):
         self.experiment = experiment
         self.datamodule = datamodule
@@ -217,6 +227,7 @@ class Trainer:
         # a host batch as tensors on the device, ordered before later work on its stream
         self._put = DeviceStager(self.device)
         self.eval_fns = eval_fns
+        self.spatial_axis = spatial_axis
         self.max_epochs = max_epochs
         self.max_steps = max_steps
         self.seed = seed
@@ -272,6 +283,7 @@ class Trainer:
     def fit(self) -> float:
         """Train with periodic validation; returns the best monitored score
         (nan if no validation gave a finite one)."""
+        _refuse_spatial_training()
         best = np.nan
         step = self.state.step
         done = False
@@ -364,19 +376,19 @@ class Trainer:
         generator.manual_seed(distributed.rank_seed(self.seed + {"val": 1, "test": 2, "predict": 3}[split]))
         return generator
 
-    def _local_eval_batches(self, split: str):
-        """``(this rank's rows of the batch, their valid mask, first row,
-        padded rows, real rows)`` per eval batch: each batch padded to a
-        multiple of the world size by repeating its last row, then split
-        into equal blocks of rows (one process: the whole batch, all valid)."""
-        world, rank = distributed.world_size(), distributed.rank()
-        for batch in self._eval_batches(split):
-            n = int(next(iter(batch.values())).shape[0])
-            target = -(-n // world) * world
-            padded, n_valid = pad_batch(batch, target)
-            rows = process_local_rows(target, rank, world)
-            valid = torch.arange(rows.start, rows.stop) < n_valid
-            yield {k: v[rows] for k, v in padded.items()}, valid, rows.start, target, n_valid
+    def local_eval_batches(self, split: str):
+        """This rank's box of each eval batch (``data.base.local_eval_batches``):
+        the rows of its data index, padded, and under spatial sharding its
+        slab of the grid."""
+        return local_eval_batches(self._eval_batches(split), distributed.data_rank(), distributed.data_size(),
+                                  self.spatial_axis, distributed.model_rank(), distributed.model_size())
+
+    def sharded(self):
+        """The context of this rank's eval under spatial sharding
+        (``parallel.spatial.sharded``); a no-op on a model axis of 1."""
+        if distributed.model_size() == 1:
+            return contextlib.nullcontext()
+        return spatial.sharded(self.spatial_axis, self.experiment.dims["spatial"])
 
     def evaluate(self, split: str = "val") -> Dict[str, float]:
         """Streaming ensemble evaluation over a split with the train state's
@@ -391,16 +403,19 @@ class Trainer:
         params = self.state.eval_params()
         sums: Dict[str, Dict[str, torch.Tensor]] = {}
         n_frames = 0
+        # the K ranks of a model group share their frames: one of them counts them
+        counts_frames = distributed.model_rank() == 0
         sample_start = time.time()
-        for batch, valid, _, _, _ in self._local_eval_batches(split):
-            out = eval_fn(batch, generator, params)
+        for batch, valid, _, _, _ in self.local_eval_batches(split):
+            with self.sharded():
+                out = eval_fn(batch, generator, params)
             for k, v in out.items():
                 if not k.endswith("_preds") or f"{k[:-6]}_targets" not in out:
                     continue
                 prefix = k[: -len("_preds")]
                 part = metric_sums(v, out[f"{prefix}_targets"], valid)
                 sums[prefix] = part if prefix not in sums else {m: sums[prefix][m] + part[m] for m in part}
-                n_frames += v.shape[0] * int(valid.sum())
+                n_frames += v.shape[0] * int(valid.sum()) * counts_frames
         world = distributed.world_size()
         if world > 1:  # one all_reduce of every sum and the frame count
             keys = [(p, m) for p in sorted(sums) for m in sorted(sums[p])]
@@ -440,16 +455,26 @@ class Trainer:
         concatenated over batches (``*_preds`` along the batch axis 1, the
         rest along axis 0), with the train state's eval weights. Under data
         parallelism every rank gets every row (gathered through a zero-filled
-        buffer summed over ranks), the padding dropped."""
+        buffer summed over ranks), the padding dropped; under spatial
+        sharding every slab too."""
         eval_fn = self.eval_fns[split]
         generator = self._eval_generator(split)
         params = self.state.eval_params()
+        k_model, m_rank = distributed.model_size(), distributed.model_rank()
         acc: Dict[str, List[np.ndarray]] = defaultdict(list)
-        for batch, valid, first, total, n_valid in self._local_eval_batches(split):
-            for k, v in eval_fn(batch, generator, params).items():
+        for batch, valid, first, total, n_valid in self.local_eval_batches(split):
+            with self.sharded():
+                out = eval_fn(batch, generator, params)
+            for k, v in out.items():
                 dim = 1 if k.endswith("_preds") else 0
                 if distributed.world_size() > 1:
-                    v = distributed.gather_rows(v.to(distributed.collective_device()), first, total, dim)
+                    starts, shape = [0] * v.ndim, list(v.shape)
+                    starts[dim], shape[dim] = first, total
+                    pos = slab_axis(v.ndim - dim, self.spatial_axis) if k_model > 1 else None
+                    if pos is not None:  # the grid axis of a (rows, H, W, C) value, after the member axis
+                        starts[dim + pos] = m_rank * v.shape[dim + pos]
+                        shape[dim + pos] = k_model * v.shape[dim + pos]
+                    v = distributed.gather_box(v.to(distributed.collective_device()), starts, shape)
                 acc[k].append(v.narrow(dim, 0, n_valid).cpu().numpy())
         return {k: np.concatenate(vs, axis=1 if k.endswith("_preds") else 0) for k, vs in acc.items()}
 

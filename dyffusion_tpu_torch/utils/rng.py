@@ -24,12 +24,23 @@ eagerly and in the artifact.
 of its own (the counterpart of ``jax.random.split``), and :func:`row_shard`
 makes the per-row draws of a data-parallel train step those of the global
 batch (see there).
+
+Under spatial sharding a rank holds a slab of every grid tensor: rows
+[start, start + n) of its H or W axis (a :class:`Slab`). A draw given a
+slab is made at the tensor's global shape and sliced to the rank's rows,
+so every rank of a model group, drawing from the same generator, keeps its
+part of the one draw a single device would make (as the JAX package's draw
+of a global shape is on a sharded grid). Each rank draws the whole grid: K
+times the draws, and a temporary of the global size per draw.
+:func:`spatial_shard` holds the slab of the top-level grid, which the draws
+over the network's inputs take (:func:`grid_randn`); the network passes the
+slab of each of its levels itself.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Iterator, List, Optional, Sequence, Union
+from typing import Iterator, List, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -46,18 +57,74 @@ DEVICE_DEFAULT = _DeviceDefault()
 Generator = Optional[Union[torch.Generator, _DeviceDefault]]
 
 
+class Slab(NamedTuple):
+    """A rank's rows of one axis of a grid tensor: axis ``dim`` (negative,
+    counted from the end) of global extent ``total``, this rank's rows
+    from ``start`` on."""
+
+    dim: int
+    total: int
+    start: int
+
+
 def _kw(generator: Generator) -> dict:
     return {} if generator is DEVICE_DEFAULT else {"generator": generator}
 
 
-def rand(shape: Sequence[int], generator: Generator, device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """U[0, 1) of ``shape``."""
-    return torch.rand(tuple(shape), **_kw(generator), device=device, dtype=dtype)
+def _sliced(draw, shape: Sequence[int], slab: Optional[Slab], **kw) -> torch.Tensor:
+    """``draw(shape)``, or with ``slab`` the slab's rows of ``draw`` at the
+    global shape (``shape[slab.dim]`` being the rank's rows)."""
+    shape = tuple(shape)
+    if slab is None:
+        return draw(shape, **kw)
+    n = shape[slab.dim]
+    if slab.start + n > slab.total:
+        raise ValueError(f"a slab of {n} rows from row {slab.start} exceeds the global extent {slab.total}")
+    full = list(shape)
+    full[slab.dim] = slab.total
+    return draw(tuple(full), **kw).narrow(slab.dim, slab.start, n)
 
 
-def randn(shape: Sequence[int], generator: Generator, device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """N(0, 1) of ``shape``."""
-    return torch.randn(tuple(shape), **_kw(generator), device=device, dtype=dtype)
+def rand(shape: Sequence[int], generator: Generator, device, dtype: Optional[torch.dtype] = None,
+         slab: Optional[Slab] = None) -> torch.Tensor:
+    """U[0, 1) of ``shape`` (with ``slab``: the slab of the global draw)."""
+    return _sliced(torch.rand, shape, slab, **_kw(generator), device=device, dtype=dtype)
+
+
+def randn(shape: Sequence[int], generator: Generator, device, dtype: Optional[torch.dtype] = None,
+          slab: Optional[Slab] = None) -> torch.Tensor:
+    """N(0, 1) of ``shape`` (with ``slab``: the slab of the global draw)."""
+    return _sliced(torch.randn, shape, slab, **_kw(generator), device=device, dtype=dtype)
+
+
+# the top-level grid's slab of this rank under spatial sharding, or None
+_GRID_SLAB: contextvars.ContextVar = contextvars.ContextVar("grid_slab", default=None)
+
+
+@contextlib.contextmanager
+def spatial_shard(slab: Slab) -> Iterator[None]:
+    """Within this context the draws over the network's input grid
+    (:func:`grid_randn`, :func:`row_randn` with ``grid=True``) are made at
+    the global grid and sliced to ``slab``, this rank's rows of the NCHW
+    grid (the counterpart of :func:`row_shard` for a grid split over a
+    model group)."""
+    token = _GRID_SLAB.set(slab)
+    try:
+        yield
+    finally:
+        _GRID_SLAB.reset(token)
+
+
+def grid_slab() -> Optional[Slab]:
+    """The slab of :func:`spatial_shard`, or None outside it."""
+    return _GRID_SLAB.get()
+
+
+def grid_randn(shape: Sequence[int], generator: Generator, device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """N(0, 1) over an NCHW grid tensor of ``shape``: the rank's slab of the
+    global draw under :func:`spatial_shard`, else :func:`randn`."""
+    kw = {} if grid_slab() is None else {"slab": grid_slab()}
+    return randn(shape, generator, device, dtype, **kw)
 
 
 def randint(low: int, high: int, shape: Sequence[int], generator: Generator, device) -> torch.Tensor:
@@ -136,11 +203,14 @@ def row_randint(low: int, high: int, n: int, generator: Generator, device) -> to
     return randint(low, high, (total,), g, g.device)[first:first + n].to(device)
 
 
-def row_randn(shape: Sequence[int], generator: Generator, device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+def row_randn(shape: Sequence[int], generator: Generator, device, dtype: Optional[torch.dtype] = None,
+              grid: bool = False) -> torch.Tensor:
     """N(0, 1) of ``shape``, whose first axis is the batch's rows (see
-    :func:`row_shard`)."""
+    :func:`row_shard`); with ``grid``, an NCHW grid tensor (see
+    :func:`spatial_shard`)."""
+    kw = {"slab": grid_slab()} if grid and grid_slab() is not None else {}
     shard = _rows(int(shape[0]))
     if shard is None:
-        return randn(shape, generator, device, dtype)
+        return randn(shape, generator, device, dtype, **kw)
     g, total, first = shard
-    return randn((total,) + tuple(shape[1:]), g, g.device, dtype)[first:first + int(shape[0])].to(device)
+    return randn((total,) + tuple(shape[1:]), g, g.device, dtype, **kw)[first:first + int(shape[0])].to(device)

@@ -137,9 +137,10 @@ def metric_sums_rank(rank: int, world: int, preds: np.ndarray, targets: np.ndarr
     all-reduced."""
     import torch
 
+    from dyffusion_tpu_torch.data.base import pad_batch
     from dyffusion_tpu_torch.parallel import distributed
     from dyffusion_tpu_torch.parallel.mesh import process_local_rows
-    from dyffusion_tpu_torch.training.trainer import metric_sums, pad_batch
+    from dyffusion_tpu_torch.training.trainer import metric_sums
 
     n = targets.shape[0]
     target = -(-n // world) * world

@@ -156,6 +156,65 @@ def test_kernel_rejects_what_it_does_not_take():
         la.linear_attention_qkv(torch.zeros(1, 8, 384, device="cuda", dtype=torch.float16), HEADS, DIM_HEAD, SCALE)
 
 
+def _split_emulated(parts):
+    """The split B1 kernel over ``parts``, each one rank's tokens, the ranks
+    emulated in one process: each rank's partial pass and chunk maxima, the
+    maximum over the ranks (their all_reduce), each rank's merge at it, the
+    sum (their second all_reduce), each rank's output pass."""
+    steps = [la.split_partial(q, HEADS, DIM_HEAD) for q in parts]
+    top = torch.stack([m for _, _, m in steps]).amax(dim=0)
+    merged = sum(la.split_merge(q, ws, S, top) for q, (ws, S, _) in zip(parts, steps))
+    n = sum(q.shape[1] for q in parts)
+    return [la.split_output(q, merged, HEADS, DIM_HEAD, SCALE, n) for q in parts]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tokens", [(1800, 1800), (450, 450), (120, 105), (3, 1, 7)])
+def test_split_kernel_matches_plain_at_the_per_rank_shapes(tokens, dtype):
+    """B1 split across ranks (two ranks at the SST grid's per-rank tokens
+    at K = 2, and three uneven ones) against B1's plain version over all
+    the tokens; the NCHW view the ``Unet`` passes. Rank 0's tokens alone
+    (k's softmax over its own N) must fail the same check."""
+    _require_cuda()
+    dt = getattr(torch, dtype)
+    x = _qkv(120, sum(tokens), seed=sum(tokens)).cuda().transpose(1, 2).contiguous().transpose(1, 2).to(dt)
+    bounds = np.cumsum((0,) + tokens)
+    parts = [x[:, a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+    got = torch.cat(_split_emulated(parts), dim=1)
+    torch.cuda.synchronize()
+    want = la.linear_attention_qkv_plain(x, HEADS, DIM_HEAD, SCALE)
+    _assert_close_to_scale(got, want, REL_TOL[dt])
+    alone = _split_emulated(parts[:1])[0]
+    with pytest.raises(AssertionError):
+        _assert_close_to_scale(alone, want[:, : tokens[0]], REL_TOL[dt])
+
+
+@pytest.mark.cuda
+def test_split_kernel_through_a_gloo_group_of_one():
+    """``linear_attention_qkv_split`` on a CUDA tensor over a gloo group of
+    one rank: its two all_reduces on the card's tensors, the kernel counted
+    as a B1 launch and a split one; it equals B1."""
+    _require_cuda()
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    try:
+        x = _qkv(6, 900, seed=3).cuda()
+        before, split_before = la.launches, la.split_launches
+        got = la.linear_attention_qkv_split(x, HEADS, DIM_HEAD, SCALE, 900, dist.group.WORLD)
+        torch.cuda.synchronize()
+        assert (la.launches - before, la.split_launches - split_before) == (1, 1)
+    finally:
+        dist.destroy_process_group()
+    _assert_close_to_scale(got, la.linear_attention_qkv_plain(x, HEADS, DIM_HEAD, SCALE), REL_TOL[torch.float32])
+
+
 def _core_inputs(BH, N, seed, strided):
     g = np.random.default_rng(seed)
     xs = [torch.from_numpy(g.normal(size=(BH, DIM_HEAD, N)).astype(np.float32)).cuda() for _ in range(3)]

@@ -28,7 +28,8 @@ the JAX package's global-batch computation and against one process.
   ranks itself) against the one-process run's.
 - The native loader's per-rank rows against the global batch's slices; the
   run id of a two-rank config against the JAX package's; a world that does
-  not match ``trainer.devices`` raises.
+  not match ``trainer.devices`` raises, and so does training under
+  ``trainer.spatial_shards=2``.
 
 Every spawned rank has a deadline of 120 s (``tests/_torch_ddp_workers.py``).
 """
@@ -50,7 +51,7 @@ from dyffusion_tpu.training.trainer import _make_metric_sums
 from dyffusion_tpu.utils.naming import get_run_id as jax_run_id
 from dyffusion_tpu_torch.config import get_config
 from dyffusion_tpu_torch.data import write_fake_benchmark_dir
-from dyffusion_tpu_torch.interface import build_trainer, reload_and_test
+from dyffusion_tpu_torch.interface import build_trainer, reload_and_test, run_experiment
 from dyffusion_tpu_torch.models.base import BatchNorm2d
 from dyffusion_tpu_torch.parallel import process_local_rows, shard_batch
 from dyffusion_tpu_torch.utils.naming import get_run_id
@@ -348,5 +349,6 @@ def test_run_id_hashes_the_world_as_the_jax_package():
 def test_world_must_match_trainer_devices():
     with pytest.raises(ValueError, match="trainer.devices=2"):
         build_trainer(get_config("synthetic_interpolation", TINY + ["trainer.devices=2"]), device="cpu")
-    with pytest.raises(NotImplementedError, match="spatial"):
-        build_trainer(get_config("synthetic_interpolation", TINY + ["trainer.spatial_shards=2"]), device="cpu")
+    # spatial sharding runs the eval path; training under a shard is what still raises
+    with pytest.raises(NotImplementedError, match="spatial training"):
+        run_experiment(get_config("synthetic_interpolation", TINY + ["trainer.spatial_shards=2"]), device="cpu")
