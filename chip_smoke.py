@@ -73,7 +73,8 @@ non-zero:
 12. ns, spring: the Navier-Stokes and spring-mesh paths through the CLI at
    their canonical widths (NS: 221x42, C=3+2, horizon 16, UNetSimple dim 64
    at 256x256, dropout 0.15, batch 32 x accumulate 2, refinement,
-   forward_conditioning=none, bf16 eval; spring: 10x10, C=4+1, horizon 134,
+   forward_conditioning=none, bf16 eval, validation at 4 members; spring:
+   10x10, C=4+1, horizon 134,
    SimpleConvNet dim 64 with BatchNorm, dropout 0.2, batch 64, refinement)
    on fake archives at the real grids, in a temporary registry: stage 1,
    stage 2 from the registry, ``mode=test`` over one full test trajectory
@@ -109,7 +110,7 @@ non-zero:
    registry: 4 train steps + a validation (10 sampler steps), falling
    losses, ``mode=test`` (50 members), serving by run id with the seed and
    members-differ checks (members sharing their noise must fail), one
-   full-sampler request (1001 forwards at 40 rows, timed), the busy share
+   full-sampler request (1001 forwards at 20 rows, timed), the busy share
    of a 21-forward request of the same run under the CUDA-activity
    profiler, and three short commands: the Fourier embedding with the EMA
    (its features unchanged bit for bit), the DDPM residual blocks, SPADE.
@@ -170,7 +171,7 @@ non-zero:
    limit) and a planted fault (stage 2 on half the rows from step 2,
    which must exceed it). Prints the wall times; two ranks on one card
    measure no scaling.
-20. spatial: spatial sharding on the eval path. The split B1 kernel (its
+20. spatial: spatial sharding, eval and training. The split B1 kernel (its
    partial pass, merge and output pass, two ranks emulated) against B1's
    plain version over all tokens at the per-rank SST shapes, bf16 and f32
    (negative control: rank 0's tokens alone), with its per-rank times;
@@ -183,7 +184,15 @@ non-zero:
    two ranks running ``mode=test`` (cut alike) on the W axis: answers
    within 1e-3 of max|one rank| (the zeroed halos beyond it), B1 378 split
    calls per full request on each rank, each rank's peak device memory at
-   most 0.7x one rank's.
+   most 0.7x one rank's. Training: the same processes reload both stages
+   with the workload's dropout: stage 2's loss and forecaster gradients at
+   16 rows within 1e-3 of max|one rank| (the halo's backward zeroed beyond
+   it), three f32 train steps of each stage at the global batch of 64 with
+   B1 6 / 24 split calls a step on each rank, each rank's stage-2 step
+   peak at most 0.8x one rank's, the step times printed; then the CLI's
+   own spawn trains both stages (3 steps, B64, stage 2 by run id) on two
+   ranks sharding H beside a one-rank witness: losses within 1e-3
+   relative, final weights within 1e-2 of their change.
 
 Each path (slice, train, fit, each cli command, ns, spring, each baseline
 command and request, ncsnpp, each export request, each oisst command, the
@@ -1322,8 +1331,10 @@ def phase_export(card, reg, run_id, pipelines, work):
 # shared trajectory length gives train and val 49 (NS) or 671 (spring) rows.
 # NS evaluates in bf16 (module.eval_dtype), spring in f32.
 PHYSICAL = {
+    # NS validates with 4 members (its validation over the val split's 49 windows took most of
+    # the phase's time at 20); serving and mode=test keep 20
     "navier_stokes": {"label": "ns", "system": "navier-stokes", "n_time": 65, "steps": 12,
-                      "extra": ["module.eval_dtype=bfloat16"]},
+                      "extra": ["module.eval_dtype=bfloat16", "module.num_predictions=4"]},
     "spring_mesh": {"label": "spring", "system": "spring-mesh", "n_time": 805, "steps": 8,
                     "extra": ["model.dropout=0.2"]},
 }
@@ -1357,6 +1368,9 @@ def _boundary_error(key, frames, batch, time):
     inflow_cells[0, :, 0] = True
     return max(float(np.abs(np.where(fixed & ~inflow_cells, frames, 0.0)).max()),
                float(np.abs(frames[..., 0, :, 0] - inflow).max()))
+
+
+SERVED_MEMBERS = 20  # the members of a served NS or spring request
 
 
 def phase_physical(card, key):
@@ -1436,7 +1450,7 @@ def phase_physical(card, key):
             nets = (trainer.experiment.model, trainer.experiment.engine.interpolator)
             before = [_running_stats(m) for m in nets]
             test_metrics = trainer.evaluate("test")
-            predict, _, info = build_predict_fn(reg, id2)
+            predict, _, info = build_predict_fn(reg, id2, overrides=[f"module.num_predictions={SERVED_MEMBERS}"])
             batch = next(trainer.datamodule.predict_batches())
             answers, times = [], []
             for seed in (SEED, SEED, SEED + 1):
@@ -1922,10 +1936,11 @@ def phase_baselines(card):
 # one validation (40 rows, sampling subsampled to 10 steps + the denoise),
 # mode=test (50 members x 2 rows), serving's seed checks on one row, and one
 # request with the preset's full sampler (1000 steps + the denoise = 1001
-# forwards at 20 members x eval batch 2 = 40 rows).
+# forwards at 20 members x one row = 20 rows).
 NCSNPP_TRAIN_STEPS = 4
 NCSNPP_EVAL_STEPS = 10
 NCSNPP_FULL_FORWARDS = 1001
+NCSNPP_FULL_BATCH = 1  # rows of the full-sampler request (x 20 members)
 NCSNPP_BUSY_STEPS = 20
 NCSNPP_DATA = ["datamodule.n_traj=5", "datamodule.n_time=9", "datamodule.batch_size=4",
                "datamodule.eval_batch_size=2"]
@@ -2050,7 +2065,7 @@ def phase_ncsnpp(card):
     ``mode=test`` (50 members); serving by run id (a seed repeats its
     answer, another does not, the members differ; members sharing their
     noise must fail that check); one request with the full sampler (1001
-    forwards at 40 rows), timed, and the busy share of a 21-forward request
+    forwards at 20 rows), timed, and the busy share of a 21-forward request
     of the same run under the CUDA-activity profiler. Then three short commands: the
     Fourier time embedding with the EMA (its features must stay bit for bit
     as initialized, in the weights and the EMA), the DDPM residual blocks,
@@ -2142,6 +2157,8 @@ def phase_ncsnpp(card):
         full = ["diffusion.sampling_timesteps=null"]
         predict_full, _, _ = build_predict_fn(reg, run_id, overrides=full)
         fwd = _sampler_forwards(reload_trainer(reg, run_id, full).experiment)
+        # one row of the predict batch (20 rows a forward), for the clock of the whole run
+        batch = {k: v[:NCSNPP_FULL_BATCH] for k, v in batch.items()}
         rows = exp.num_members("predict") * batch["dynamics"].shape[0]
         out = step(f"full-sampler request ({fwd} forwards, {rows} rows)", lambda: predict_full(batch, SEED))
         if fwd != NCSNPP_FULL_FORWARDS or not bool(torch.isfinite(out).all()) or not float(out.std(dim=0).max()) > 0:
@@ -2913,7 +2930,7 @@ def _witness_train_step(kind, make):
     def rows(batch, n, idx):
         return {k: v[idx] if torch.is_tensor(v) and v.ndim and v.shape[0] == n else v for k, v in batch.items()}
 
-    def make_train_step(loss_fn, watch_gradients=False):
+    def make_train_step(loss_fn, watch_gradients=False, **kw):
         steps = [0]
 
         def loss(params, batch, generator):
@@ -2933,7 +2950,7 @@ def _witness_train_step(kind, make):
             finally:
                 rng.row_randint, rng.row_randn = draws
 
-        return make(loss, watch_gradients)
+        return make(loss, watch_gradients, **kw)
 
     return make_train_step
 
@@ -3028,7 +3045,7 @@ def _ddp_nccl():
 
 
 
-def _ddp_disagreement(reg, ref, run_id, init):
+def _ddp_disagreement(reg, ref, run_id, init, steps=DDP_STEPS):
     """A run's disagreement with the same run id in the registry ``ref``:
     the first step's loss and the worst step's (relative), the worst val
     metric (relative; not the SSR, not frames/s), and the relative L2 of
@@ -3041,7 +3058,7 @@ def _ddp_disagreement(reg, ref, run_id, init):
 
     recs = {w: registry_api.get_run_metrics(r, run_id) for w, r in (("run", reg), ("ref", ref))}
     losses = {w: [r["train/loss"] for r in recs[w] if "train/loss" in r] for w in recs}
-    assert len(losses["run"]) == len(losses["ref"]) == DDP_STEPS, losses
+    assert len(losses["run"]) == len(losses["ref"]) == steps, losses
     rel = [abs(a - b) / abs(b) for a, b in zip(losses["run"], losses["ref"])]
     val = {w: [r for r in recs[w] if "val/crps" in r][-1] for w in recs}
     out = {"first loss": rel[0], "loss": max(rel), "val": max(
@@ -3344,6 +3361,116 @@ SPATIAL_FORWARD_ROWS = 120
 SPATIAL_BF16_TOL = 5e-2  # relative to max|one rank|
 
 
+# [spatial] training. Each rank process (and the witness) reloads the stored
+# stages with the workload's dropout (0.3 / 0.1; f32, TF32 off) and runs
+# three Trainer.train_step calls of each at the global batch of 64 on its box
+# of the first train batch (its slab of H): each one's B1 launches, time and
+# peak memory; before them one stage-2 step's forecaster gradients at 16
+# rows, and the same with the halo's backward returning no row (the negative
+# control). Then the CLI's own spawn trains both stages anew on two ranks
+# sharding H, beside a one-rank witness of the same commands: 3 steps a
+# stage at B64, one validation each (4 members, the sampler without its
+# auxiliary steps, the val split as one batch).
+SPATIAL_TRAIN_STEPS = 3
+SPATIAL_GRAD_ROWS = 16
+SPATIAL_TRAIN_MEMORY_LIMIT = 0.8  # a rank's stage-2 step peak over one rank's
+SPATIAL_WEIGHTS_TOL = 1e-2  # relative L2 of the weights' difference to their change, as [ddp]'s
+SPATIAL_B1_PER_STEP = {"stage 1": 6, "stage 2": 24}  # one Unet forward a step; four in stage 2
+SPATIAL_TRAIN_MEMBERS = 4  # the CLI training's validation ensemble
+
+
+def _spatial_train_commands(reg, k):
+    """The CLI's training commands of ``[spatial]`` on ``k`` ranks sharding
+    H (1: the witness): stage 1, then stage 2 by run id; with their run
+    ids, which do not depend on ``k``."""
+    from dyffusion_tpu_torch.config import get_config
+    from dyffusion_tpu_torch.utils.naming import get_run_id
+    from dyffusion_tpu_torch.utils.workloads import sst_overrides
+
+    common = sst_overrides([
+        "datamodule.n_traj=5", "datamodule.n_time=30", f"datamodule.batch_size={DDP_BATCH}",
+        "datamodule.eval_batch_size=24", "diffusion.additional_interpolation_steps=0", *SPATIAL_DROPOUT,
+        f"module.num_predictions={SPATIAL_TRAIN_MEMBERS}",
+        f"trainer.max_steps={SPATIAL_TRAIN_STEPS}", "trainer.val_every_n_epochs=100", "trainer.log_every_n_steps=1",
+        "matmul_precision=highest", f"trainer.devices={k}", f"trainer.spatial_shards={k}", f"registry_dir={reg}"])
+    id1 = get_run_id(get_config("synthetic_interpolation", common))
+    stage2 = [f"diffusion.interpolator_run_id={id1}", *common]
+    id2 = get_run_id(get_config("synthetic_dyffusion", stage2))
+    return [["experiment=synthetic_interpolation", *common], ["experiment=synthetic_dyffusion", *stage2]], id1, id2
+
+
+def _spatial_train_batch(trainer):
+    """This process's box of the first global train batch (its slab of the
+    grid under a shard), on the card."""
+    import numpy as np
+
+    from dyffusion_tpu_torch.parallel import distributed
+
+    k = distributed.model_size()
+    slab = (trainer.spatial_axis, distributed.model_rank(), k) if k > 1 else None
+    loader = trainer.datamodule.train_loader(rng=np.random.default_rng(SEED), device_put=trainer._put, slab=slab)
+    return next(iter(loader))
+
+
+def _spatial_train_steps(trainer):
+    """:data:`SPATIAL_TRAIN_STEPS` calls of ``Trainer.train_step`` on
+    :func:`_spatial_train_batch`: each one's seconds, B1 and split B1
+    launches and peak device memory."""
+    import torch
+
+    from dyffusion_tpu_torch.ops import linear_attention as la
+
+    batch = _spatial_train_batch(trainer)
+    steps = []
+    for _ in range(SPATIAL_TRAIN_STEPS):
+        la.reset_launches()
+        _sync()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        trainer.train_step(trainer.state, batch)
+        _sync()
+        steps.append({"seconds": time.perf_counter() - t, "launches": la.launches, "split": la.split_launches,
+                      "peak": torch.cuda.max_memory_allocated()})
+    return steps
+
+
+def _spatial_grads(trainer, zero_halo_backward):
+    """One stage-2 loss and every forecaster gradient the optimizer would
+    receive (summed over the world and divided by it, as the train step
+    does) at the first :data:`SPATIAL_GRAD_ROWS` rows of the first train
+    batch, the step generator seeded with SEED; no weight moves. With
+    ``zero_halo_backward`` the halo's backward returns no row to its owner
+    (the negative control)."""
+    import torch
+
+    from dyffusion_tpu_torch.parallel import spatial
+
+    batch = {k: v[:SPATIAL_GRAD_ROWS] for k, v in _spatial_train_batch(trainer).items()}
+    state, grads = trainer.state, {}
+    apply, halo_backward = state.apply_gradients, spatial._Rows.backward
+
+    def backward(ctx, grad):
+        transfer = spatial._halo_all_reduce
+        spatial._halo_all_reduce = lambda buf: buf
+        try:
+            return halo_backward(ctx, grad)
+        finally:
+            spatial._halo_all_reduce = transfer
+
+    for p in state.params.values():
+        p.grad = None
+    state.apply_gradients = lambda updates=None: grads.update(
+        {k: p.grad.detach().cpu().clone() for k, p in state.params.items()})
+    if zero_halo_backward:
+        spatial._Rows.backward = staticmethod(backward)
+    state.generator.manual_seed(SEED)
+    try:
+        metrics = trainer.train_step(state, batch)
+    finally:
+        state.apply_gradients, spatial._Rows.backward = apply, halo_backward
+    return {"loss": float(metrics["loss"]), "grads": grads}
+
+
 def _spatial_commands(k):
     """The [spatial] process's work at ``k`` ranks (1: the witness), on the
     H axis: each (name, kind, overrides over the stored run) of its
@@ -3450,7 +3577,11 @@ def spatial_rank_main(work):
     (:func:`_spatial_forward`) or ``interface.reload_and_test``
     (mode=test), each with its B1 launches, split B1 launches, wall time
     and peak device memory; the zeroed-halo request under a memory history
-    (:func:`_peak_blocks`); results in ``work``."""
+    (:func:`_peak_blocks`); then, on the stored stages reloaded with the
+    workload's dropout, stage 2's gradients at 16 rows
+    (:func:`_spatial_grads`, sound and, on two ranks, with the halo's
+    backward zeroed) and each stage's train steps
+    (:func:`_spatial_train_steps`); results in ``work``."""
     import gc
 
     import numpy as np
@@ -3466,6 +3597,21 @@ def spatial_rank_main(work):
     rank = int(os.environ.get("RANK", "0"))
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    # training first, stage 2 (the most memory) then stage 1, each followed by a file that the
+    # CLI's training commands wait for: the stored stages reloaded with the workload's dropout
+    layout = [f"trainer.devices={world}", f"trainer.spatial_shards={world}", *SPATIAL_DROPOUT]
+    train = {}
+    for stage, run_id in (("stage 2", spec["run_id"]), ("stage 1", spec["run_id1"])):
+        trainer = reload_trainer(spec["registry"], run_id, layout, device="cuda")
+        if stage == "stage 2":
+            grads = {name: _spatial_grads(trainer, zeroed) for name, zeroed in
+                     (("sound", False), ("repeat", False), ("halo backward zeroed", True)) if world > 1 or not zeroed}
+            torch.save(grads, os.path.join(work, f"grads{world}_rank{rank}.pt"))
+        train[stage] = _spatial_train_steps(trainer)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        open(os.path.join(work, f"done {stage} {world} {rank}"), "w").close()
     out, arrays, history = {}, {}, None
     halo = spatial._halo_all_reduce
     trainer, loaded = None, None  # consecutive commands with the same overrides share one trainer
@@ -3506,6 +3652,23 @@ def spatial_rank_main(work):
             spatial._halo_all_reduce = halo
     del trainer
     np.savez(os.path.join(work, f"out{world}_rank{rank}.npz"), **arrays)
+
+    # the cost of a global-size draw: a dropout mask at the stage-2 step's top level
+    # (B64 x 64 channels x 60 x 60), drawn whole and sliced to this rank's 30 rows,
+    # against a draw of the slab's size alone
+    draws = {}
+    if distributed.model_size() > 1:
+        from dyffusion_tpu_torch.utils import rng
+
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        for name, slab in (("slab only", None), ("global, sliced", rng.Slab(-2, 60, 30 * rank))):
+            for i in range(23):
+                if i == 3:
+                    _sync()
+                    t = time.perf_counter()
+                rng.rand((DDP_BATCH, 64, 30, 60), gen, "cuda", slab=slab)
+            _sync()
+            draws[name] = (time.perf_counter() - t) / 20
     # the host round trip of one collective over the model group: a GroupNorm's
     # moments at 120 rows (2 x 120 x 8 f32) on the card, and the same on the host,
     # timed with the card idle
@@ -3522,8 +3685,8 @@ def spatial_rank_main(work):
             _sync()
             round_trip[where] = (time.perf_counter() - t) / 200
     with open(os.path.join(work, f"spatial{world}_rank{rank}.json"), "w") as f:
-        json.dump({"commands": out, "backend": distributed.backend(), "model_size": distributed.model_size(),
-                   "all_reduce_s": round_trip, "history": history}, f)
+        json.dump({"commands": out, "train": train, "draw_s": draws, "backend": distributed.backend(),
+                   "model_size": distributed.model_size(), "all_reduce_s": round_trip, "history": history}, f)
     distributed.barrier()
     if distributed.active():
         torch.distributed.destroy_process_group()
@@ -3538,30 +3701,40 @@ def _metrics_rel(got, want):
     return max(abs(got[k] - want[k]) for k in keys) / scale
 
 
-def phase_spatial(card, reg=None, run_id=None):
-    """Spatial sharding on the card (eval path). 1. The split B1 kernel
-    against its plain version at the per-rank SST shapes
+def phase_spatial(card, reg=None, ids=None):
+    """Spatial sharding on the card, eval and training. 1. The split B1
+    kernel against its plain version at the per-rank SST shapes
     (:func:`_spatial_b1_check`). 2. The SST stages trained on one rank
     (``[ddp]``'s one-rank commands: 8 steps a stage, f32, TF32 off; the
-    full run reuses ``[ddp]``'s run, ``reg``/``run_id``). 3. Two gloo ranks
-    sharing cuda:0 (``chip_smoke.py --spatial-rank``, the launcher's
-    environment) split the grid's H axis, beside a one-rank witness
-    (``WORLD_SIZE=1``) and the CLI's own spawn of two ranks on the W axis
-    (``mode=test``, the test split's 23 rows as one batch of 10 members):
-    requests of the predict split (6 rows, 20 members): in f32 with the SST
-    workload's dropout, the same with every halo zeroed (the negative
-    control, under a memory history), both, and ``mode=test``, with the
-    sampler cut to 13 forwards (no auxiliary steps; :data:`SPATIAL_SHORT`);
-    one full bf16 request with dropout off; one forecaster forward in f32,
-    bf16 and bf16 with every halo zeroed. Checks: the f32 request within
-    1e-3 of max|one rank| and the zeroed-halo request beyond it; the bf16
-    forward within 5e-2 of max|one rank| and its zeroed halos beyond it;
-    the W-axis test metrics within 1e-3 relative; B1 378 calls per full
-    request (78 per cut one) on each rank, every one split across the
-    ranks; each rank's peak device memory for the bf16 request at most
-    0.7x the witness's. Returns the two ranks' B1 launches, the
-    per-request count and the split kernel's times."""
+    full run reuses ``[ddp]``'s run, ``reg`` and ``ids`` = its two run
+    ids). 3. Two gloo ranks sharing cuda:0 (``chip_smoke.py
+    --spatial-rank``, the launcher's environment) split the grid's H axis,
+    beside a one-rank witness (``WORLD_SIZE=1``) and the CLI's own spawn of
+    two ranks on the W axis (``mode=test``, the test split's 23 rows as one
+    batch of 10 members): requests of the predict split (6 rows, 20
+    members): in f32 with the SST workload's dropout, the same with every
+    halo zeroed (the negative control, under a memory history), both, and
+    ``mode=test``, with the sampler cut to 13 forwards (no auxiliary steps;
+    :data:`SPATIAL_SHORT`); one full bf16 request with dropout off; one
+    forecaster forward in f32, bf16 and bf16 with every halo zeroed; then
+    each process's training work (:func:`spatial_rank_main`). 4. The CLI's
+    own spawn trains both stages on two ranks sharding H, beside a one-rank
+    witness of the same commands (:func:`_spatial_train_commands`). Checks:
+    the f32 request within 1e-3 of max|one rank| and the zeroed-halo request
+    beyond it; the bf16 forward within 5e-2 of max|one rank| and its zeroed
+    halos beyond it; the W-axis test metrics within 1e-3 relative; B1 378
+    calls per full request (78 per cut one) on each rank, every one split
+    across the ranks; each rank's peak device memory for the bf16 request at
+    most 0.7x the witness's; stage 2's loss and forecaster gradients at 16
+    rows within 1e-3 of max|one rank| and, with the halo's backward zeroed,
+    beyond it; B1 6 calls per stage-1 step and 24 per stage-2 step on each
+    rank, every one split; each rank's stage-2 step peak at most 0.8x the
+    witness's; the CLI's two-rank training within 1e-3 of the witness in
+    every logged loss and within 1e-2 of its change in the final weights.
+    Returns the two ranks' B1 launches, the per-request count and the split
+    kernel's times."""
     import numpy as np
+    import torch
 
     t_phase = time.perf_counter()
     times = _spatial_b1_check()
@@ -3570,11 +3743,13 @@ def phase_spatial(card, reg=None, run_id=None):
             from dyffusion_tpu_torch import train
 
             reg = os.path.join(work, "registry")
-            commands, _, run_id = _ddp_commands(reg, 1)
+            commands, id1, id2 = _ddp_commands(reg, 1)
             for _, argv in commands[:2]:
                 train.main(argv)
+            ids = (id1, id2)
         with open(os.path.join(work, "spatial.json"), "w") as f:
-            json.dump({"registry": reg, "run_id": run_id}, f)
+            json.dump({"registry": reg, "run_id1": ids[0], "run_id": ids[1]}, f)
+        run_id = ids[1]
         port = _free_port()
         procs = {}
         t = time.perf_counter()
@@ -3588,15 +3763,46 @@ def phase_spatial(card, reg=None, run_id=None):
         procs["cli w"] = _ddp_start(work, "cli_w", [
             "-m", "dyffusion_tpu_torch.train", "mode=test", f"run_id={run_id}", f"registry_dir={reg}",
             "trainer.devices=2", "trainer.spatial_shards=2", "trainer.spatial_axis=w", *SPATIAL_TEST])
-        seconds = _ddp_finish(work, procs, t)
+        # the CLI trains both stages on two ranks and on one beside the requests above, each stage
+        # once the processes above have left their B64 steps of that stage (the card holds one
+        # set of stage-2 steps)
+        train_regs = {k: os.path.join(work, f"train{k}") for k in (1, 2)}
+        train_cmds = {k: _spatial_train_commands(train_regs[k], k) for k in (1, 2)}
+        assert train_cmds[1][1:] == train_cmds[2][1:], "the run ids must not depend on the shards"
+        seconds = {}
+        try:
+            for i, (stage, wait_for) in enumerate((("stage 1", "stage 2"), ("stage 2", "stage 1"))):
+                done = [os.path.join(work, f"done {wait_for} {w} {r}") for w, r in ((2, 0), (2, 1), (1, 0))]
+                while not all(os.path.exists(f) for f in done):
+                    if any(p.poll() not in (None, 0) for p, _, _ in procs.values()) or \
+                            time.perf_counter() - t > DDP_TIMEOUT_S:
+                        break  # _ddp_finish reports it
+                    time.sleep(0.5)
+                seconds.update(_ddp_finish(work, {f"train {stage}, {k} rank{'s' * (k > 1)}": _ddp_start(
+                    work, f"train{k}_{i + 1}", ["-m", "dyffusion_tpu_torch.train", *train_cmds[k][0][i]])
+                    for k in (1, 2)}, t))
+        finally:  # every process ends here, also when a training command failed
+            seconds.update(_ddp_finish(work, procs, t))
         ranks = [json.load(open(os.path.join(work, f"spatial2_rank{r}.json"))) for r in range(2)]
         one = json.load(open(os.path.join(work, "spatial1_rank0.json")))
+        grads = {r: torch.load(os.path.join(work, f"grads2_rank{r}.pt"), weights_only=True) for r in range(2)}
+        grads["one"] = torch.load(os.path.join(work, "grads1_rank0.pt"), weights_only=True)
         with open(os.path.join(work, "cli_w.log")) as f:
             cli_w = [json.loads(x) for x in f if x.startswith('{"test/')][-1]
         slabs = [np.load(os.path.join(work, f"out2_rank{r}.npz")) for r in range(2)]
         p1 = dict(np.load(os.path.join(work, "out1_rank0.npz")))
         # the two ranks' H slabs joined: axis 2 of (members, rows, H, W, C) and of NCHW
         p2 = {k: np.concatenate([s[k] for s in slabs], axis=2) for k in slabs[0].files}
+        # the CLI's two-rank training against the one-rank witness's
+        from dyffusion_tpu_torch.interface import build_trainer
+        from dyffusion_tpu_torch.utils import registry_api
+
+        _, id1, id2 = train_cmds[1]
+        trained = {}
+        for stage, run in (("stage 1", id1), ("stage 2", id2)):
+            init_cfg = {**registry_api.get_run_config(train_regs[1], run), "trainer": {"devices": 1}}
+            init = build_trainer(init_cfg, device="cpu").state.model.state_dict()
+            trained[stage] = _ddp_disagreement(train_regs[2], train_regs[1], run, init, steps=SPATIAL_TRAIN_STEPS)
     print(f"[spatial] processes: {json.dumps({k: round(v, 1) for k, v in seconds.items()})} s (sharing the card); "
           f"backends {[r['backend'] for r in ranks]}, model axis {[r['model_size'] for r in ranks]}; one gloo "
           f"all_reduce of a GroupNorm's moments (7.7 KB on cuda:0 and on the host), card idle, ms: "
@@ -3666,9 +3872,61 @@ def phase_spatial(card, reg=None, run_id=None):
         print(f"[spatial] rank {r}, the f32 request with its halos zeroed under a memory history: the largest blocks "
               f"alive at its peak: {json.dumps(rk['history'])}")
     assert ratio <= SPATIAL_MEMORY_LIMIT, f"a rank's peak memory is {ratio:.3f} of one rank's"
+
+    # training: stage 2's loss and forecaster gradients at 16 rows, two ranks against one
+    g1 = grads["one"]["sound"]
+    assert all(torch.equal(grads[1][n]["grads"][k], v) for n in grads[0] for k, v in grads[0][n]["grads"].items()), \
+        "the two ranks hold different summed gradients"
+
+    def worst(got, want, n=3):  # the n tensors furthest off, as _max_rel measures them
+        top = max(float(w.abs().max()) for w in want.values())
+        return sorted(((float((got[k] - w).abs().max()) / max(float(w.abs().max()), 0.1 * top), k,
+                        float(w.abs().max()) / top) for k, w in want.items()), reverse=True)[:n]
+
+    grad_err = {n: _max_rel(grads[0][n]["grads"], g1["grads"]) for n in grads[0]}
+    loss_err = {n: abs(grads[0][n]["loss"] - g1["loss"]) / abs(g1["loss"]) for n in grads[0]}
+    print(f"[spatial] stage-2 loss and its {len(g1['grads'])} forecaster gradients at {SPATIAL_GRAD_ROWS} rows "
+          f"(dropout on), two ranks vs one, rel. to max|one rank| (each tensor against the larger of its own and "
+          f"0.1 of the largest): sound: loss {loss_err['sound']:.3e}, gradients {grad_err['sound']:.3e} (limit "
+          f"{SPATIAL_TOL}); the halo's backward zeroed: loss {loss_err['halo backward zeroed']:.3e}, gradients "
+          f"{grad_err['halo backward zeroed']:.3e} (must exceed it); the same step again, one rank "
+          f"{_max_rel(grads['one']['repeat']['grads'], g1['grads']):.3e}, two ranks "
+          f"{_max_rel(grads[0]['repeat']['grads'], grads[0]['sound']['grads']):.3e}")
+    for what, got, want in (("two ranks vs one", grads[0]["sound"], g1), ("one rank vs itself", grads["one"]["repeat"], g1)):
+        print(f"[spatial] stage-2 gradients, {what}, furthest off (error / scale, tensor, its max|g| / max of all): "
+              f"{[(f'{e:.2e}', k, f'{m:.2e}') for e, k, m in worst(got['grads'], want['grads'])]}")
+    assert loss_err["sound"] <= SPATIAL_TOL and grad_err["sound"] <= SPATIAL_TOL, "the sharded gradients disagree"
+    assert grad_err["halo backward zeroed"] > SPATIAL_TOL, "the zeroed halo backward passes the check: it does not bite"
+    # training: B1 per step, step times and peak memory at B64
+    for stage, per_step in SPATIAL_B1_PER_STEP.items():
+        for r in ranks:
+            got = [(c["launches"], c["split"]) for c in r["train"][stage]]
+            assert got == [(per_step, per_step)] * SPATIAL_TRAIN_STEPS, (stage, got)
+        assert [c["launches"] for c in one["train"][stage]] == [per_step] * SPATIAL_TRAIN_STEPS, one["train"][stage]
+        peaks = [max(c["peak"] for c in r["train"][stage]) / max(c["peak"] for c in one["train"][stage]) for r in ranks]
+        print(f"[spatial] {stage} train step at B{DDP_BATCH} (f32, dropout on): one rank "
+              f"{[round(c['seconds'] * 1e3, 1) for c in one['train'][stage]]} ms, peak "
+              f"{max(c['peak'] for c in one['train'][stage]) / 2**30:.3f} GiB; two ranks "
+              + "; ".join(f"{[round(c['seconds'] * 1e3, 1) for c in r['train'][stage]]} ms, peak "
+                          f"{max(c['peak'] for c in r['train'][stage]) / 2**30:.3f} GiB" for r in ranks)
+              + f"; per rank over one rank's peak {', '.join(f'{x:.3f}' for x in peaks)}; B1 {per_step} a step on "
+              f"each, every one split; the processes share {card}")
+        if stage == "stage 2":
+            assert max(peaks) <= SPATIAL_TRAIN_MEMORY_LIMIT, f"a rank's stage-2 step peak is {max(peaks):.3f} of one rank's"
+    print(f"[spatial] one dropout mask at the stage-2 step's top level, ({DDP_BATCH}, 64, 30, 60) a rank, ms: "
+          f"{json.dumps([{k: round(v * 1e3, 4) for k, v in r['draw_s'].items()} for r in ranks])} (drawn at the "
+          f"global ({DDP_BATCH}, 64, 60, 60) and sliced, as a sharded step draws, against the slab's size alone)")
+    # training: the CLI's two ranks against its one-rank witness
+    for stage, (worst, (rel, ref)) in trained.items():
+        print(f"[spatial] the CLI's {stage} on two ranks vs one ({SPATIAL_TRAIN_STEPS} steps at B{DDP_BATCH}, f32, "
+              f"dropout on): losses one rank {[round(x, 6) for x in ref]}, relative differences "
+              f"{[float(f'{x:.2e}') for x in rel]}; {json.dumps(worst)}")
+        assert worst["loss"] <= SPATIAL_TOL, f"the CLI's {stage} losses disagree: {worst['loss']:.3e}"
+        assert all(v <= SPATIAL_WEIGHTS_TOL for k, v in worst.items() if "rel L2" in k), f"{stage} weights: {worst}"
     print(f"[spatial] two ranks on one card measure no scaling and no NVLink traffic; phase wall time "
           f"{time.perf_counter() - t_phase:.1f} s")
     launches = sum(c["launches"] for r in ranks for c in r["commands"].values())
+    launches += sum(c["launches"] for r in ranks for steps in r["train"].values() for c in steps)
     return launches, per_request, times
 
 
@@ -3769,7 +4027,7 @@ def main(argv) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_") as work:
         ddp = phase_ddp(smi, work)  # [spatial] tests [ddp]'s one-rank stage-2 run
         spatial, spatial_per_request, spatial_times = phase_spatial(
-            smi, os.path.join(work, "registry1"), _ddp_commands(os.path.join(work, "registry1"), 1)[2])
+            smi, os.path.join(work, "registry1"), _ddp_commands(os.path.join(work, "registry1"), 1)[1:])
     # B1's top-level numbers are the [train] path's (this slice's main path);
     # by_path keeps each path's own count, read after setting it to 0.
     # No single PyTorch call computes any of the three functions: library_ms is null

@@ -166,7 +166,8 @@ class DataModule:
         batch is dropped."""
         return self.split("train").batches(self.batch_size, shuffle=True, rng=rng, drop_last=True)
 
-    def train_loader(self, rng: Optional[np.random.Generator] = None, device_put=None, rows: Optional[slice] = None):
+    def train_loader(self, rng: Optional[np.random.Generator] = None, device_put=None, rows: Optional[slice] = None,
+                     slab: Optional[tuple] = None):
         """The batches of :meth:`train_batches`, in the same order for the
         same ``rng``, gathered by the native loader in a background thread
         and passed through ``device_put`` there (a
@@ -174,12 +175,15 @@ class DataModule:
         stages them on the device). Under data parallelism ``batch_size``
         is the GLOBAL batch and ``rows`` this rank's rows of it
         (``parallel.mesh.process_local_rows``): every rank shuffles alike,
-        and each gathers and stages only its own rows."""
+        and each gathers and stages only its own rows. Under spatial
+        sharding ``slab`` = (axis, model rank, model size) also cuts every
+        grid value to the rank's slab (``parallel.mesh.process_local_box``)
+        before it is staged."""
         from dyffusion_tpu_torch.data.native_loader import PrefetchIterator
 
         return PrefetchIterator(
             self.split("train").tensors, batch_size=self.batch_size, shuffle=True, rng=rng, drop_last=True,
-            device_put=device_put, rows=rows,
+            device_put=device_put, rows=rows, slab=slab,
         )
 
     def _balanced_eval_batch_size(self, n: int) -> int:

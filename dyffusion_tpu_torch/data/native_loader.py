@@ -40,6 +40,8 @@ from typing import Any, Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from dyffusion_tpu_torch.parallel.mesh import local_batch
+
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "batch_gather.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "native"
 # no -march=native: a library built on one host may be loaded on another
@@ -184,7 +186,10 @@ class PrefetchIterator:
     The order is that of ``DatasetSplit.batches``: one shuffle of
     ``np.arange(n)`` by ``rng`` per iteration. ``rows`` (a slice) keeps
     only those rows of every batch: a data-parallel rank gathers and stages
-    its own rows of the global batch, and nothing else. A worker's error is
+    its own rows of the global batch, and nothing else. ``slab`` = (axis,
+    model rank, model size) then keeps the rank's slab of every grid value
+    (``parallel.mesh.local_batch``), sliced on the host after the gather and
+    copied contiguous before it is staged. A worker's error is
     raised in the consumer; a consumer that stops early (a ``max_steps``
     break) stops and joins the worker."""
 
@@ -198,6 +203,7 @@ class PrefetchIterator:
         device_put=None,
         prefetch: int = 2,
         rows: Optional[slice] = None,
+        slab: Optional[tuple] = None,
     ):
         self.tensors = tensors
         self.batch_size = batch_size
@@ -207,6 +213,7 @@ class PrefetchIterator:
         self.device_put = device_put
         self.prefetch = prefetch
         self.rows = rows
+        self.slab = slab
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         n = next(iter(self.tensors.values())).shape[0]
@@ -238,6 +245,9 @@ class PrefetchIterator:
                     if self.rows is not None:
                         sel = sel[self.rows]
                     batch = {k: gather_batch(v, sel) for k, v in self.tensors.items()}
+                    if self.slab is not None:
+                        batch = {k: np.ascontiguousarray(v)
+                                 for k, v in local_batch(batch, slice(None), *self.slab).items()}
                     put(self.device_put(batch) if self.device_put is not None else batch)
                 put(None)
             except Exception as e:  # noqa: BLE001 (handed to the consumer, which raises it)

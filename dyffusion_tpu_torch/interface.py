@@ -21,8 +21,9 @@ Data parallelism: ``run_experiment``, ``build_trainer`` and
 The global train batch is ``datamodule.batch_size`` x world, each rank
 trains and evaluates on its rows, and ``mode=test`` reloads on the same
 world. ``python -m dyffusion_tpu_torch.train trainer.devices=N`` starts the
-N ranks itself. Not ported: spatial sharding (``trainer.spatial_shards`` >
-1, ROADMAP).
+N ranks itself. ``trainer.spatial_shards=K`` makes the world a D x K grid
+whose model groups split the grid's H (or W, ``trainer.spatial_axis=w``):
+training, evaluation and ``mode=test`` run on it (``parallel.spatial``).
 """
 from __future__ import annotations
 
@@ -57,7 +58,7 @@ from dyffusion_tpu_torch.experiments import (
 )
 from dyffusion_tpu_torch.experiments.base import resolve_device
 from dyffusion_tpu_torch.models import build_backbone
-from dyffusion_tpu_torch.parallel import distributed, spatial
+from dyffusion_tpu_torch.parallel import distributed
 from dyffusion_tpu_torch.parallel.mesh import replicate_state
 from dyffusion_tpu_torch.training import Trainer, TrainState, build_optimizer, mixed_precision_loss
 from dyffusion_tpu_torch.training.checkpoint import CheckpointManager, find_run_dir
@@ -309,8 +310,8 @@ def build_trainer(
     ``trainer.precision``) trains in bf16 mixed precision. With ``run_dir``
     the trainer keeps its checkpoints there (unless
     ``trainer.save_checkpoints`` is false). Under ``trainer.spatial_shards=K``
-    the world is a D x K grid and the trainer evaluates on slabs of the
-    grid's ``trainer.spatial_axis`` (training raises)."""
+    the world is a D x K grid and the trainer trains and evaluates on slabs
+    of the grid's ``trainer.spatial_axis``."""
     device = _join_world(config, device)
     tr_cfg = config.get("trainer", {}) or {}
     datamodule = datamodule or get_datamodule(config)
@@ -366,16 +367,6 @@ def _check_spatial_divisibility(datamodule: DataModule, n_model: int, axis: str 
         )
 
 
-def refuse_spatial_training(config: Dict[str, Any]) -> None:
-    """Training under ``trainer.spatial_shards > 1`` raises: only the eval
-    path is ported (ROADMAP A1, spatial training)."""
-    k = int((config.get("trainer") or {}).get("spatial_shards", 1) or 1)
-    if k > 1:
-        raise NotImplementedError(
-            f"training under trainer.spatial_shards={k} is not ported; mode=test, Trainer.evaluate and "
-            f"Trainer.predict run sharded (ROADMAP {spatial.TRAINING})")
-
-
 def _join_world(config: Dict[str, Any], device: torch.device | str) -> torch.device:
     """Join the launcher's process group, check ``trainer.devices``
     against its world, and return this rank's device for ``device``.
@@ -429,8 +420,8 @@ def run_experiment(
     ``last``, and so does a crash before it re-raises. ``log_fn`` also
     receives every logged record. Stage 2 (``dyffusion``) loads its
     interpolator from the registry, or takes the stage-1 model in memory as
-    ``interpolator``. Under ``trainer.spatial_shards > 1`` it raises."""
-    refuse_spatial_training(config)
+    ``interpolator``. Under ``trainer.spatial_shards=K`` each model group of
+    K ranks trains on slabs of the grid."""
     device = _join_world(config, device)
     _apply_matmul_precision(config)
     run_id = config.get("run_id") or get_run_id(config)

@@ -10,22 +10,26 @@ optional outer resample. Submodules carry the original reference's names
 ``remat=True`` checkpoints every ResNet block and every pre-norm attention
 block (the JAX ``nn.remat`` granularity) with ``torch.utils.checkpoint``.
 
-Inside ``parallel.spatial.sharded`` the forward runs on this rank's slab of
-the grid (:meth:`Unet._forward_sharded`): halo-exchanged convs (``init_conv``
-halo 3, the 3x3 convs halo 1, the stride-2 downsample, the upsample's
-source rows), GroupNorm moments summed over the model group, B1 split
-across ranks, the mid-block attention against gathered keys and values;
-1x1 convs, FiLM, SiLU and the channel norms stay local. Eval only: with
-gradients enabled, or with ``outer_sample_mode``, it raises.
+Inside ``parallel.spatial.sharded`` the same traversal runs on this rank's
+slab of the grid, each block given the ``level`` of its input (``None`` on
+one device): halo-exchanged convs (``init_conv`` halo 3, the 3x3 convs halo
+1, the stride-2 downsample, the upsample's source rows), GroupNorm moments
+summed over the model group, B1 split across ranks, the mid-block attention
+against gathered keys and values; 1x1 convs, FiLM, SiLU and the channel
+norms stay local. It trains too: every transfer has its backward
+(``parallel/spatial.py``), and remat replays a block's collectives in the
+backward in the forward's order on every rank. ``outer_sample_mode`` under
+a shard raises (ROADMAP A2).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from dyffusion_tpu_torch.models.base import concat_condition
 from dyffusion_tpu_torch.parallel import spatial
@@ -95,32 +99,39 @@ class ResnetBlock(nn.Module):
         return h + self.residual_conv(x)
 
 
-def remat_call(block: nn.Module, generator: Optional[torch.Generator], *args) -> torch.Tensor:
-    """``block(*args, generator)`` under ``torch.utils.checkpoint``: the
-    backward recomputes the block's activations instead of keeping them.
+def remat_call(block: nn.Module, generator: Optional[torch.Generator], *args,
+               level: Optional[spatial.Level] = None) -> torch.Tensor:
+    """``block(*args, generator)`` (with ``level``: ``block(*args,
+    generator, level)``) under ``torch.utils.checkpoint``: the backward
+    recomputes the block's activations instead of keeping them.
 
     The recompute must see what the forward saw. ``checkpoint`` restores
     only the global RNG states, so the explicit generator's state is taken
-    here and the recompute draws from a copy of it: the same dropout masks,
-    and the live generator is left as the forward left it. The recompute
-    also runs after any ``functional_call`` that substituted the block's
-    weights (and buffers) has returned, so it substitutes the tensors the
-    forward used."""
+    here and the recompute draws from a copy of it: the same dropout masks
+    (with ``level``, the same slab of the same global mask), and the live
+    generator is left as the forward left it. The recompute also runs after
+    any ``functional_call`` that substituted the block's weights (and
+    buffers) has returned, so it substitutes the tensors the forward used.
+    Under a shard the recompute runs the whole block, without checkpoint's
+    early stop: its collectives then run in full, in the forward's order,
+    on every rank of the group."""
     params = {**dict(block.named_buffers()), **dict(block.named_parameters())}
     state = None if generator is None else generator.get_state()
+    tail = () if level is None else (level,)
     calls = []
 
     def run(*inputs):
         calls.append(None)
         if len(calls) == 1:  # the forward
-            return block(*inputs, generator)
+            return block(*inputs, generator, *tail)
         replay = None
         if state is not None:
             replay = torch.Generator(device=generator.device)
             replay.set_state(state)
-        return torch.func.functional_call(block, params, (*inputs, replay))
+        return torch.func.functional_call(block, params, (*inputs, replay, *tail))
 
-    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
+    with contextlib.nullcontext() if level is None else set_checkpoint_early_stop(False):
+        return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 class Upsample(nn.Sequential):
@@ -227,12 +238,24 @@ class Unet(nn.Module):
             return F.interpolate(x, size=size, mode="bilinear", align_corners=False, antialias=False)
         return F.interpolate(x, size=size, mode="nearest-exact")
 
-    def _block(self, block: nn.Module, generator: Optional[torch.Generator], *args) -> torch.Tensor:
-        """A ResNet or pre-norm attention block, checkpointed under remat
-        when gradients are being recorded."""
+    def _block(self, block: nn.Module, generator: Optional[torch.Generator], level: Optional[spatial.Level],
+               *args) -> torch.Tensor:
+        """A ResNet or pre-norm attention block on the level of its input,
+        checkpointed under remat when gradients are being recorded."""
         if self.remat and torch.is_grad_enabled():
-            return remat_call(block, generator, *args)
-        return block(*args, generator)
+            return remat_call(block, generator, *args, level=level)
+        return block(*args, generator, level)
+
+    @staticmethod
+    def _conv(conv: nn.Module, x: torch.Tensor, level: Optional[spatial.Level]):
+        """``conv`` (a square ``nn.Conv2d`` or the ``Upsample``) on ``x``
+        and the level of its output: on one device (``level`` None) the
+        module itself; on a slab through the level's halo."""
+        if level is None:
+            return conv(x), None
+        if isinstance(conv, Upsample):
+            return spatial.upsample_conv(x, conv[1].weight, conv[1].bias, level)
+        return spatial.conv2d(x, conv.weight, conv.bias, level, stride=conv.stride[0], padding=conv.padding[0])
 
     def forward(
         self,
@@ -242,93 +265,45 @@ class Unet(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         shard = spatial.current()
+        lv = None
         if shard is not None:
-            return self._forward_sharded(x, time, condition, generator, shard)
+            if self.outer_sample_mode is not None:
+                raise NotImplementedError("the Unet's outer_sample_mode under spatial sharding is not ported "
+                                          f"(ROADMAP {spatial.BACKBONES})")
+            lv = shard.top()
         g, blk = generator, self._block
         x = concat_condition(x, condition, self.num_conditional_channels)
         orig_shape = tuple(x.shape[-2:])
         if self.outer_sample_mode is not None:
             x = self._resize(x, self.upsample_dims)
-        x = self.init_conv(x)
+        x, lv = self._conv(self.init_conv, x, lv)
         # two independent input-dropout draws
-        r = dropout(x, self.input_dropout, generator)
-        x = dropout(x, self.input_dropout, generator)
+        slab = None if lv is None else lv.slab
+        r = dropout(x, self.input_dropout, g, slab)
+        x = dropout(x, self.input_dropout, g, slab)
         t = self.time_emb_mlp(time) if self.time_emb_mlp is not None else None
 
         hs = []
         for block1, block2, attn, resample in self.downs:
-            x = blk(block1, g, x, t)
+            x = blk(block1, g, lv, x, t)
             hs.append(x)
-            x = blk(block2, g, x, t)
-            x = blk(attn, g, x)
+            x = blk(block2, g, lv, x, t)
+            x = blk(attn, g, lv, x)
             hs.append(x)
-            x = resample(x)
+            x, lv = self._conv(resample, x, lv)
 
-        x = blk(self.mid_block1, g, x, t)
-        x = blk(self.mid_attn, g, x)
-        x = blk(self.mid_block2, g, x, t)
+        x = blk(self.mid_block1, g, lv, x, t)
+        x = blk(self.mid_attn, g, lv, x)
+        x = blk(self.mid_block2, g, lv, x, t)
 
         for block1, block2, attn, resample in self.ups:
-            x = blk(block1, g, torch.cat([x, hs.pop()], dim=1), t)
-            x = blk(block2, g, torch.cat([x, hs.pop()], dim=1), t)
-            x = blk(attn, g, x)
-            x = resample(x)
+            x = blk(block1, g, lv, torch.cat([x, hs.pop()], dim=1), t)
+            x = blk(block2, g, lv, torch.cat([x, hs.pop()], dim=1), t)
+            x = blk(attn, g, lv, x)
+            x, lv = self._conv(resample, x, lv)
 
-        x = blk(self.final_res_block, g, torch.cat([x, r], dim=1), t)
+        x = blk(self.final_res_block, g, lv, torch.cat([x, r], dim=1), t)
         x = self.final_conv(x)
         if self.outer_sample_mode is not None:
             x = self._resize(x, orig_shape)
         return x
-
-    def _forward_sharded(
-        self,
-        x: torch.Tensor,
-        time: Optional[torch.Tensor],
-        condition: Optional[torch.Tensor],
-        generator: Optional[torch.Generator],
-        shard: spatial.Shard,
-    ) -> torch.Tensor:
-        """:meth:`forward` on this rank's slab of the grid (see the module
-        docstring): every block on the level of its input, each conv that
-        reads across rows through the level's halo."""
-        if self.outer_sample_mode is not None:
-            raise NotImplementedError("the Unet's outer_sample_mode under spatial sharding is not ported "
-                                      f"(ROADMAP {spatial.BACKBONES})")
-        if torch.is_grad_enabled():
-            raise NotImplementedError(f"the Unet's backward under spatial sharding is not ported: run it under "
-                                      f"torch.no_grad() (ROADMAP {spatial.TRAINING})")
-        g = generator
-        x = concat_condition(x, condition, self.num_conditional_channels)
-        lv = shard.top()
-        c = self.init_conv
-        x, lv = spatial.conv2d(x, c.weight, c.bias, lv, padding=c.padding[0])
-        r = dropout(x, self.input_dropout, g, lv.slab)
-        x = dropout(x, self.input_dropout, g, lv.slab)
-        t = self.time_emb_mlp(time) if self.time_emb_mlp is not None else None
-
-        def resample(conv, x, lv):
-            if isinstance(conv, Upsample):
-                return spatial.upsample_conv(x, conv[1].weight, conv[1].bias, lv)
-            return spatial.conv2d(x, conv.weight, conv.bias, lv, stride=conv.stride[0], padding=conv.padding[0])
-
-        hs = []
-        for block1, block2, attn, down in self.downs:
-            x = block1(x, t, g, lv)
-            hs.append(x)
-            x = block2(x, t, g, lv)
-            x = attn(x, g, lv)
-            hs.append(x)
-            x, lv = resample(down, x, lv)
-
-        x = self.mid_block1(x, t, g, lv)
-        x = self.mid_attn(x, g, lv)
-        x = self.mid_block2(x, t, g, lv)
-
-        for block1, block2, attn, up in self.ups:
-            x = block1(torch.cat([x, hs.pop()], dim=1), t, g, lv)
-            x = block2(torch.cat([x, hs.pop()], dim=1), t, g, lv)
-            x = attn(x, g, lv)
-            x, lv = resample(up, x, lv)
-
-        x = self.final_res_block(torch.cat([x, r], dim=1), t, g, lv)
-        return self.final_conv(x)

@@ -36,13 +36,18 @@ the global maximum (an ``all_reduce`` of the max between the merge's two
 calls), sums that partial over the group (one ``all_reduce`` of
 B*heads*(32*32 + 2*32) floats) and runs the output pass over the rank's
 tokens from it. Its plain version is the same arithmetic in PyTorch over
-the same collectives. Eval only: no backward.
+the same collectives. Its backward replays the plain version on the
+rank's tokens at the forward's global maximum (a shift that the softmax
+cancels: it gets no gradient) with differentiable sums, whose backward sums
+the context's and the normaliser's gradients over the group: the split
+counterpart of ``_pallas_qkv_bwd``. Every rank of the group runs it.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -112,12 +117,33 @@ def linear_attention_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     return torch.einsum("bde,bdn->ben", context, qf).to(q.dtype)
 
 
-def _all_reduce(t: torch.Tensor, op, group) -> torch.Tensor:
+def _all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
     import torch.distributed as dist
 
     if group is not None:
-        dist.all_reduce(t, op=op, group=group)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
     return t
+
+
+def _split_plain(qkv: torch.Tensor, heads: int, dim_head: int, scale: float, n_total: int, group,
+                 maximum: Optional[torch.Tensor] = None) -> tuple:
+    """:func:`linear_attention_qkv_split_plain` and k's per-channel maximum
+    over the group, (B, heads, dim_head) f32; ``maximum`` given: taken as
+    it is, detached (no collective)."""
+    B, N, _ = qkv.shape
+    x = qkv.float().reshape(B, N, 3, heads, dim_head)
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]  # (B, N, h, d)
+    m = _all_reduce_max(k.detach().amax(dim=1), group) if maximum is None else maximum.detach()
+    p = torch.exp(k - m[:, None])
+    sums = torch.cat([torch.einsum("bnhd,bnhe->bhde", p, v).flatten(2), p.sum(dim=1)], dim=-1)  # (B, h, d*d + d)
+    if group is not None:  # differentiable: the backward sums the gradients over the group
+        from dyffusion_tpu_torch.parallel.distributed import group_sum
+
+        sums = group_sum(sums, group)
+    context = sums[..., : dim_head * dim_head].reshape(B, heads, dim_head, dim_head)
+    context = context * (scale / (sums[..., dim_head * dim_head:, None] * n_total))
+    out = torch.einsum("bnhd,bhde->bnhe", torch.softmax(q, dim=-1), context)
+    return out.reshape(B, N, heads * dim_head).to(qkv.dtype), m
 
 
 def linear_attention_qkv_split_plain(qkv: torch.Tensor, heads: int, dim_head: int, scale: float, n_total: int,
@@ -125,20 +151,9 @@ def linear_attention_qkv_split_plain(qkv: torch.Tensor, heads: int, dim_head: in
     """Plain PyTorch version of the split B1: this rank's (B, N_local,
     3*heads*dim_head) tokens of ``n_total`` over the ranks of ``group``
     (None: one rank). k's per-channel maximum over the group, then the
-    sums of e^{k - M} and of e^{k - M} v over it, in f32."""
-    import torch.distributed as dist
-
-    B, N, _ = qkv.shape
-    x = qkv.float().reshape(B, N, 3, heads, dim_head)
-    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]  # (B, N, h, d)
-    m = _all_reduce(k.amax(dim=1), dist.ReduceOp.MAX, group)
-    p = torch.exp(k - m[:, None])
-    sums = torch.cat([torch.einsum("bnhd,bnhe->bhde", p, v).flatten(2), p.sum(dim=1)], dim=-1)  # (B, h, d*d + d)
-    sums = _all_reduce(sums, dist.ReduceOp.SUM, group)
-    context = sums[..., : dim_head * dim_head].reshape(B, heads, dim_head, dim_head)
-    context = context * (scale / (sums[..., dim_head * dim_head:, None] * n_total))
-    out = torch.einsum("bnhd,bhde->bnhe", torch.softmax(q, dim=-1), context)
-    return out.reshape(B, N, heads * dim_head).to(qkv.dtype)
+    sums of e^{k - M} and of e^{k - M} v over it, in f32. Differentiable:
+    the sums' backward sums their gradients over the group."""
+    return _split_plain(qkv, heads, dim_head, scale, n_total, group)[0]
 
 
 def _check(qkv: torch.Tensor, heads: int, dim_head: int) -> None:
@@ -307,18 +322,45 @@ def split_output(qkv: torch.Tensor, merged: torch.Tensor, heads: int, dim_head: 
     return out
 
 
-def _launch_split(qkv: torch.Tensor, heads: int, dim_head: int, scale: float, n_total: int, group) -> torch.Tensor:
+def _launch_split(qkv: torch.Tensor, heads: int, dim_head: int, scale: float, n_total: int, group) -> tuple:
     """The kernel path of :func:`linear_attention_qkv_split`: the three
-    steps with the two all_reduces between them."""
+    steps with the two all_reduces between them. Returns the output and the
+    global maximum, (B, heads, dim_head)."""
     import torch.distributed as dist
 
     global launches, split_launches
     ws, S, maxima = split_partial(qkv, heads, dim_head)
-    merged = split_merge(qkv, ws, S, _all_reduce(maxima, dist.ReduceOp.MAX, group))
-    out = split_output(qkv, _all_reduce(merged, dist.ReduceOp.SUM, group), heads, dim_head, scale, n_total)
+    maxima = _all_reduce_max(maxima, group)
+    merged = split_merge(qkv, ws, S, maxima)
+    if group is not None:
+        dist.all_reduce(merged, group=group)
+    out = split_output(qkv, merged, heads, dim_head, scale, n_total)
     launches += 1
     split_launches += 1
-    return out
+    return out, maxima.view(qkv.shape[0], heads, dim_head)
+
+
+class _SplitQKV(torch.autograd.Function):
+    """The split B1: the kernels (CUDA) or the plain version (CPU) forward,
+    the plain version replayed backward (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, qkv, heads, dim_head, scale, n_total, group):
+        ctx.args = (heads, dim_head, scale, n_total, group)
+        if qkv.device.type == "cuda":
+            out, maximum = _launch_split(qkv, heads, dim_head, scale, n_total, group)
+        else:
+            out, maximum = _split_plain(qkv, heads, dim_head, scale, n_total, group)
+        ctx.save_for_backward(qkv, maximum)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        qkv, maximum = ctx.saved_tensors
+        with torch.enable_grad():
+            x = qkv.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(_split_plain(x, *ctx.args, maximum=maximum)[0], x, grad)
+        return g, None, None, None, None, None
 
 
 def linear_attention_qkv_split(qkv: torch.Tensor, heads: int, dim_head: int, scale: float, n_total: int,
@@ -329,16 +371,13 @@ def linear_attention_qkv_split(qkv: torch.Tensor, heads: int, dim_head: int, sca
     context summed over all, v / ``n_total``; the output of this rank's
     tokens. CUDA tensor: the B1 kernels (partial pass, merge, output pass)
     with two all_reduces between them, or an error. CPU tensor: the plain
-    version (:func:`linear_attention_qkv_split_plain`). Every rank of the
-    group must call it. No backward."""
+    version (:func:`linear_attention_qkv_split_plain`). Differentiable: the
+    backward replays the plain version with one all_reduce. Every rank of
+    the group must call it, and its backward."""
     _check(qkv, heads, dim_head)
-    if torch.is_grad_enabled() and qkv.requires_grad:
-        raise NotImplementedError("the split linear attention has no backward (ROADMAP A1, spatial training)")
-    if qkv.device.type == "cuda":
-        return _launch_split(qkv, heads, dim_head, scale, n_total, group)
-    if qkv.device.type != "cpu":
+    if qkv.device.type not in ("cpu", "cuda"):
         raise ValueError(f"linear_attention_qkv_split takes CPU or CUDA tensors, got device {qkv.device}")
-    return linear_attention_qkv_split_plain(qkv, heads, dim_head, scale, n_total, group)
+    return _SplitQKV.apply(qkv, heads, dim_head, float(scale), int(n_total), group)
 
 
 def qkv_occupancy(dtype: torch.dtype, vec: int, tokens_fast: bool) -> tuple:

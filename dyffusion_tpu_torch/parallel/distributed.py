@@ -23,9 +23,23 @@ per rank, each on one device, joined by ``torch.distributed``:
   n_model)``), rank r at ``(r // K, r % K)``: one ``model`` group per data
   index (the K ranks that split one example's grid) and one ``data`` group
   per model index. :func:`model_rank`, :func:`model_size`,
-  :func:`data_rank`, :func:`data_size` and :func:`model_all_reduce` read
-  them; without a model axis the model group is one rank and the data axis
-  the world.
+  :func:`data_rank`, :func:`data_size`, :func:`model_all_reduce` and
+  :func:`model_sum` read them; without a model axis the model group is one
+  rank and the data axis the world.
+- The gradient of a train step (:func:`all_reduce_gradients`): every rank
+  computes the loss of its box of the global batch (the rows of its data
+  index, its model index's slab of the grid), a mean over the box's
+  elements (a masked mean's count is the global batch's over D,
+  ``utils.loss``). The K slabs of a model group are equal in size (the grid
+  divides by K), so the loss of the whole grid and the whole global batch
+  is the mean of the world's D x K rank losses. A rank's backward goes
+  through the model group's differentiable collectives
+  (``parallel.spatial``): it gives the gradient of the sum of the group's
+  losses with respect to the weights as this rank's slab uses them. Summed
+  over the world and divided by D x K, that is the gradient of the global
+  loss: one all_reduce over the world, divided by the world, for any grid
+  (pure data parallelism is K = 1). The logged loss metrics are the mean
+  over the world (:func:`all_reduce_mean`), the global loss.
 
 Without a process group every function answers for one process: rank 0,
 world 1, collectives that return their input.
@@ -129,13 +143,43 @@ def model_group():
     return axis[1] if axis is not None else None
 
 
-def model_all_reduce(t: torch.Tensor, op=None) -> torch.Tensor:
-    """``t`` reduced over this rank's model group in place (``op``: the
-    sum unless given); ``t`` without a model axis."""
+def model_all_reduce(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over this rank's model group in place, outside autograd;
+    ``t`` without a model axis."""
     group = model_group()
     if group is not None:
-        dist.all_reduce(t, op=dist.ReduceOp.SUM if op is None else op, group=group)
+        dist.all_reduce(t, group=group)
     return t
+
+
+class _GroupSum(torch.autograd.Function):
+    """An all_reduce sum whose backward is the all_reduce sum of the
+    gradients (``torch.distributed.nn.functional.all_reduce``, which torch
+    deprecates)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        t = t.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _GroupSum.apply(grad, ctx.group), None
+
+
+def group_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``t`` over the ranks of ``group``, differentiable: the
+    backward sums the incoming gradients over the group, so every rank of
+    it must run the backward too; ``t`` for ``group=None``."""
+    return t if group is None else _GroupSum.apply(t, group)
+
+
+def model_sum(t: torch.Tensor) -> torch.Tensor:
+    """:func:`group_sum` over this rank's model group; ``t`` without a model
+    axis."""
+    return group_sum(t, model_group())
 
 
 def launcher_world() -> Optional[int]:
@@ -212,10 +256,14 @@ def rank_seed(seed: int) -> int:
     same global draw, ``utils.rng.spatial_shard``), else a seed drawn from
     ``seed`` and the data index by numpy's ``SeedSequence``. The JAX package's
     partitionable threefry, whose draw on a sharded batch is the slice of
-    the global draw, has no torch counterpart: each rank draws its own
-    dropout masks, so a run with dropout differs between world sizes in its
-    masks (not in their distribution). The per-row draws of a train loss
-    are the global batch's (``utils.rng.row_shard``)."""
+    the global draw, has no torch counterpart: each data index draws its
+    own dropout masks for its rows, so a run with dropout differs between
+    data-axis sizes in its masks (not in their distribution), while the K
+    ranks of a model group, in training as at eval, keep their slabs of one
+    draw and so train as one rank of that data index. The per-row draws of
+    a train loss are the global batch's (``utils.rng.row_shard``) on a
+    data axis of more than one rank, else the step generator's, the same on
+    the K ranks of a group."""
     if data_size() == 1:
         return int(seed)
     return int(np.random.SeedSequence([int(seed), data_rank()]).generate_state(1, np.uint64)[0] & (2**63 - 1))
@@ -241,9 +289,10 @@ def all_reduce_mean(values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 @torch.no_grad()
 def all_reduce_gradients(params: Iterable[torch.nn.Parameter], bucket_elements: int = GRAD_BUCKET_ELEMENTS) -> None:
-    """Average the parameters' gradients over ranks: flat buckets of at
-    most ``bucket_elements`` elements per dtype, one ``all_reduce`` each.
-    A weight the loss does not reach (``grad`` None) enters as zeros on
+    """Sum the parameters' gradients over the world and divide by it (the
+    global loss's gradient on any D x K grid: see the module docstring):
+    flat buckets of at most ``bucket_elements`` elements per dtype, one
+    ``all_reduce`` each. A weight the loss does not reach (``grad`` None) enters as zeros on
     every rank (or the ranks would wait on one another) and leaves with a
     zero gradient."""
     if not active():

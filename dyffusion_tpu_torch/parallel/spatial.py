@@ -32,11 +32,25 @@ buffer that each rank fills with the rows it owns (gloo takes only
 halo moves the rows that cross ranks, 2 x halo rows a rank. Every rank of
 the group calls every collective in the same order.
 
-:func:`sharded` is the context of a sharded forward: the trainer enters it
-around its evaluation, and the ``Unet`` (:func:`current`) then runs its
-sharded path; the draws over the input grid take the rank's slab
-(``utils.rng.spatial_shard``). Only the eval path is ported: training under
-a shard raises (ROADMAP A1, "spatial training").
+Every transfer is differentiable, as GSPMD's halos are in the JAX
+package's backward. The halo is one autograd node (:class:`_Rows`) whose
+backward runs the same all_reduce reversed: each rank puts the gradients
+of the rows it took from others into the buffer, and each owner adds the
+sum at its rows. It is one node, not a sum and some copies, so that every
+rank calls the backward's collective even where its own output reads no
+other rank's row (SST's 15 -> 30 upsample: rank 0 reads only its own
+rows, rank 1 reads one of rank 0's). The moments of :func:`group_norm`,
+the keys and values of :func:`gather` and B1's sums go through
+``distributed.model_sum``, whose backward is the same sum of the incoming
+gradients. So a rank's backward of its slab's loss gives the gradient of
+the sum of its group's losses with respect to the tensors it holds; summed
+over the world and divided by it (``distributed.all_reduce_gradients``),
+the weight gradient is that of the loss over the whole grid and batch.
+
+:func:`sharded` is the context of a sharded forward or train step: the
+trainer enters it around its evaluation and its train step, and the
+``Unet`` (:func:`current`) then runs on its slab; the draws over the input
+grid take the rank's slab (``utils.rng.spatial_shard``).
 """
 from __future__ import annotations
 
@@ -53,8 +67,7 @@ from dyffusion_tpu_torch.utils import rng
 
 # the sharded axis of an NCHW tensor for trainer.spatial_axis
 AXES = {"h": -2, "w": -1}
-# the ROADMAP items of what is not ported under a shard
-TRAINING = "A1, spatial training"
+# the ROADMAP item of what is not ported under a shard
 BACKBONES = "A2, other backbones and layouts under a shard"
 
 
@@ -183,22 +196,23 @@ def _halo_all_reduce(buf: torch.Tensor) -> torch.Tensor:
     return distributed.model_all_reduce(buf)
 
 
-def rows(x: torch.Tensor, level: Level, need: Sequence[Tuple[int, int]]) -> torch.Tensor:
-    """The global rows ``need[rank]`` = [lo, hi) of the sharded axis for
-    this rank, from its slab ``x`` of ``level`` and the slabs of the ranks
-    that own them; zeros outside [0, level.total). ``need`` holds every
-    rank's range (each rank computes all of them alike). One all_reduce of the rows that cross
-    ranks, none when no rank needs another's rows."""
+def _segments(level: Level, need: Sequence[Tuple[int, int]]) -> List[Tuple[int, int, int, int]]:
+    """(needing rank, owning rank, first row, end row) of every run of rows
+    that crosses ranks, in one order on every rank."""
+    segments = [(r, q, max(n_lo, blk[0]), min(n_hi, blk[1]))
+                for r, (n_lo, n_hi) in enumerate(need) for q, blk in enumerate(level.blocks) if q != r]
+    return [s for s in segments if s[2] < s[3]]
+
+
+def _take_rows(x: torch.Tensor, level: Level, need: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """The forward of :func:`rows`."""
     dim, me, own = level.dim, level.rank, level.blocks
     lo, hi = need[me]
     out = x.new_zeros(_with_extent(x, dim, hi - lo))
     a, b = max(lo, own[me][0]), min(hi, own[me][1])
     if a < b:
         out.narrow(dim, a - lo, b - a).copy_(x.narrow(dim, a - own[me][0], b - a))
-    # (needing rank, owning rank, first row, end row) of every crossing, in one order on every rank
-    segments = [(r, q, max(n_lo, blk[0]), min(n_hi, blk[1]))
-                for r, (n_lo, n_hi) in enumerate(need) for q, blk in enumerate(own) if q != r]
-    segments = [s for s in segments if s[2] < s[3]]
+    segments = _segments(level, need)
     if not segments:
         return out
     buf = x.new_zeros(_with_extent(x, dim, sum(b - a for _, _, a, b in segments)))
@@ -216,12 +230,66 @@ def rows(x: torch.Tensor, level: Level, need: Sequence[Tuple[int, int]]) -> torc
     return out
 
 
+def _return_rows(grad: torch.Tensor, level: Level, need: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """The backward of :func:`rows`: the gradient of this rank's slab, its
+    own rows' part of ``grad`` plus, summed over the group, what the other
+    ranks' ``grad`` holds for the rows they took from it (the forward's
+    all_reduce, with the roles of needing and owning rank swapped)."""
+    dim, me, own = level.dim, level.rank, level.blocks
+    lo, hi = need[me]
+    gx = grad.new_zeros(_with_extent(grad, dim, own[me][1] - own[me][0]))
+    a, b = max(lo, own[me][0]), min(hi, own[me][1])
+    if a < b:
+        gx.narrow(dim, a - own[me][0], b - a).copy_(grad.narrow(dim, a - lo, b - a))
+    segments = _segments(level, need)
+    if not segments:
+        return gx
+    buf = grad.new_zeros(_with_extent(grad, dim, sum(b - a for _, _, a, b in segments)))
+    offset = 0
+    for r, _, a, b in segments:
+        if r == me:
+            buf.narrow(dim, offset, b - a).copy_(grad.narrow(dim, a - lo, b - a))
+        offset += b - a
+    buf = _halo_all_reduce(buf)
+    offset = 0
+    for _, q, a, b in segments:
+        if q == me:
+            gx.narrow(dim, a - own[me][0], b - a).add_(buf.narrow(dim, offset, b - a))
+        offset += b - a
+    return gx
+
+
+class _Rows(torch.autograd.Function):
+    """:func:`rows` as one autograd node (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, level, need):
+        ctx.level, ctx.need = level, need
+        return _take_rows(x, level, need)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _return_rows(grad, ctx.level, ctx.need), None, None
+
+
+def rows(x: torch.Tensor, level: Level, need: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """The global rows ``need[rank]`` = [lo, hi) of the sharded axis for
+    this rank, from its slab ``x`` of ``level`` and the slabs of the ranks
+    that own them; zeros outside [0, level.total). ``need`` holds every
+    rank's range (each rank computes all of them alike). One all_reduce of
+    the rows that cross ranks, none when no rank needs another's rows; the
+    backward returns each row's gradient to its owner with one more."""
+    return _Rows.apply(x, level, tuple(need))
+
+
 def gather(x: torch.Tensor, level: Level) -> torch.Tensor:
     """The whole of a level's tensor on every rank of the group (for small
-    tensors): each rank's slab placed in a zero-filled buffer, summed."""
+    tensors): each rank's slab placed in a zero-filled buffer, summed (the
+    backward: the gradient of the whole summed over the group, this rank's
+    slab of it)."""
     buf = x.new_zeros(_with_extent(x, level.dim, level.total))
     buf.narrow(level.dim, level.start, level.stop - level.start).copy_(x)
-    return distributed.model_all_reduce(buf)
+    return distributed.model_sum(buf)
 
 
 def _padding(level: Level, p: int) -> Tuple[int, int]:
@@ -265,7 +333,7 @@ def group_norm(x: torch.Tensor, num_groups: int, weight: torch.Tensor, bias: tor
     summed over the model group; computed in f32, returned in x's dtype."""
     B, C = x.shape[:2]
     xf = x.float().reshape(B, num_groups, -1)
-    moments = distributed.model_all_reduce(torch.stack([xf.sum(-1), xf.square().sum(-1)]))
+    moments = distributed.model_sum(torch.stack([xf.sum(-1), xf.square().sum(-1)]))
     n = (C // num_groups) * level.tokens
     mean = moments[0] / n
     var = torch.clamp(moments[1] / n - mean.square(), min=0.0)

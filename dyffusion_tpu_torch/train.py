@@ -25,11 +25,12 @@ from the run's stored config (and the overrides). Under a launcher
 group, and ``trainer.devices`` must be ``auto`` or the world size. Rank 0
 alone prints the final JSON line.
 
-Spatial sharding: ``mode=test ... trainer.devices=N trainer.spatial_shards=K``
-(K dividing N and the grid's H, or its W with ``trainer.spatial_axis=w``)
-starts N ranks as above, a grid of N/K data indices by K slabs; each model
-group of K ranks splits the grid of its rows. Training under a shard is not
-ported and raises before any rank starts.
+Spatial sharding: ``trainer.devices=N trainer.spatial_shards=K`` (K
+dividing N and the grid's H, or its W with ``trainer.spatial_axis=w``),
+in training as in ``mode=test``, starts N ranks as above, a grid of N/K
+data indices by K slabs; each model group of K ranks splits the grid of
+its rows. ``datamodule.batch_size`` is per data index, as without a shard,
+so the run id is that of the N/K-rank data-parallel run.
 
 Sweeps: ``-m``/``--multirun`` expands every comma-valued override into the
 cartesian product of runs, each under its own run id; commas inside
@@ -46,7 +47,7 @@ import tempfile
 from typing import Any, Dict, List, Optional
 
 from dyffusion_tpu_torch.config import apply_override, get_config, list_presets
-from dyffusion_tpu_torch.interface import refuse_spatial_training, reload_and_test, run_experiment
+from dyffusion_tpu_torch.interface import reload_and_test, run_experiment
 from dyffusion_tpu_torch.parallel import distributed
 from dyffusion_tpu_torch.training.checkpoint import CheckpointManager, find_run_dir
 
@@ -182,7 +183,6 @@ def main(argv: Optional[List[str]] = None, device: str = "cuda") -> float:
             apply_override(config, ov)
     else:
         config = get_config(preset, overrides)
-        refuse_spatial_training(config)
     ranks = _requested_ranks(config)
     if ranks > 1 and distributed.launcher_world() is None:
         return spawn_ranks(ranks, argv + [f"--device={device}"], device)

@@ -32,16 +32,25 @@ split, so every rank reads the same metrics and early stopping stops them
 at the same step. Each rank's train and eval generators are seeded from the
 seed and the rank (``parallel.distributed.rank_seed``).
 
-Spatial sharding (``trainer.spatial_shards=K``, eval only): the ranks form
-a D x K grid (``distributed.set_model_axis``); ``evaluate``, ``test`` and
-``predict`` give each rank its data index's rows and its slab of the grid
-(``data.base.local_eval_batches``) and run the eval functions inside
-``parallel.spatial.sharded``, where the ``Unet`` exchanges halos across
-its model group and the K ranks of a group draw alike (their eval
-generators share the data index's seed). The metric sums run over the
-rank's slab (n counts its pixels) and are all-reduced over every rank;
-``predict`` gathers rows and slabs. ``fit`` and the train step raise
-(ROADMAP A1, spatial training).
+Spatial sharding (``trainer.spatial_shards=K``): the ranks form a D x K
+grid (``distributed.set_model_axis``). ``fit`` gives each rank its data
+index's rows of every train batch and its model index's slab of the grid
+(``DataModule.train_loader(slab=...)``), and the train step runs the loss
+inside ``parallel.spatial.sharded``, where the ``Unet`` exchanges halos
+across its model group, forward and backward. The K ranks of a group draw
+alike: their step generators share the data index's seed, the dropout and
+noise over the grid take each rank's slab of one global draw, and the
+per-row draws are the data index's (``utils.rng.row_shard`` over the data
+axis only). So the weight gradient, summed over the world and divided by
+it (``distributed.all_reduce_gradients``), is the gradient of the loss over
+the whole grid and the whole global batch before ``grad_norm``,
+``zero_grad_frac``, ``watch_gradients`` and clipping read it, and the
+logged loss is that loss (the normalisation is set out in
+``parallel.distributed``). ``evaluate``, ``test`` and ``predict`` give each
+rank its box of every eval batch (``data.base.local_eval_batches``) and
+run inside the same context; the metric sums run over the rank's slab (n
+counts its pixels) and are all-reduced over every rank; ``predict``
+gathers rows and slabs.
 """
 from __future__ import annotations
 
@@ -119,25 +128,27 @@ def gradient_watch_metrics(params: Dict[str, nn.Parameter]) -> Dict[str, torch.T
     return out
 
 
-def make_train_step(loss_fn: LossFn, watch_gradients: bool = False) -> Callable[[TrainState, Dict[str, Any]], Dict]:
+def make_train_step(loss_fn: LossFn, watch_gradients: bool = False,
+                    sharded: Callable[[], Any] = contextlib.nullcontext) -> Callable[[TrainState, Dict[str, Any]], Dict]:
     """``train_step(state, batch) -> metrics``: gradients of ``loss_fn`` with
     respect to the model's trainable weights, then
     :meth:`TrainState.apply_gradients` with the BatchNorm updates the loss
     returned under ``MODEL_STATE_UPDATES``. ``state`` is updated in place.
-    ``watch_gradients`` adds :func:`gradient_watch_metrics`. In a process
-    group of more than one rank the loss's per-row draws come from
-    ``state.row_generator`` for the global batch, the gradients are
-    averaged across ranks after the backward, and the loss metrics are
-    means over ranks."""
+    ``watch_gradients`` adds :func:`gradient_watch_metrics`. The loss runs
+    inside ``sharded()`` (``Trainer.sharded``: the spatial shard's
+    context; the backward needs none, every block keeps its level). On a
+    data axis of more than one rank the loss's per-row draws come from
+    ``state.row_generator`` for the global batch. In a process group the
+    gradients are summed over the world and divided by it after the
+    backward, and the loss metrics are means over the world."""
 
     def train_step(state: TrainState, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        _refuse_spatial_training()
-        world = distributed.world_size()
+        world, n_data = distributed.world_size(), distributed.data_size()
         rows = contextlib.nullcontext()
-        if world > 1:
+        if n_data > 1:  # the K ranks of a model group hold the same rows
             n = int(next(iter(batch.values())).shape[0])
-            rows = rng.row_shard(state.row_generator, n * world, distributed.rank() * n)
-        with rows:
+            rows = rng.row_shard(state.row_generator, n * n_data, distributed.data_rank() * n)
+        with rows, sharded():
             loss, metrics = loss_fn(None, batch, state.generator)
         metrics = dict(metrics)
         updates = metrics.pop(MODEL_STATE_UPDATES, None)
@@ -184,14 +195,6 @@ def metric_sums(
     return {"n": n, "sq": sq, "var": var, "crps": ((skill - spread) * mask).sum()}
 
 
-def _refuse_spatial_training() -> None:
-    if distributed.model_size() > 1:
-        raise NotImplementedError(
-            f"training under trainer.spatial_shards={distributed.model_size()} is not ported: the backward through "
-            f"the halos, B1's backward over the global softmax and the gradient sum over the model group "
-            f"(ROADMAP {spatial.TRAINING})")
-
-
 class Trainer:
     """Fit loop and evaluation over one experiment on its device. With a
     ``run_dir`` (and ``save_checkpoints``) it keeps the run's ``best`` and
@@ -223,7 +226,7 @@ class Trainer:
         self.datamodule = datamodule
         self.device = experiment.device
         self.state = state
-        self.train_step = make_train_step(loss_fn, watch_gradients=watch_gradients)
+        self.train_step = make_train_step(loss_fn, watch_gradients=watch_gradients, sharded=self.sharded)
         # a host batch as tensors on the device, ordered before later work on its stream
         self._put = DeviceStager(self.device)
         self.eval_fns = eval_fns
@@ -283,7 +286,6 @@ class Trainer:
     def fit(self) -> float:
         """Train with periodic validation; returns the best monitored score
         (nan if no validation gave a finite one)."""
-        _refuse_spatial_training()
         best = np.nan
         step = self.state.step
         done = False
@@ -296,8 +298,10 @@ class Trainer:
             if self.ckpt.best_score is not None and np.isfinite(self.ckpt.best_score):
                 best = float(self.ckpt.best_score)
         self.epochs_completed = start_epoch
-        world = distributed.world_size()
-        rows = process_local_rows(self.datamodule.batch_size, distributed.rank(), world) if world > 1 else None
+        # this rank's box of every global batch: its data index's rows, its slab of the grid
+        n_data, n_model = distributed.data_size(), distributed.model_size()
+        rows = process_local_rows(self.datamodule.batch_size, distributed.data_rank(), n_data) if n_data > 1 else None
+        slab = (self.spatial_axis, distributed.model_rank(), n_model) if n_model > 1 else None
         for epoch in range(start_epoch, self.max_epochs):
             epoch_start = time.time()
             n_batches = 0
@@ -307,7 +311,7 @@ class Trainer:
                 break  # a resumed run already at the cap trains no more
             # the loader gathers and stages the next batches while this step runs; the
             # loop holds its only reference, so a break or a raising step stops its worker
-            for batch in self.datamodule.train_loader(rng=self._np_rng, device_put=self._put, rows=rows):
+            for batch in self.datamodule.train_loader(rng=self._np_rng, device_put=self._put, rows=rows, slab=slab):
                 metrics = self.train_step(self.state, batch)
                 loss_parts.append(metrics["loss"])
                 n_batches += 1
@@ -384,8 +388,9 @@ class Trainer:
                                   self.spatial_axis, distributed.model_rank(), distributed.model_size())
 
     def sharded(self):
-        """The context of this rank's eval under spatial sharding
-        (``parallel.spatial.sharded``); a no-op on a model axis of 1."""
+        """The context of this rank's train step and eval under spatial
+        sharding (``parallel.spatial.sharded``); a no-op on a model axis of
+        1."""
         if distributed.model_size() == 1:
             return contextlib.nullcontext()
         return spatial.sharded(self.spatial_axis, self.experiment.dims["spatial"])

@@ -7,6 +7,11 @@ Reductions always run in f32, so bf16 predictions under mixed-precision
 training keep their gradient signal. In a data-parallel train step
 (``utils.rng.row_shard``) a masked mean counts the unmasked rows of the
 GLOBAL batch, so that the mean of the ranks' losses is the global batch's.
+Under spatial sharding (a D x K grid) a rank's mean runs over its slab of
+its data index's rows, and the count is the same: the sum over the world
+counts each row once on each of the K ranks of its model group, and the
+world is D x K, so the quotient is the global batch's count over D, as
+``parallel.distributed`` sets out for the whole gradient.
 """
 from __future__ import annotations
 

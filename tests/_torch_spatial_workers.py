@@ -69,20 +69,34 @@ def unet_rank(rank: int, world: int, case: Dict[str, Any], faults: List[Any]) ->
     return out
 
 
+def a2_raise(world: int) -> str:
+    """The error of an A2 backbone (``UNetSimple``) under a shard."""
+    import torch
+
+    from dyffusion_tpu_torch.models import UNetSimple
+    from dyffusion_tpu_torch.parallel import spatial
+
+    try:
+        with spatial.sharded("h", (8, 8)):
+            UNetSimple(8, 1, 1)(torch.zeros(1, 1, 8 // world, 8))
+    except NotImplementedError as e:
+        return str(e)
+    return "no error"
+
+
 def stages_rank(rank: int, world: int, stage1: List[str], stage2: List[str]) -> Dict[str, Any]:
     """Both DYffusion stages' val predictions (``Trainer.predict``, dropout
     on, gathered rows and slabs) on this world's D x K grid, the stage-1
-    test metrics, and the raise of ``fit``."""
+    test metrics, the best score of stage 2's ``fit`` and the raise of an
+    A2 backbone under the shard."""
     from dyffusion_tpu_torch.config import get_config
     from dyffusion_tpu_torch.interface import build_trainer
 
     tr1 = build_trainer(get_config("synthetic_interpolation", stage1), device="cpu")
     tr2 = build_trainer(get_config("synthetic_dyffusion", stage2), interpolator=tr1.experiment.model, device="cpu")
     out = {"stage 1": tr1.predict("val"), "stage 2": tr2.predict("val"), "test": tr1.evaluate("test")}
-    try:
-        tr2.fit()
-    except NotImplementedError as e:
-        out["fit"] = str(e)
+    out["fit"] = tr2.fit()
+    out["a2"] = a2_raise(world)
     return out
 
 
@@ -102,4 +116,189 @@ def spatial_rank(rank: int, world: int, unet_cases: List[Dict[str, Any]], faults
     out["b1"] = linear_attention_qkv_split_plain(torch.as_tensor(qkv[:, a:b]), 4, 32, 32**-0.5, qkv.shape[1],
                                                  distributed.model_group()).numpy()
     out.update(stages_rank(rank, world, stage1, stage2))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# spatial training (tests/test_torch_port_spatial_train.py)
+
+
+class _ForwardOnlySum:
+    """A planted fault's sum: the all_reduce of the forward, no sum of the
+    gradients in the backward (each rank keeps its own)."""
+
+    @staticmethod
+    def apply(t, group):
+        import torch
+        import torch.distributed as dist
+
+        class _Sum(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, t):
+                t = t.clone()
+                dist.all_reduce(t, group=group)
+                return t
+
+            @staticmethod
+            def backward(ctx, grad):
+                return grad
+
+        return _Sum.apply(t)
+
+
+@contextlib.contextmanager
+def grad_fault(name: str):
+    """A planted fault of the sharded backward, the negative controls:
+    'halo gradients kept' (the halo's backward returns no row to its
+    owner), 'group norm moment gradients per rank' (the moments summed
+    forward, their gradients not), 'linear attention backward per rank'
+    (B1's backward over the rank's own tokens, no sum of the context's
+    gradients)."""
+    from dyffusion_tpu_torch.ops import linear_attention as la
+    from dyffusion_tpu_torch.parallel import distributed, spatial
+
+    saved = (spatial._Rows.backward, spatial.group_norm, la._SplitQKV.backward)
+    if name == "halo gradients kept":
+        def backward(ctx, grad):
+            transfer = spatial._halo_all_reduce
+            spatial._halo_all_reduce = lambda buf: buf
+            try:
+                return saved[0](ctx, grad)
+            finally:
+                spatial._halo_all_reduce = transfer
+
+        spatial._Rows.backward = staticmethod(backward)
+    elif name == "group norm moment gradients per rank":
+        def group_norm(*args):
+            model_sum = distributed.model_sum
+            distributed.model_sum = lambda t: _ForwardOnlySum.apply(t, distributed.model_group())
+            try:
+                return saved[1](*args)
+            finally:
+                distributed.model_sum = model_sum
+
+        spatial.group_norm = group_norm
+    elif name == "linear attention backward per rank":
+        def backward(ctx, grad):
+            ctx.args = ctx.args[:-1] + (None,)
+            return saved[2](ctx, grad)
+
+        la._SplitQKV.backward = staticmethod(backward)
+    elif name is not None:
+        raise ValueError(name)
+    try:
+        yield
+    finally:
+        spatial._Rows.backward, spatial.group_norm, la._SplitQKV.backward = saved
+
+
+def unet_grad_rank(rank: int, world: int, case: Dict[str, Any], faults: List[Any]) -> Dict[Any, Dict[str, np.ndarray]]:
+    """The sharded ``Unet``'s gradients of sum(output * cot) for ``case``
+    (its kwargs, state dict, NCHW inputs and cotangent, axis), dropout
+    off: this rank's slab of the input's gradient and every weight's
+    gradient summed over the ranks, with no fault and under each of
+    ``faults``."""
+    import torch
+
+    from dyffusion_tpu_torch.models import Unet
+    from dyffusion_tpu_torch.parallel import distributed, spatial
+
+    model = Unet(**case["kwargs"])
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in case["state"].items()}, strict=True)
+    axis, (H, W) = case["axis"], case["x"].shape[2:]
+    cond = torch.as_tensor(_slab(case["cond"], axis, rank, world))
+    cot = torch.as_tensor(_slab(case["cot"], axis, rank, world))
+    out = {}
+    for name in [None] + list(faults):
+        model.zero_grad()
+        x = torch.tensor(_slab(case["x"], axis, rank, world), requires_grad=True)
+        with grad_fault(name):
+            with spatial.sharded(axis, (H, W)):
+                y = model(x, torch.as_tensor(case["t"]), cond)
+            (y * cot).sum().backward()
+        grads = {k: p.grad.clone() for k, p in model.named_parameters()}
+        for g in grads.values():
+            distributed.all_reduce_sum(g)
+        out[name] = {"x": x.grad.numpy(), **{k: g.numpy() for k, g in grads.items()}}
+    return out
+
+
+def b1_grad_rank(rank: int, world: int, qkv: np.ndarray, cot: np.ndarray) -> np.ndarray:
+    """The gradient of sum(split B1 (plain, CPU) * cot) by this rank's
+    tokens of ``qkv`` (B, N, 3*4*32)."""
+    import torch
+
+    from dyffusion_tpu_torch.ops.linear_attention import linear_attention_qkv_split
+    from dyffusion_tpu_torch.parallel import distributed, spatial
+
+    a, b = spatial.blocks(qkv.shape[1], world)[rank]
+    x = torch.tensor(qkv[:, a:b], requires_grad=True)
+    y = linear_attention_qkv_split(x, 4, 32, 32**-0.5, qkv.shape[1], distributed.model_group())
+    (y * torch.as_tensor(cot[:, a:b])).sum().backward()
+    return x.grad.numpy()
+
+
+def run_commands(commands: List[List[str]]) -> List[str]:
+    """``run_experiment`` of each (preset, overrides) command in turn, on
+    the CPU; the run ids."""
+    import os
+
+    from dyffusion_tpu_torch.config import get_config
+    from dyffusion_tpu_torch.interface import run_experiment
+
+    ids = []
+    for preset, overrides in commands:
+        trainer, _ = run_experiment(get_config(preset, overrides), device="cpu")
+        ids.append(os.path.basename(trainer.ckpt.run_dir))
+    return ids
+
+
+def train_rank(rank: int, world: int, unet_cases: List[Dict[str, Any]], faults: List[str], b1: tuple,
+               runs: Dict[str, list]) -> Dict[str, Any]:
+    """One spawn for the module: :func:`unet_grad_rank` per case (the
+    faults on the first), :func:`b1_grad_rank`, then each of ``runs``
+    (name -> commands, :func:`run_commands`) on this world's grid (the
+    commands set it), and :func:`a2_raise`."""
+    from dyffusion_tpu_torch.parallel import distributed
+
+    distributed.set_model_axis(world)
+    out = {"unet": [unet_grad_rank(rank, world, c, faults if i == 0 else []) for i, c in enumerate(unet_cases)],
+           "b1": b1_grad_rank(rank, world, *b1)}
+    out["runs"] = {name: run_commands(commands) for name, commands in runs.items()}
+    out["a2"] = a2_raise(world)
+    return out
+
+
+def split_backward_rank(rank: int, world: int, shapes: List[tuple]) -> List[Dict[str, Any]]:
+    """The split B1 on CUDA tensors over the world (gloo ranks sharing
+    cuda:0), forward through its kernels and backward, at each of
+    ``shapes`` ((B, per-rank tokens, dtype name, seed)): the largest error
+    of this rank's output and of its tokens' gradient of sum(output * cot)
+    against the same tokens of B1's plain version over all the tokens and
+    of its autograd gradient (which every rank computes), their largest
+    magnitudes, and the split launches the call made."""
+    import torch
+    import torch.distributed as dist
+
+    from dyffusion_tpu_torch.ops import linear_attention as la
+
+    out = []
+    for B, tokens, dtype, seed in shapes:
+        N, first = sum(tokens), sum(tokens[:rank])
+        mine = slice(first, first + tokens[rank])
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        qkv = torch.randn((B, N, 384), generator=g, device="cuda").to(getattr(torch, dtype))
+        cot = torch.randn((B, N, 128), generator=g, device="cuda")
+        x = qkv[:, mine].detach().requires_grad_(True)
+        before = la.split_launches
+        y = la.linear_attention_qkv_split(x, 4, 32, 32**-0.5, N, dist.group.WORLD)
+        (y.float() * cot[:, mine]).sum().backward()
+        split = la.split_launches - before
+        whole = qkv.detach().requires_grad_(True)
+        y_want = la.linear_attention_qkv_plain(whole, 4, 32, 32**-0.5)
+        (y_want.float() * cot).sum().backward()
+        want = whole.grad.float()
+        out.append({"err": float((x.grad.float() - want[:, mine]).abs().max()), "scale": float(want.abs().max()),
+                    "forward_err": float((y.detach().float() - y_want[:, mine].detach().float()).abs().max()),
+                    "forward_scale": float(y_want.detach().float().abs().max()), "split": split})
     return out

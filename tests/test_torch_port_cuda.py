@@ -10,6 +10,9 @@ installed (the repo's conftest imports JAX; skip it there):
 The serving slice as a whole, GPU against CPU, is checked by phase 4 of
 ``chip_smoke.py``.
 """
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -213,6 +216,38 @@ def test_split_kernel_through_a_gloo_group_of_one():
     finally:
         dist.destroy_process_group()
     _assert_close_to_scale(got, la.linear_attention_qkv_plain(x, HEADS, DIM_HEAD, SCALE), REL_TOL[torch.float32])
+
+
+# the per-rank tokens of the split B1 in a 64-row SST train step on two ranks
+# sharding H (60 -> 30 -> 15 rows, split 30/30, 15/15, 8/7, times 60, 30, 15)
+SPLIT_TRAIN_TOKENS = ((1800, 1800), (450, 450), (120, 105))
+
+
+@pytest.mark.cuda
+def test_split_backward_on_two_ranks_matches_plain():
+    """The split B1's backward on CUDA tensors, two gloo ranks sharing
+    cuda:0 at the per-rank shapes of a 64-row SST train step, f32 and bf16:
+    the forward through the kernels (one split launch a call on each rank),
+    the backward replaying the plain split with the sums' gradients summed
+    over the ranks. Each rank's gradient against its tokens of the autograd
+    gradient of B1's plain version over all the tokens."""
+    _require_cuda()
+    # the worker modules by the name a spawned rank imports: this directory's (another package
+    # named ``tests`` may be installed where this file runs)
+    here = os.path.dirname(os.path.abspath(__file__))
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    import _torch_ddp_workers as workers
+    import _torch_spatial_workers as spatial_workers
+
+    shapes = [(64, tokens, dtype, seed) for seed, (tokens, dtype) in enumerate(
+        (t, d) for d in ("float32", "bfloat16") for t in SPLIT_TRAIN_TOKENS)]
+    ranks = workers.run_ranks(spatial_workers.split_backward_rank, 2, shapes)
+    for i, (_, tokens, dtype, _) in enumerate(shapes):
+        for rank, r in enumerate(ranks):
+            r_tol = REL_TOL[getattr(torch, dtype)]
+            assert r[i]["split"] == 1 and r[i]["forward_err"] <= r_tol * r[i]["forward_scale"], (tokens, dtype, rank, r[i])
+            assert r[i]["err"] <= r_tol * r[i]["scale"], (tokens, dtype, rank, r[i])
 
 
 def _core_inputs(BH, N, seed, strided):

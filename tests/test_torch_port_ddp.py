@@ -28,8 +28,9 @@ the JAX package's global-batch computation and against one process.
   ranks itself) against the one-process run's.
 - The native loader's per-rank rows against the global batch's slices; the
   run id of a two-rank config against the JAX package's; a world that does
-  not match ``trainer.devices`` raises, and so does training under
-  ``trainer.spatial_shards=2``.
+  not match ``trainer.devices`` raises, so does ``trainer.spatial_shards=2``
+  on one process (K must divide the world), and an A2 backbone under a
+  shard.
 
 Every spawned rank has a deadline of 120 s (``tests/_torch_ddp_workers.py``).
 """
@@ -56,6 +57,7 @@ from dyffusion_tpu_torch.models.base import BatchNorm2d
 from dyffusion_tpu_torch.parallel import process_local_rows, shard_batch
 from dyffusion_tpu_torch.utils.naming import get_run_id
 from tests import _torch_ddp_workers as workers
+from tests._torch_spatial_workers import a2_raise
 from tests._torch_port_helpers import torch_threads_share_of_cores  # noqa: F401 (autouse fixture)
 
 WORLD = 2
@@ -349,6 +351,8 @@ def test_run_id_hashes_the_world_as_the_jax_package():
 def test_world_must_match_trainer_devices():
     with pytest.raises(ValueError, match="trainer.devices=2"):
         build_trainer(get_config("synthetic_interpolation", TINY + ["trainer.devices=2"]), device="cpu")
-    # spatial sharding runs the eval path; training under a shard is what still raises
-    with pytest.raises(NotImplementedError, match="spatial training"):
+    # training under a shard runs: on one process only the world is refused (K must divide it),
+    # and an A2 backbone still raises under a shard
+    with pytest.raises(ValueError, match="not divisible by trainer.spatial_shards=2"):
         run_experiment(get_config("synthetic_interpolation", TINY + ["trainer.spatial_shards=2"]), device="cpu")
+    assert "ROADMAP A2" in a2_raise(1)
