@@ -187,12 +187,21 @@ non-zero:
    most 0.7x one rank's. Training: the same processes reload both stages
    with the workload's dropout: stage 2's loss and forecaster gradients at
    16 rows within 1e-3 of max|one rank| (the halo's backward zeroed beyond
-   it), three f32 train steps of each stage at the global batch of 64 with
+   it), two f32 train steps of each stage at the global batch of 64 with
    B1 6 / 24 split calls a step on each rank, each rank's stage-2 step
    peak at most 0.8x one rank's, the step times printed; then the CLI's
-   own spawn trains both stages (3 steps, B64, stage 2 by run id) on two
+   own spawn trains both stages (2 steps, B64, stage 2 by run id) on two
    ranks sharding H beside a one-rank witness: losses within 1e-3
-   relative, final weights within 1e-2 of their change.
+   relative, final weights within 1e-2 of their change. The physical
+   systems, first in the same processes: NS at full width (``UNetSimple``
+   dim 64 on a 256x256 working grid, 221x42 split on W, dropout 0.15, f32,
+   TF32 off, seeded random weights, fake archive): one val request (4 rows
+   x 4 members) within 1e-3 of max|one rank| (zeroed halos beyond it);
+   stage 2's loss and gradients at 8 rows in f32 within 1e-2 (one rank
+   against itself with torch's convs for cuDNN's within it too) and in f64
+   within 1e-5 (the halo's backward zeroed beyond each); two stage-2 train
+   steps at B32, each rank's peak at most 0.8x one rank's; one spring
+   stage-2 step on H (B64) within 1e-3; no B1-B3 launch on these paths.
 
 Each path (slice, train, fit, each cli command, ns, spring, each baseline
 command and request, ncsnpp, each export request, each oisst command, the
@@ -239,6 +248,12 @@ runs phases 1, 2 and 17 (the OISST path) and stops, with no ``ok`` line.
     python3 chip_smoke.py --spatial
 
 run phases 1, 2 and 18 (or 19, or 20) and stop, with no ``ok`` line.
+
+    python3 chip_smoke.py --spatial-physical
+
+runs phase 1, then only the physical systems of phase 20 (NS on W and
+spring on H, in its three processes, with their checks; no kernel runs
+there, so nothing is built) and stops, with no ``ok`` line.
 
     python3 chip_smoke.py --kernels
 
@@ -1903,7 +1918,8 @@ def phase_baselines(card):
                     la.reset_launches()
                     _sync()
                     t = time.perf_counter()
-                    out = predict(batch, SEED)
+                    # one row x 20 members, for the full run's time limit
+                    out = predict({k: v[:1] for k, v in batch.items()}, SEED)
                     _sync()
                     return out, time.perf_counter() - t, la.launches
 
@@ -3110,8 +3126,11 @@ def _ddp_finish(work, procs, t):
     codes = {}
     try:
         for name, (p, _, watcher) in procs.items():
-            codes[name] = p.wait(timeout=max(1.0, DDP_TIMEOUT_S - (time.perf_counter() - t)))
-            watcher.join()
+            try:
+                codes[name] = p.wait(timeout=max(1.0, DDP_TIMEOUT_S - (time.perf_counter() - t)))
+            except subprocess.TimeoutExpired:
+                codes[name] = "timed out"
+            watcher.join(timeout=1.0)
     finally:
         for p, log, _ in procs.values():
             if p.poll() is None:
@@ -3121,7 +3140,7 @@ def _ddp_finish(work, procs, t):
     for name, code in codes.items():
         if code != 0:
             with open(os.path.join(work, f"{name}.log")) as f:
-                print(f.read()[-3000:])
+                print(f"[{name}, {code}]", f.read()[-3000:])
     assert all(c == 0 for c in codes.values()), f"[ddp] processes exited with {codes}"
     return {name: watcher.end - t for name, (_, _, watcher) in procs.items()}
 
@@ -3368,10 +3387,11 @@ SPATIAL_BF16_TOL = 5e-2  # relative to max|one rank|
 # peak memory; before them one stage-2 step's forecaster gradients at 16
 # rows, and the same with the halo's backward returning no row (the negative
 # control). Then the CLI's own spawn trains both stages anew on two ranks
-# sharding H, beside a one-rank witness of the same commands: 3 steps a
-# stage at B64, one validation each (4 members, the sampler without its
-# auxiliary steps, the val split as one batch).
-SPATIAL_TRAIN_STEPS = 3
+# sharding H, beside a one-rank witness of the same commands: 2 steps a
+# stage at B64 (3 before; cut for the run's time), one validation each
+# (4 members, the sampler without its auxiliary steps, the val split as one
+# batch).
+SPATIAL_TRAIN_STEPS = 2
 SPATIAL_GRAD_ROWS = 16
 SPATIAL_TRAIN_MEMORY_LIMIT = 0.8  # a rank's stage-2 step peak over one rank's
 SPATIAL_WEIGHTS_TOL = 1e-2  # relative L2 of the weights' difference to their change, as [ddp]'s
@@ -3401,7 +3421,7 @@ def _spatial_train_commands(reg, k):
 
 def _spatial_train_batch(trainer):
     """This process's box of the first global train batch (its slab of the
-    grid under a shard), on the card."""
+    grid under a shard), on its device."""
     import numpy as np
 
     from dyffusion_tpu_torch.parallel import distributed
@@ -3412,17 +3432,16 @@ def _spatial_train_batch(trainer):
     return next(iter(loader))
 
 
-def _spatial_train_steps(trainer):
-    """:data:`SPATIAL_TRAIN_STEPS` calls of ``Trainer.train_step`` on
-    :func:`_spatial_train_batch`: each one's seconds, B1 and split B1
-    launches and peak device memory."""
+def _spatial_train_steps(trainer, n=SPATIAL_TRAIN_STEPS):
+    """``n`` calls of ``Trainer.train_step`` on :func:`_spatial_train_batch`:
+    each one's seconds, B1 and split B1 launches and peak device memory."""
     import torch
 
     from dyffusion_tpu_torch.ops import linear_attention as la
 
     batch = _spatial_train_batch(trainer)
     steps = []
-    for _ in range(SPATIAL_TRAIN_STEPS):
+    for _ in range(n):
         la.reset_launches()
         _sync()
         torch.cuda.reset_peak_memory_stats()
@@ -3434,18 +3453,18 @@ def _spatial_train_steps(trainer):
     return steps
 
 
-def _spatial_grads(trainer, zero_halo_backward):
+def _spatial_grads(trainer, zero_halo_backward, rows=SPATIAL_GRAD_ROWS):
     """One stage-2 loss and every forecaster gradient the optimizer would
     receive (summed over the world and divided by it, as the train step
-    does) at the first :data:`SPATIAL_GRAD_ROWS` rows of the first train
-    batch, the step generator seeded with SEED; no weight moves. With
+    does) at the first ``rows`` rows of the first train batch, the step
+    generator seeded with SEED; no weight moves. With
     ``zero_halo_backward`` the halo's backward returns no row to its owner
     (the negative control)."""
     import torch
 
     from dyffusion_tpu_torch.parallel import spatial
 
-    batch = {k: v[:SPATIAL_GRAD_ROWS] for k, v in _spatial_train_batch(trainer).items()}
+    batch = {k: v[:rows] for k, v in _spatial_train_batch(trainer).items()}
     state, grads = trainer.state, {}
     apply, halo_backward = state.apply_gradients, spatial._Rows.backward
 
@@ -3570,7 +3589,219 @@ def _peak_blocks(snapshot, top=3):
     return {"peak_MiB": round(peak / 2**20, 1), "blocks": blocks}
 
 
-def spatial_rank_main(work):
+# [spatial]'s physical systems, in the same processes, before the SST work:
+# NS at full width on W (221x42 -> the 256x256 working grid; f32, TF32 off,
+# the preset's dropout 0.15), seeded random weights (stage 2 takes the
+# stage-1 model as its interpolator), fake archives at the real grids; one
+# spring stage-2 step on H (10 rows split 5/5) at the preset's B64
+SPATIAL_NS_TRAIN_STEPS = 2
+SPATIAL_NS_GRAD_ROWS = 8
+SPATIAL_NS = ["datamodule.batch_size=32", "trainer.accumulate_grad_batches=1", "datamodule.eval_batch_size=4",
+              "module.num_predictions=4", "matmul_precision=highest"]
+SPATIAL_SPRING = ["matmul_precision=highest", "model.dropout=0.2"]
+
+
+def _spatial_physical_archives(work):
+    """NS and spring-mesh fake archives at the real grids, long enough for
+    the presets' prediction horizons (64, 804): NS 68 frames a trajectory
+    (52 train windows of horizon 16: one batch of 32), spring 808."""
+    from dyffusion_tpu_torch.data import write_fake_benchmark_dir
+
+    return {system: write_fake_benchmark_dir(os.path.join(work, system), name, n_traj={"train": 1, "val": 1, "test": 1},
+                                             n_time=n_time, seed=SEED)
+            for system, name, n_time in (("navier_stokes", "navier-stokes", 68), ("spring_mesh", "spring-mesh", 808))}
+
+
+def _spread_weights(model, seed):
+    """Every conv's weights drawn anew from ``seed`` at N(0, 1/fan_in), its
+    bias at N(0, 0.1^2): the DCGAN init's N(0, 0.02) shrinks the activations
+    layer by layer through BatchNorm's initial running averages (mean 0,
+    var 1), so that an eval forward at init answers ~0 whatever its halos."""
+    import torch
+    from torch import nn
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                w = m.weight
+                fan_in = w[0].numel() if isinstance(m, nn.Conv2d) else w.shape[0] * w[0, 0].numel() // 4
+                w.copy_(torch.randn(w.shape, generator=gen) / fan_in**0.5)
+                m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=gen))
+
+
+def _spatial_physical_trainers(system, data, k, extra):
+    """The stage-2 trainer of ``system`` on ``k`` ranks (1: the witness)
+    sharding W (NS) or H (spring), the stage-1 model its interpolator; the
+    weights of both from :func:`_spread_weights`."""
+    from dyffusion_tpu_torch.config import get_config
+    from dyffusion_tpu_torch.interface import build_trainer
+
+    axis = "w" if system == "navier_stokes" else "h"
+    overrides = [f"datamodule.data_dir={data}", f"trainer.devices={k}", f"trainer.spatial_shards={k}",
+                 f"trainer.spatial_axis={axis}", *extra]
+    stage1 = build_trainer(get_config(f"{system}_interpolation", overrides), device="cuda")
+    _spread_weights(stage1.experiment.model, SEED + 1)
+    stage2 = build_trainer(get_config(f"{system}_dyffusion", overrides), interpolator=stage1.experiment.model,
+                           device="cuda")
+    _spread_weights(stage2.experiment.model, SEED + 2)
+    return stage2
+
+
+def _wait_for(paths, timeout=DDP_TIMEOUT_S, stop=lambda: False):
+    """Until every file of ``paths`` exists, ``stop()`` is true, or
+    ``timeout`` seconds (the processes' deadline then reports what
+    failed)."""
+    t = time.perf_counter()
+    while not all(os.path.exists(f) for f in paths) and not stop() and time.perf_counter() - t < timeout:
+        time.sleep(0.5)
+
+
+@contextlib.contextmanager
+def _in_float64(trainer):
+    """The trainer's train step in float64: the loss on float64 casts of the
+    forecaster's weights and of the batch (``mixed_precision_loss``), the
+    frozen interpolator in float64; the norms' statistics
+    (``distributed.mean_var``, ``F.batch_norm``, ``F.group_norm``) and the
+    loss's reductions then run in float64 too, on one rank and on two; the
+    gradients come back to the float32 weights."""
+    import torch
+
+    from dyffusion_tpu_torch.training.trainer import make_train_step, mixed_precision_loss
+
+    step, interpolator = trainer.train_step, trainer.experiment.engine.interpolator
+    loss = mixed_precision_loss(trainer.experiment.make_loss_fn(), trainer.state.model, torch.float64)
+    trainer.train_step = make_train_step(loss, sharded=trainer.sharded)
+    interpolator.double()
+    try:
+        yield
+    finally:
+        trainer.train_step = step
+        interpolator.float()
+
+
+@contextlib.contextmanager
+def _cudnn(enabled):
+    """``torch.backends.cudnn.enabled`` set to ``enabled`` (False: torch's
+    own convs), restored after."""
+    import torch
+
+    saved = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = enabled
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = saved
+
+
+# NS stage 2's gradients at SPATIAL_NS_GRAD_ROWS rows: (name, halo backward zeroed, float64, cuDNN on);
+# the two ranks' and the witness's, then the planted faults (two ranks) or the controls (the witness:
+# a repeat, and f32 with torch's own convs in place of cuDNN's)
+SPATIAL_NS_GRADS = [("f32", False, False, True), ("f64", False, True, True)]
+SPATIAL_NS_GRADS_RANKS = [("f32 halo backward zeroed", True, False, True), ("f64 halo backward zeroed", True, True, True)]
+SPATIAL_NS_GRADS_WITNESS = [("f32 repeat", False, False, True), ("f32 without cudnn", False, False, False)]
+# f32: any two f32 computations of these gradients differ by ~1e-3 of scale, one rank's too
+# (cuDNN's convs against torch's own: 1.1e-3): where they round a ReLU's or LeakyReLU's
+# input to another sign the gradient takes the other slope there
+# (scripts/torch_ns_rounding.py); the limit lies between that control and the planted
+# fault (9.6e-2). f64: two float64 computations agree to a few float32 units in the last
+# place of the gradients they are stored in (2^-23 = 1.2e-7 each)
+SPATIAL_NS_F32_TOL, SPATIAL_F64_TOL = 1e-2, 1e-5
+
+
+def spatial_physical(work, data, world, rank):
+    """The physical systems of one [spatial] process: NS sharding W: one
+    val request (the first batch, 4 rows x 4 members, seeded) and, on two
+    ranks, the same with every halo zeroed; stage 2's loss and gradients
+    at :data:`SPATIAL_NS_GRAD_ROWS` rows in float32 and float64, and the
+    variants of :data:`SPATIAL_NS_GRADS_RANKS` (two ranks) or
+    :data:`SPATIAL_NS_GRADS_WITNESS` (one); two stage-2
+    train steps at B32 (seconds, peak memory); then one spring stage-2
+    step on H (loss and gradients). Each with its wall time and peak
+    memory, and the B1-B3 launches of all of it. Arrays and gradients into
+    ``work``."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from dyffusion_tpu_torch.ops import fused_act as fa
+    from dyffusion_tpu_torch.ops import linear_attention as la
+    from dyffusion_tpu_torch.parallel import spatial
+
+    t0 = time.perf_counter()
+
+    def progress(what):
+        print(f"[spatial physical, rank {rank} of {world}] {what} at {time.perf_counter() - t0:.1f} s", flush=True)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    la.reset_launches()
+    fa.reset_launches()
+    out, arrays, grads = {}, {}, {}
+    trainer = _spatial_physical_trainers("navier_stokes", data["navier_stokes"], world, SPATIAL_NS)
+    progress("NS trainers built")
+    halo = spatial._halo_all_reduce
+    batch = next(iter(trainer.local_eval_batches("val")))[0]
+    for name in ["request"] + ["request, halos zeroed"] * (world > 1):
+        if "zeroed" in name:
+            spatial._halo_all_reduce = lambda buf: buf
+        try:
+            generator = torch.Generator(device=trainer.device).manual_seed(SEED)
+            _sync()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            with trainer.sharded():
+                got = trainer.eval_fns["val"](batch, generator, trainer.state.eval_params())
+            _sync()
+            out[f"ns {name}"] = {"seconds": time.perf_counter() - t, "peak": torch.cuda.max_memory_allocated()}
+        finally:
+            spatial._halo_all_reduce = halo
+        arrays.update({f"ns {name}|{k}": v.cpu().numpy() for k, v in got.items() if k.endswith("_preds")})
+        progress(f"NS {name}")
+    for name, zeroed, f64, cudnn in SPATIAL_NS_GRADS + (SPATIAL_NS_GRADS_RANKS if world > 1 else SPATIAL_NS_GRADS_WITNESS):
+        _sync()
+        t = time.perf_counter()
+        with _in_float64(trainer) if f64 else contextlib.nullcontext(), _cudnn(cudnn):
+            grads[f"ns {name}"] = _spatial_grads(trainer, zeroed, rows=SPATIAL_NS_GRAD_ROWS)
+        _sync()
+        out[f"ns grads {name}"] = {"seconds": time.perf_counter() - t}
+        progress(f"NS gradients, {name}")
+    free()
+    # the B32 steps of the two ranks, then the witness's, one set on the card at a time
+    ranks_done = [os.path.join(work, f"done ns train 2 {r}") for r in range(2)]
+    witness_done = os.path.join(work, "done ns train 1 0")
+    if world == 1:
+        _wait_for(ranks_done)
+    progress("NS train steps start")
+    out["ns train"] = _spatial_train_steps(trainer, SPATIAL_NS_TRAIN_STEPS)
+    progress("NS train steps")
+    del trainer, batch, got
+    free()
+    open(os.path.join(work, f"done ns train {world} {rank}"), "w").close()
+    if world > 1:
+        _wait_for([witness_done])
+    trainer = _spatial_physical_trainers("spring_mesh", data["spring_mesh"], world, SPATIAL_SPRING)
+    _sync()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    grads["spring"] = _spatial_grads(trainer, False, rows=trainer.datamodule.batch_size)
+    _sync()
+    out["spring grads"] = {"seconds": time.perf_counter() - t, "peak": torch.cuda.max_memory_allocated()}
+    progress("spring step")
+    del trainer
+    free()
+    out["launches"] = {"linear_attention_qkv": la.launches + la.split_launches,
+                       "linear_attention_core": la.core_launches, "fused_leaky_relu": fa.launches}
+    np.savez(os.path.join(work, f"physical{world}_rank{rank}.npz"), **arrays)
+    torch.save(grads, os.path.join(work, f"physical_grads{world}_rank{rank}.pt"))
+    open(os.path.join(work, f"done physical {world} {rank}"), "w").close()
+    return out
+
+
+def spatial_rank_main(work, physical_only=False):
     """One process of ``[spatial]`` (a rank of the two-rank group, or the
     one-rank witness with WORLD_SIZE=1): each of :func:`_spatial_commands`,
     a request (:func:`_spatial_request`), the forward
@@ -3581,7 +3812,8 @@ def spatial_rank_main(work):
     workload's dropout, stage 2's gradients at 16 rows
     (:func:`_spatial_grads`, sound and, on two ranks, with the halo's
     backward zeroed) and each stage's train steps
-    (:func:`_spatial_train_steps`); results in ``work``."""
+    (:func:`_spatial_train_steps`); results in ``work``. With
+    ``physical_only``, :func:`spatial_physical` alone."""
     import gc
 
     import numpy as np
@@ -3597,6 +3829,13 @@ def spatial_rank_main(work):
     rank = int(os.environ.get("RANK", "0"))
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    physical = spatial_physical(work, spec["physical"], world, rank)
+    if physical_only:
+        with open(os.path.join(work, f"spatial{world}_rank{rank}.json"), "w") as f:
+            json.dump({"physical": physical}, f)
+        if distributed.active():
+            torch.distributed.destroy_process_group()
+        return 0
     # training first, stage 2 (the most memory) then stage 1, each followed by a file that the
     # CLI's training commands wait for: the stored stages reloaded with the workload's dropout
     layout = [f"trainer.devices={world}", f"trainer.spatial_shards={world}", *SPATIAL_DROPOUT]
@@ -3685,12 +3924,106 @@ def spatial_rank_main(work):
             _sync()
             round_trip[where] = (time.perf_counter() - t) / 200
     with open(os.path.join(work, f"spatial{world}_rank{rank}.json"), "w") as f:
-        json.dump({"commands": out, "train": train, "draw_s": draws, "backend": distributed.backend(),
+        json.dump({"commands": out, "train": train, "physical": physical, "draw_s": draws, "backend": distributed.backend(),
                    "model_size": distributed.model_size(), "all_reduce_s": round_trip, "history": history}, f)
     distributed.barrier()
     if distributed.active():
         torch.distributed.destroy_process_group()
     return 0
+
+
+def _spatial_physical_checks(work, ranks, one, card):
+    """[spatial]'s physical systems, two ranks against the one-rank
+    witness: the NS val request (W slabs joined) within 1e-3 of max|one
+    rank| and its zeroed halos beyond it; NS stage 2's loss and gradients
+    at 8 rows in float32 within :data:`SPATIAL_NS_F32_TOL` (as is one
+    rank against itself with torch's own convs) and in float64 within
+    :data:`SPATIAL_F64_TOL` (the halo's backward zeroed beyond each); each
+    rank's NS stage-2 step peak at most 0.8x the witness's; the spring
+    step's loss and gradients within 1e-3; no B1-B3 launch. Prints the
+    times and peaks."""
+    import numpy as np
+    import torch
+
+    phys = [r["physical"] for r in ranks]
+    p1 = dict(np.load(os.path.join(work, "physical1_rank0.npz")))
+    slabs = [np.load(os.path.join(work, f"physical2_rank{r}.npz")) for r in range(2)]
+    # (members, rows, H, W, C): the W slabs joined
+    p2 = {k: np.concatenate([s[k] for s in slabs], axis=3) for k in slabs[0].files}
+    grads = [torch.load(os.path.join(work, f"physical_grads2_rank{r}.pt"), weights_only=True) for r in range(2)]
+    g1 = torch.load(os.path.join(work, "physical_grads1_rank0.pt"), weights_only=True)
+
+    def rel(name):
+        keys = [k for k in p1 if k.startswith("ns request|")]
+        assert keys
+        return max(float(np.abs(p2[k.replace("ns request", name, 1)] - p1[k]).max()) / float(np.abs(p1[k]).max())
+                   for k in keys)
+
+    req, zeroed = rel("ns request"), rel("ns request, halos zeroed")
+    shape = p1[sorted(p1)[0]].shape
+    print(f"[spatial] NS at full width on W (UNetSimple dim 64, 256x256 working grid, f32, dropout on): one val "
+          f"request {shape} (members, rows, H, W, C), two ranks vs one, rel. to max|one rank|: {req:.3e}; every halo "
+          f"zeroed {zeroed:.3e} (must exceed {SPATIAL_TOL}); one rank {one['physical']['ns request']['seconds']:.2f} s, "
+          f"peak {one['physical']['ns request']['peak'] / 2**30:.3f} GiB; two ranks "
+          + "; ".join(f"{p['ns request']['seconds']:.2f} s, peak {p['ns request']['peak'] / 2**30:.3f} GiB" for p in phys)
+          + f"; on {card}")
+    assert np.isfinite(p1[sorted(p1)[0]]).all() and req <= SPATIAL_TOL, "the sharded NS request disagrees"
+    assert zeroed > SPATIAL_TOL, "the NS request's zeroed halos pass the check: it does not bite"
+    assert all(torch.equal(grads[1][n]["grads"][k], v) for n in grads[0] for k, v in grads[0][n]["grads"].items()), \
+        "the two ranks hold different summed gradients"
+
+    def rel(got, want):
+        return abs(got["loss"] - want["loss"]) / abs(want["loss"]), _max_rel(got["grads"], want["grads"])
+
+    def furthest(got, want):
+        top = max(float(w.abs().max()) for w in want.values())
+        worst = sorted(((float((got[k] - w).abs().max()) / max(float(w.abs().max()), 0.1 * top), k,
+                         float(w.abs().max()) / top) for k, w in want.items()), reverse=True)[:4]
+        return [(f"{e:.2e}", k, f"{m:.2e}") for e, k, m in worst]
+
+    ns = {n: g for n, g in grads[0].items() if n.startswith("ns ")}
+    errs = {n: rel(ns[f"ns {n}"], g1["ns " + n.replace(" halo backward zeroed", "")]) for n in
+            ("f32", "f32 halo backward zeroed", "f64", "f64 halo backward zeroed")}
+    errs["spring"] = rel(grads[0]["spring"], g1["spring"])
+    # the witness alone: its f32 against its f64, against a repeat, and against torch's own convs (the control)
+    convs = "cuDNN's convs vs torch's"
+    own = {"f32 vs f64": rel(g1["ns f32"], g1["ns f64"]), "f32 vs a repeat": rel(g1["ns f32 repeat"], g1["ns f32"]),
+           convs: rel(g1["ns f32 without cudnn"], g1["ns f32"])}
+    print(f"[spatial] NS stage-2 loss and its {len(g1['ns f32']['grads'])} forecaster gradients at "
+          f"{SPATIAL_NS_GRAD_ROWS} rows, two ranks vs one (loss, gradients rel. to scale): f32 "
+          f"{errs['f32'][0]:.3e}, {errs['f32'][1]:.3e} (limit {SPATIAL_NS_F32_TOL}; one rank against itself, "
+          f"{convs}: {own[convs][1]:.3e}, must be within it), "
+          f"the halo's backward zeroed {errs['f32 halo backward zeroed'][1]:.3e} (must exceed it); f64 "
+          f"{errs['f64'][0]:.3e}, {errs['f64'][1]:.3e} (limit {SPATIAL_F64_TOL}), the halo's backward zeroed "
+          f"{errs['f64 halo backward zeroed'][1]:.3e} (must exceed it); spring stage-2 step on H at the preset's "
+          f"batch: {errs['spring'][0]:.3e}, {errs['spring'][1]:.3e}; one rank "
+          f"{one['physical']['spring grads']['seconds']:.2f} s, two ranks "
+          f"{[round(p['spring grads']['seconds'], 2) for p in phys]} s; on {card}")
+    print("[spatial] NS stage-2 gradients of one rank (loss, gradients rel. to scale): "
+          + "; ".join(f"{k} {a:.3e}, {b:.3e}" for k, (a, b) in own.items()))
+    for name, got, want in (("f32, two ranks vs one", ns["ns f32"], g1["ns f32"]),
+                            ("f64, two ranks vs one", ns["ns f64"], g1["ns f64"]),
+                            ("one rank, f32 vs f64", g1["ns f32"], g1["ns f64"])):
+        print(f"[spatial] NS stage-2 gradients, {name}, furthest off (error / scale, tensor, its max|g| / max of "
+              f"all): {furthest(got['grads'], want['grads'])}")
+    assert max(errs["f32"]) <= SPATIAL_NS_F32_TOL and max(errs["spring"]) <= SPATIAL_TOL, \
+        "the sharded gradients disagree"
+    assert max(own[convs]) <= SPATIAL_NS_F32_TOL, "one rank's own spread reaches the f32 limit: it separates nothing"
+    assert max(errs["f64"]) <= SPATIAL_F64_TOL, "the sharded float64 gradients disagree"
+    assert errs["f32 halo backward zeroed"][1] > SPATIAL_NS_F32_TOL, "the NS halo backward's f32 control does not bite"
+    assert errs["f64 halo backward zeroed"][1] > SPATIAL_F64_TOL, "the NS halo backward's f64 control does not bite"
+    w_peak = max(c["peak"] for c in one["physical"]["ns train"])
+    peaks = [max(c["peak"] for c in p["ns train"]) / w_peak for p in phys]
+    print(f"[spatial] NS stage-2 train step at B32 (f32, dropout on): one rank "
+          f"{[round(c['seconds'] * 1e3, 1) for c in one['physical']['ns train']]} ms, peak {w_peak / 2**30:.3f} GiB; "
+          f"two ranks " + "; ".join(f"{[round(c['seconds'] * 1e3, 1) for c in p['ns train']]} ms, peak "
+                                     f"{max(c['peak'] for c in p['ns train']) / 2**30:.3f} GiB" for p in phys)
+          + f"; per rank over one rank's peak {', '.join(f'{x:.3f}' for x in peaks)} (limit "
+          f"{SPATIAL_TRAIN_MEMORY_LIMIT}); the processes share {card}")
+    assert max(peaks) <= SPATIAL_TRAIN_MEMORY_LIMIT, f"a rank's NS stage-2 step peak is {max(peaks):.3f} of one rank's"
+    launches = [p["launches"] for p in phys] + [one["physical"]["launches"]]
+    print(f"[spatial] kernel launches on the NS and spring paths, each process: {launches}")
+    assert not any(v for c in launches for v in c.values()), f"a kernel launched on the physical paths: {launches}"
 
 
 def _metrics_rel(got, want):
@@ -3699,6 +4032,38 @@ def _metrics_rel(got, want):
     keys = [k for k in want if "frames_per_sec" not in k]
     scale = max(abs(want[k]) for k in keys)
     return max(abs(got[k] - want[k]) for k in keys) / scale
+
+
+def _spatial_start(work, flag):
+    """The two gloo ranks sharing cuda:0 (the launcher's environment) and
+    the one-rank witness (``WORLD_SIZE=1``) of ``[spatial]``, each
+    ``chip_smoke.py flag work``: name -> :func:`_ddp_start`'s."""
+    port = _free_port()
+    procs = {}
+    for rank in range(2):
+        env = {**os.environ, "RANK": str(rank), "LOCAL_RANK": str(rank), "WORLD_SIZE": "2",
+               "LOCAL_WORLD_SIZE": "2", "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+        procs[f"rank{rank}"] = _ddp_start(work, f"rank{rank}", [os.path.abspath(__file__), flag, work], env)
+    env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    procs["witness"] = _ddp_start(work, "witness", [os.path.abspath(__file__), flag, work], env)
+    return procs
+
+
+def phase_spatial_physical(card):
+    """``[spatial]``'s physical systems alone, in its three processes
+    (``chip_smoke.py --spatial-physical-rank``): :func:`spatial_physical`
+    and :func:`_spatial_physical_checks`."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spatial_physical_") as work:
+        with open(os.path.join(work, "spatial.json"), "w") as f:
+            json.dump({"physical": _spatial_physical_archives(work)}, f)
+        t = time.perf_counter()
+        seconds = _ddp_finish(work, _spatial_start(work, "--spatial-physical-rank"), t)
+        ranks = [json.load(open(os.path.join(work, f"spatial2_rank{r}.json"))) for r in range(2)]
+        one = json.load(open(os.path.join(work, "spatial1_rank0.json")))
+        _spatial_physical_checks(work, ranks, one, card)
+    print(f"[spatial] processes: {json.dumps({k: round(v, 1) for k, v in seconds.items()})} s (sharing the card); "
+          f"phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
 def phase_spatial(card, reg=None, ids=None):
@@ -3731,8 +4096,12 @@ def phase_spatial(card, reg=None, ids=None):
     rank, every one split; each rank's stage-2 step peak at most 0.8x the
     witness's; the CLI's two-rank training within 1e-3 of the witness in
     every logged loss and within 1e-2 of its change in the final weights.
-    Returns the two ranks' B1 launches, the per-request count and the split
-    kernel's times."""
+    Before all of it, in the same processes, the physical systems
+    (:func:`spatial_physical`, :func:`_spatial_physical_checks`); the CLI's
+    ``mode=test`` starts once they are done. Returns the two ranks' B1
+    launches, the per-request count and the split kernel's times."""
+    import gc
+
     import numpy as np
     import torch
 
@@ -3748,18 +4117,16 @@ def phase_spatial(card, reg=None, ids=None):
                 train.main(argv)
             ids = (id1, id2)
         with open(os.path.join(work, "spatial.json"), "w") as f:
-            json.dump({"registry": reg, "run_id1": ids[0], "run_id": ids[1]}, f)
+            json.dump({"registry": reg, "run_id1": ids[0], "run_id": ids[1],
+                       "physical": _spatial_physical_archives(work)}, f)
         run_id = ids[1]
-        port = _free_port()
-        procs = {}
+        gc.collect()
+        torch.cuda.empty_cache()  # this process's cached blocks, for the processes below
         t = time.perf_counter()
-        for rank in range(2):
-            env = {**os.environ, "RANK": str(rank), "LOCAL_RANK": str(rank), "WORLD_SIZE": "2",
-                   "LOCAL_WORLD_SIZE": "2", "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
-            procs[f"rank{rank}"] = _ddp_start(work, f"rank{rank}", [os.path.abspath(__file__), "--spatial-rank", work],
-                                              env)
-        env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
-        procs["witness"] = _ddp_start(work, "witness", [os.path.abspath(__file__), "--spatial-rank", work], env)
+        procs = _spatial_start(work, "--spatial-rank")
+        # the CLI's mode=test on W once the physical systems' B32 steps have left the card
+        _wait_for([os.path.join(work, f"done physical {w} {r}") for w, r in ((2, 0), (2, 1), (1, 0))],
+                  stop=lambda: any(p.poll() not in (None, 0) for p, _, _ in procs.values()))
         procs["cli w"] = _ddp_start(work, "cli_w", [
             "-m", "dyffusion_tpu_torch.train", "mode=test", f"run_id={run_id}", f"registry_dir={reg}",
             "trainer.devices=2", "trainer.spatial_shards=2", "trainer.spatial_axis=w", *SPATIAL_TEST])
@@ -3787,6 +4154,7 @@ def phase_spatial(card, reg=None, ids=None):
         one = json.load(open(os.path.join(work, "spatial1_rank0.json")))
         grads = {r: torch.load(os.path.join(work, f"grads2_rank{r}.pt"), weights_only=True) for r in range(2)}
         grads["one"] = torch.load(os.path.join(work, "grads1_rank0.pt"), weights_only=True)
+        _spatial_physical_checks(work, ranks, one, card)
         with open(os.path.join(work, "cli_w.log")) as f:
             cli_w = [json.loads(x) for x in f if x.startswith('{"test/')][-1]
         slabs = [np.load(os.path.join(work, f"out2_rank{r}.npz")) for r in range(2)]
@@ -3941,13 +4309,18 @@ def main(argv) -> int:
         return ddp_witness_main(argv[1])
     if len(argv) == 2 and argv[0] == "--spatial-rank":  # a rank (or the witness) of [spatial]
         return spatial_rank_main(argv[1])
+    if len(argv) == 2 and argv[0] == "--spatial-physical-rank":  # the same, its physical systems alone
+        return spatial_rank_main(argv[1], physical_only=True)
     modes = ([], ["--profile"], ["--kernels"], ["--physical"], ["--baselines"], ["--ncsnpp"], ["--export"], ["--oisst"],
-             ["--members"], ["--ddp"], ["--spatial"])
+             ["--members"], ["--ddp"], ["--spatial"], ["--spatial-physical"])
     if argv not in modes:
         raise SystemExit(
             "usage: python3 chip_smoke.py [--profile | --kernels | --physical | --baselines | --ncsnpp | --export "
-            "| --oisst | --members | --ddp | --spatial]")
+            "| --oisst | --members | --ddp | --spatial | --spatial-physical]")
     name, smi = phase_device()
+    if argv == ["--spatial-physical"]:  # no kernel runs on these paths
+        phase_spatial_physical(smi)
+        return 0
     phase_build()
     if argv == ["--spatial"]:
         phase_spatial(smi)

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from dyffusion_tpu_torch.data.base import DataModule, DatasetSplit, sliding_window_multi_horizon
+from dyffusion_tpu_torch.parallel import spatial
 
 _SYSTEMS = {
     "navier-stokes": {"hw": (221, 42), "ndims_p": 2, "ndims_q": 1},
@@ -239,7 +240,13 @@ class PhysicalSystemsDataModule(DataModule):
         """Re-impose the boundary conditions on predictions (..., B, H, W, C)
         (channels last), B matching the metadata's batch axis; extra leading
         axes (ensemble members) broadcast. ``time`` is the absolute
-        simulation time (a scalar or (B,))."""
+        simulation time (a scalar or (B,)).
+
+        Inside ``parallel.spatial.sharded`` ``preds`` and the grid-shaped
+        metadata are this rank's slab of H or W (the loaders cut them); the
+        NS inflow row's ``metadata_vertex_y`` (B, W) comes whole: sharding
+        W, this rank takes its columns of it; sharding H, only the rank
+        holding the grid's row 0 writes the inflow."""
         md = metadata or {}
         dev = preds.device
 
@@ -251,6 +258,13 @@ class PhysicalSystemsDataModule(DataModule):
             preds = torch.where(fixed, torch.zeros((), dtype=preds.dtype, device=dev), preds)
             v = get("metadata_in_velocity").float()  # (B,)
             vy = get("metadata_vertex_y").float()  # (B, W)
+            shard = spatial.current()
+            if shard is not None:
+                top = shard.top()
+                if top.start > 0 and top.dim == -2:  # this rank's slab of H holds no inflow row
+                    return preds
+                if top.dim == -1:
+                    vy = vy[:, top.start:top.stop]
             t = torch.as_tensor(0.0 if time is None else time, dtype=torch.float32, device=dev)
             t = torch.broadcast_to(t, v.shape)
             inflow = v[:, None] * 4.0 * vy * (0.41 - vy) / (0.41 * 0.41) * (1.0 - torch.exp(-5.0 * t))[:, None]

@@ -408,6 +408,8 @@ class SimultaneousForecastingExperiment(ForecastingExperiment):
             static = self.static_condition(batch)
             engine = self.diffusion_engine
             if engine is not None:
+                # its noise is drawn at the rank's slab, not sliced from the global draw
+                spatial.refuse(f"training the {type(engine).__name__}", spatial.BACKBONES)
                 cond = self.diffusion_condition(inputs, static)
                 logvar = self.logvar(params)
                 if logvar is not None:

@@ -70,12 +70,16 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     Inside a process group (data parallelism) the batch statistics are the
     GLOBAL batch's, as flax's mean over a batch sharded on the JAX mesh's
-    ``'data'`` axis is: each rank's per-channel sum, sum of squares and
-    count go through one autograd-aware ``all_reduce``
-    (``torch.distributed.nn.functional``), so the gradient flows through
-    the global statistics too, and the variance is flax's
-    max(0, E[x^2] - E[x]^2) in f32. (``torch.nn.SyncBatchNorm`` refuses CPU
-    tensors, and the CPU tests run two gloo ranks.)"""
+    ``'data'`` axis is (and, under spatial sharding, over every slab of
+    the grid): ``distributed.mean_var`` over the world, differentiable, so
+    the gradient flows through the global statistics too; in f32, or f64
+    for an f64 input. Its two sums (the mean, then the squares about it),
+    where flax computes max(0, E[x^2] - E[x]^2) in one: that difference
+    cancels in f32 where the mean is large against the spread, and a
+    sharded NS stage 2 then drifted from one process (to 1.4e-4 of its
+    loss in 6 steps on the CPU) where the centred sum stays on it.
+    (``torch.nn.SyncBatchNorm`` refuses CPU tensors, and the CPU tests run
+    two gloo ranks.)"""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__(num_features, eps=eps)
@@ -97,26 +101,17 @@ class BatchNorm2d(nn.BatchNorm2d):
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
 
     def _global_batch_norm(self, x: torch.Tensor, batch_stats: dict) -> torch.Tensor:
-        from torch.distributed.nn.functional import all_reduce
-
-        C = x.shape[1]
-        xf = x.float()
-        count = torch.full((1,), float(x.numel() // C), dtype=torch.float32, device=x.device)
-        # one autograd-aware sum over ranks of [sum, sum of squares, count]
-        total = all_reduce(torch.cat([xf.sum(dim=(0, 2, 3)), xf.square().sum(dim=(0, 2, 3)), count]))
-        mean = total[:C] / total[-1]
-        var = torch.clamp(total[C:2 * C] / total[-1] - mean.square(), min=0.0)
+        centred, mean, var = distributed.mean_var(x, (0, 2, 3), torch.distributed.group.WORLD)
         with torch.no_grad():
             m = self.decay
             batch_stats[self] = (
-                m * self.running_mean.float() + (1.0 - m) * mean.detach(),
-                m * self.running_var.float() + (1.0 - m) * var.detach(),
+                m * self.running_mean.float() + (1.0 - m) * mean.detach().reshape(-1),
+                m * self.running_var.float() + (1.0 - m) * var.detach().reshape(-1),
                 self.num_batches_tracked + 1,
             )
-        row = (1, C, 1, 1)
-        scale = torch.rsqrt(var + self.eps) * self.weight.float()
-        y = (xf - mean.reshape(row)) * scale.reshape(row) + self.bias.float().reshape(row)
-        return y.to(x.dtype)
+        row = (1, -1, 1, 1)
+        scale = torch.rsqrt(var + self.eps) * self.weight.to(var.dtype).reshape(row)
+        return (centred * scale + self.bias.to(var.dtype).reshape(row)).to(x.dtype)
 
 
 def norm_call(norm: nn.Module, x: torch.Tensor, batch_stats: Optional[dict]) -> torch.Tensor:

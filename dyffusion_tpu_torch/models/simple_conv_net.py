@@ -7,6 +7,14 @@ conv``, ``convs.{i}.norm``, ``convs.{i}.time_mlp.1``, ``head``,
 ``time_emb_mlp``). BatchNorm reads its running averages unless the call
 passes ``batch_stats`` (see :mod:`dyffusion_tpu_torch.models.base`);
 dropout follows the generator, so MC-dropout leaves BatchNorm in eval.
+
+Inside ``parallel.spatial.sharded`` each block runs on this rank's slab of
+the grid (``level``; ``None`` on one device): the "same" convs through
+``spatial.conv2d`` (halos of (k - 1) / 2 rows), BatchNorm on the whole
+world's batch statistics (``models/base.py``), GroupNorm and InstanceNorm
+on moments summed over the model group, dropout on the slab of the global
+mask; LayerNorm (per pixel), FiLM, GELU, the residual and the 1x1 head
+stay local.
 """
 from __future__ import annotations
 
@@ -84,13 +92,22 @@ class ConvBlock(nn.Module):
         time_emb: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         batch_stats: Optional[dict] = None,
+        level: Optional[spatial.Level] = None,
     ) -> torch.Tensor:
-        h = norm_call(self.norm, self.conv(x), batch_stats)
+        if level is None:
+            h = norm_call(self.norm, self.conv(x), batch_stats)
+        else:
+            c, n = self.conv, self.norm
+            h, _ = spatial.conv2d(x, c.weight, c.bias, level, c.stride[0], c.padding[0])
+            if isinstance(n, nn.GroupNorm):
+                h = spatial.group_norm(h, n.num_groups, n.weight, n.bias, n.eps, level)
+            else:
+                h = norm_call(n, h, batch_stats)
         if self.time_mlp is not None and time_emb is not None:
             scale, shift = self.time_mlp(time_emb)[:, :, None, None].chunk(2, dim=1)
             # keep h's dtype: the f32 time MLP must not upcast the conv path
             h = h * (scale.to(h.dtype) + 1.0) + shift.to(h.dtype)
-        h = dropout(F.gelu(h), self.dropout, generator)
+        h = dropout(F.gelu(h), self.dropout, generator, None if level is None else level.slab)
         if self.residual and x.shape[1] == h.shape[1]:
             h = h + x
         return h
@@ -132,7 +149,8 @@ class SimpleConvNet(nn.Module):
         generator: Optional[torch.Generator] = None,
         batch_stats: Optional[dict] = None,
     ) -> torch.Tensor:
-        spatial.refuse("SimpleConvNet", spatial.BACKBONES)
+        shard = spatial.current()
+        level = None if shard is None else shard.top()
         if self.num_conditional_channels > 0:
             assert condition is not None, "model built with conditional channels but condition is None"
             x = torch.cat([x, condition], dim=1)  # inputs first
@@ -140,5 +158,5 @@ class SimpleConvNet(nn.Module):
             assert condition is None, "condition given but num_conditional_channels == 0"
         t = self.time_emb_mlp(time) if self.time_emb_mlp is not None else None
         for block in self.convs:
-            x = block(x, t, generator, batch_stats)
+            x = block(x, t, generator, batch_stats, level)
         return self.head(x)

@@ -18,8 +18,9 @@ summed over the model group, B1 split across ranks, the mid-block attention
 against gathered keys and values; 1x1 convs, FiLM, SiLU and the channel
 norms stay local. It trains too: every transfer has its backward
 (``parallel/spatial.py``), and remat replays a block's collectives in the
-backward in the forward's order on every rank. ``outer_sample_mode`` under
-a shard raises (ROADMAP A2).
+backward in the forward's order on every rank. ``outer_sample_mode``
+resamples the slab through ``spatial.resize`` (taps from the global
+coordinates).
 """
 from __future__ import annotations
 
@@ -230,13 +231,16 @@ class Unet(nn.Module):
         self.final_res_block = res(init_dim * 2, dim)
         self.final_conv = nn.Conv2d(dim, num_output_channels, 1)
 
-    def _resize(self, x: torch.Tensor, size) -> torch.Tensor:
-        # half-pixel centres and no antialias, as the JAX package's
-        # jax.image.resize(antialias=False): for 'nearest' that is torch's
-        # 'nearest-exact'
-        if self.outer_sample_mode == "bilinear":
-            return F.interpolate(x, size=size, mode="bilinear", align_corners=False, antialias=False)
-        return F.interpolate(x, size=size, mode="nearest-exact")
+    def _resize(self, x: torch.Tensor, size, level: Optional[spatial.Level]):
+        """The outer resample to ``size`` (H, W) and its level (None on one
+        device): half-pixel centres and no antialias, as the JAX package's
+        jax.image.resize(antialias=False); for 'nearest' that is torch's
+        'nearest-exact'."""
+        mode = "bilinear" if self.outer_sample_mode == "bilinear" else "nearest-exact"
+        if level is not None:
+            return spatial.resize(x, level, size, mode)
+        kw = {"align_corners": False, "antialias": False} if mode == "bilinear" else {}
+        return F.interpolate(x, size=size, mode=mode, **kw), None
 
     def _block(self, block: nn.Module, generator: Optional[torch.Generator], level: Optional[spatial.Level],
                *args) -> torch.Tensor:
@@ -265,17 +269,12 @@ class Unet(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         shard = spatial.current()
-        lv = None
-        if shard is not None:
-            if self.outer_sample_mode is not None:
-                raise NotImplementedError("the Unet's outer_sample_mode under spatial sharding is not ported "
-                                          f"(ROADMAP {spatial.BACKBONES})")
-            lv = shard.top()
+        lv = None if shard is None else shard.top()
         g, blk = generator, self._block
         x = concat_condition(x, condition, self.num_conditional_channels)
-        orig_shape = tuple(x.shape[-2:])
+        orig_shape = tuple(x.shape[-2:]) if shard is None else shard.spatial
         if self.outer_sample_mode is not None:
-            x = self._resize(x, self.upsample_dims)
+            x, lv = self._resize(x, self.upsample_dims, lv)
         x, lv = self._conv(self.init_conv, x, lv)
         # two independent input-dropout draws
         slab = None if lv is None else lv.slab
@@ -305,5 +304,5 @@ class Unet(nn.Module):
         x = blk(self.final_res_block, g, lv, torch.cat([x, r], dim=1), t)
         x = self.final_conv(x)
         if self.outer_sample_mode is not None:
-            x = self._resize(x, orig_shape)
+            x, _ = self._resize(x, orig_shape, lv)
         return x

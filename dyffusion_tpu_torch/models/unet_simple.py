@@ -18,6 +18,18 @@ carry the original reference's names (``input_ops.{i}.ops.{0,1}``,
 ``readout.0``, ``time_emb_mlp``) and its DCGAN init: conv and transposed-
 conv weights ~ N(0, 0.02), BatchNorm scales ~ N(1, 0.02), biases 0.
 ``remat=True`` checkpoints every block with ``torch.utils.checkpoint``.
+
+Inside ``parallel.spatial.sharded`` the same traversal runs on this rank's
+slab of the grid, each block given the ``level`` of its input (``None`` on
+one device): the outer resamples through ``spatial.resize`` (taps from
+global coordinates), the encoder's strided convs through
+``spatial.conv2d``, each decoder's bilinear x2 + conv through
+``spatial.upsample_conv`` and the readout through
+``spatial.conv_transpose2d``; BatchNorm's batch statistics are the whole
+world's (``models/base.py``), the last encoder block's GroupNorm sums its
+moments over the model group, dropout keeps the slab of the global mask;
+the 1x1 ``init_conv``, FiLM and the activations stay local. Under remat a
+block's collectives replay in the forward's order (``unet.remat_call``).
 """
 from __future__ import annotations
 
@@ -64,22 +76,43 @@ class UNetBlock(nn.Module):
         self.relu = relu
         self.dropout = float(dropout)
 
+    def out_level(self, level: spatial.Level) -> spatial.Level:
+        """The level of this block's output for an input of ``level``."""
+        if isinstance(self.ops[0], nn.Upsample):
+            return level.doubled()
+        conv = self.ops[0]
+        return level.conv(conv.kernel_size[0], conv.stride[0], conv.padding[0])
+
     def forward(
         self,
         x: torch.Tensor,
         time_emb: Optional[torch.Tensor] = None,
         batch_stats: Optional[dict] = None,
         generator: Optional[torch.Generator] = None,
+        level: Optional[spatial.Level] = None,
     ) -> torch.Tensor:
-        for op in self.ops[:-1]:
-            x = op(x)
-        x = norm_call(self.ops[-1], x, batch_stats)
+        conv, norm = self.ops[-2], self.ops[-1]
+        if level is None:
+            for op in self.ops[:-1]:
+                x = op(x)
+            x = norm_call(norm, x, batch_stats)
+        else:
+            out = self.out_level(level)  # what ``UNetSimple._block`` hands the next block
+            if isinstance(self.ops[0], nn.Upsample):
+                x, level = spatial.upsample_conv(x, conv.weight, conv.bias, level, conv.padding[0], "bilinear")
+            else:
+                x, level = spatial.conv2d(x, conv.weight, conv.bias, level, conv.stride[0], conv.padding[0])
+            assert level == out, f"the block's output is {level}, its out_level {out}"
+            if isinstance(norm, nn.GroupNorm):
+                x = spatial.group_norm(x, norm.num_groups, norm.weight, norm.bias, norm.eps, level)
+            else:
+                x = norm_call(norm, x, batch_stats)
         if self.time_mlp is not None and time_emb is not None:
             scale, shift = self.time_mlp(time_emb)[:, :, None, None].chunk(2, dim=1)
             # keep x's dtype: the f32 time MLP must not upcast the conv path
             x = x * (scale.to(x.dtype) + 1.0) + shift.to(x.dtype)
         x = F.relu(x) if self.relu else F.leaky_relu(x, RELU_LEAK)
-        return dropout(x, self.dropout, generator)
+        return dropout(x, self.dropout, generator, None if level is None else level.slab)
 
 
 class UNetSimple(nn.Module):
@@ -142,13 +175,21 @@ class UNetSimple(nn.Module):
                 m.weight.normal_(1.0, 0.02)
                 m.bias.zero_()
 
-    def _resize(self, x: torch.Tensor, size) -> torch.Tensor:
-        return F.interpolate(x, size=tuple(size), mode=self.outer_sample_mode, align_corners=False, antialias=False)
+    def _resize(self, x: torch.Tensor, size, level: Optional[spatial.Level]):
+        """The outer resample to ``size`` (H, W), and its level (None on one device)."""
+        if level is not None:
+            return spatial.resize(x, level, size, self.outer_sample_mode)
+        return F.interpolate(x, size=tuple(size), mode=self.outer_sample_mode, align_corners=False,
+                             antialias=False), None
 
-    def _block(self, block, x, t, batch_stats, generator) -> torch.Tensor:
+    def _block(self, block, x, t, batch_stats, generator, level: Optional[spatial.Level]):
+        """A block on the level of its input, checkpointed under remat when
+        gradients are being recorded; its output and the output's level."""
         if self.remat and torch.is_grad_enabled():
-            return remat_call(block, generator, x, t, batch_stats)
-        return block(x, t, batch_stats, generator)
+            x = remat_call(block, generator, x, t, batch_stats, level=level)
+        else:
+            x = block(x, t, batch_stats, generator, level)
+        return x, None if level is None else block.out_level(level)
 
     def forward(
         self,
@@ -158,27 +199,34 @@ class UNetSimple(nn.Module):
         generator: Optional[torch.Generator] = None,
         batch_stats: Optional[dict] = None,
     ) -> torch.Tensor:
-        spatial.refuse("UNetSimple", spatial.BACKBONES)
+        shard = spatial.current()
+        lv = None if shard is None else shard.top()
         if self.num_conditional_channels > 0:
             assert condition is not None, "model built with conditional channels but condition is None"
             x = torch.cat([x, condition], dim=1)  # inputs first
         else:
             assert condition is None, "condition given but num_conditional_channels == 0"
         t = self.time_emb_mlp(time) if self.time_emb_mlp is not None else None
-        orig_shape = tuple(x.shape[-2:])
+        orig_shape = tuple(x.shape[-2:]) if shard is None else shard.spatial
         if self.upsample_dims is not None:
-            x = self._resize(x, self.upsample_dims)
-        x = dropout(self.init_conv(x), self.input_dropout, generator)
+            x, lv = self._resize(x, self.upsample_dims, lv)
+        # a 1x1 conv: local on a slab
+        x = dropout(self.init_conv(x), self.input_dropout, generator, None if lv is None else lv.slab)
         skips = []
         for block in self.input_ops:
-            x = self._block(block, x, t, batch_stats, generator)
-            skips.append(x)
-        x = skips.pop()
+            x, lv = self._block(block, x, t, batch_stats, generator, lv)
+            skips.append((x, lv))
+        x, lv = skips.pop()
         for block in self.output_ops:
-            x = self._block(block, x, t, batch_stats, generator)
+            x, lv = self._block(block, x, t, batch_stats, generator, lv)
             if skips:
-                x = torch.cat([x, skips.pop()], dim=1)
-        x = self.readout(x)
+                x = torch.cat([x, skips.pop()[0]], dim=1)
+        readout = self.readout[0]
+        if lv is None:
+            x = readout(x)
+        else:
+            x, lv = spatial.conv_transpose2d(x, readout.weight, readout.bias, lv, readout.stride[0],
+                                             readout.padding[0])
         if self.upsample_dims is not None:
-            x = self._resize(x, orig_shape)
+            x, _ = self._resize(x, orig_shape, lv)
         return x

@@ -48,7 +48,7 @@ from __future__ import annotations
 
 import datetime
 import os
-from typing import Dict, Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -180,6 +180,24 @@ def model_sum(t: torch.Tensor) -> torch.Tensor:
     """:func:`group_sum` over this rank's model group; ``t`` without a model
     axis."""
     return group_sum(t, model_group())
+
+
+def mean_var(x: torch.Tensor, dims: Sequence[int], group) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``x`` centred on its mean, the mean and the biased variance, over
+    ``dims`` of ``x`` and over the ranks of ``group`` (:func:`group_sum`,
+    differentiable; this process alone for None), ``dims`` kept with size
+    1; in f32, or in f64 for an f64 ``x``. Two sums: each rank's [sum,
+    count], then its squares about the global mean. (flax's one sum,
+    E[x^2] - E[x]^2, cancels in f32 where the mean is large against the
+    spread.) The cross-rank BatchNorm and GroupNorm both take it."""
+    dims = tuple(dims)
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    sums = xf.sum(dim=dims, keepdim=True)
+    count = torch.full((1,), float(xf.numel() // sums.numel()), dtype=xf.dtype, device=xf.device)
+    total = group_sum(torch.cat([sums.reshape(-1), count]), group)
+    mean = total[:-1].reshape(sums.shape) / total[-1]
+    centred = xf - mean
+    return centred, mean, group_sum(centred.square().sum(dim=dims, keepdim=True), group) / total[-1]
 
 
 def launcher_world() -> Optional[int]:

@@ -17,10 +17,19 @@ rank; what crosses ranks:
   padding). :func:`conv2d` and :func:`upsample_conv` ask for the rows
   their output block reads: a k x k conv of stride s and padding p gives
   output rows [a, b) from input rows [a s - p, (b - 1) s + k - p);
-  nearest x2 then a 3 x 3 conv reads source rows [(a - 1) // 2,
-  b // 2 + 1), upsampled and cropped to [a - 1, b + 1).
-- :func:`group_norm`: the sum and the sum of squares per (row, group), in
-  f32, summed over the group (flax's fast variance, E[x^2] - E[x]^2).
+  an x2 upsample (nearest, or bilinear) then a conv of padding p reads the
+  source rows of upsampled rows [a - p, b + p).
+- :func:`resize` and :func:`conv_transpose2d` (the physical-systems
+  backbones): the outer resample to the working grid and back, and the
+  ``UNetSimple``'s k4 s2 p1 readout. A resample's taps come from the GLOBAL
+  coordinates of the output block (half-pixel centres, the source index
+  clamped at the grid's edges 0 and total - 1, as torch's and the JAX
+  package's resizes do): the source rows they read, from whichever ranks
+  own them, are a halo like any other; so are the input rows a transposed
+  conv's output block reads (:func:`transposed_rows`).
+- :func:`group_norm`: per (row, group) the sum and count, then the
+  squares about the mean, in f32, summed over the group
+  (``distributed.mean_var``, as the cross-rank BatchNorm).
 - :func:`gather`: a small tensor whole (the mid-block attention's keys and
   values, 15 x 15 tokens at SST).
 - :func:`linear_attention`: B1 split across ranks (``ops.linear_attention
@@ -59,6 +68,7 @@ import contextvars
 import dataclasses
 from typing import Iterator, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -311,34 +321,120 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], 
     return F.conv2d(halo, weight, bias, stride=stride, padding=_padding(level, padding)), out
 
 
-def upsample_conv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
-                  level: Level) -> Tuple[torch.Tensor, Level]:
-    """Nearest x2, then a 3 x 3 conv with padding 1 (the ``Unet``'s
-    ``Upsample``), of this rank's slab: the source rows its output block
-    reads, upsampled and cropped, then the conv without padding on the
-    sharded axis."""
+def _taps(lo: int, hi: int, n_in: int, n_out: int, mode: str,
+          dtype=np.float32) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The source rows (i0, i1) and the weight of i1 of output rows [lo,
+    hi) of a resample of ``n_in`` rows to ``n_out`` with half-pixel
+    centres and no antialias, computed in ``dtype`` as torch computes them
+    for a tensor of that type (float32 for float32, bfloat16 and float16;
+    ``align_corners=False``: the source index clamped at 0, i1 at n_in - 1;
+    ``nearest-exact``: one tap)."""
+    i = np.arange(lo, hi, dtype=dtype)
+    scale, half = dtype(n_in) / dtype(n_out), dtype(0.5)
+    if mode == "bilinear":
+        src = np.maximum(scale * (i + half) - half, dtype(0.0))
+        i0 = np.minimum(np.floor(src).astype(np.int64), n_in - 1)
+        return i0, np.minimum(i0 + 1, n_in - 1), (src - i0).astype(dtype)
+    if mode == "nearest-exact":
+        i0 = np.minimum(np.floor((i + half) * scale).astype(np.int64), n_in - 1)
+        return i0, i0, np.zeros_like(i)
+    raise ValueError(f"a resample of mode {mode!r} under spatial sharding is not ported (ROADMAP {BACKBONES})")
+
+
+def _resample(x: torch.Tensor, level: Level, out: Level, need: Sequence[Tuple[int, int]], mode: str) -> torch.Tensor:
+    """Rows ``need[rank]`` = [lo, hi) of the sharded axis of the resample
+    of this rank's slab ``x`` of ``level`` to the grid of ``out``, zeros
+    outside [0, out.total) (a conv's padding after it): the source rows
+    the taps read (:func:`rows`), resampled on the sharded axis by their
+    global coordinates, then on the whole other axis."""
     level.check(x)
+    # in float64 for a float64 tensor, else in float32 (as torch's resize computes a bf16 one)
+    dtype = np.float64 if x.dtype == torch.float64 else np.float32
+    clipped = [(max(lo, 0), min(hi, out.total)) for lo, hi in need]
+    taps = [_taps(a, b, level.total, out.total, mode, dtype) for a, b in clipped]
+    src_need = [(int(i0[0]), int(i1[-1]) + 1) for i0, i1, _ in taps]
+    src = rows(x, level, src_need)
+    i0, i1, w = taps[level.rank]
+    first, dim = src_need[level.rank][0], level.dim
+    as_index = lambda i: torch.as_tensor(i - first, device=x.device)  # noqa: E731
+    y = src.index_select(dim, as_index(i0))
+    if mode == "bilinear":
+        shape = [1] * x.dim()
+        shape[dim] = len(w)
+        weight = torch.as_tensor(w, device=x.device).reshape(shape)
+        y = torch.lerp(y.to(weight.dtype), src.index_select(dim, as_index(i1)).to(weight.dtype), weight).to(x.dtype)
+    (lo, hi), (a, b) = need[level.rank], clipped[level.rank]
+    if a - lo or hi - b:  # the conv's zero padding beyond the grid's edges
+        pad = [0, 0, a - lo, hi - b] if dim == -2 else [a - lo, hi - b]
+        y = F.pad(y, pad)
+    if out.other != level.other:  # the other axis is whole on every rank
+        size = (y.shape[-2], out.other) if dim == -2 else (out.other, y.shape[-1])
+        kw = {"align_corners": False} if mode == "bilinear" else {}
+        y = F.interpolate(y, size=size, mode=mode, **kw)
+    return y
+
+
+def resize(x: torch.Tensor, level: Level, size: Sequence[int], mode: str = "bilinear") -> Tuple[torch.Tensor, Level]:
+    """This rank's slab of ``F.interpolate(x, size, mode)`` of the whole
+    grid (half-pixel centres, no antialias; ``mode`` 'bilinear' or
+    'nearest-exact'), and the level of the ``size`` = (H, W) grid."""
+    total, other = (size if level.dim == -2 else tuple(size)[::-1])
+    out = dataclasses.replace(level, total=int(total), other=int(other))
+    return _resample(x, level, out, out.blocks, mode), out
+
+
+def upsample_conv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], level: Level,
+                  padding: int = 1, mode: str = "nearest-exact") -> Tuple[torch.Tensor, Level]:
+    """An x2 upsample, then a square stride-1 conv with zero padding
+    ``padding`` that keeps the extent: nearest then 3 x 3 (the ``Unet``'s
+    ``Upsample``; nearest x2 and 'nearest-exact' x2 pick the same rows),
+    or bilinear with half-pixel centres then (size - 1)^2 (each
+    ``UNetSimple`` decoder block). Of this rank's slab: the upsampled rows
+    its output block reads, ``padding`` beyond it on each side (zeros
+    beyond the grid), then the conv without padding on the sharded axis. A
+    1 x 1 conv (``padding`` 0) still needs the bilinear's source rows."""
     out = level.doubled()
-    need = [((a - 1) // 2, b // 2 + 1) for a, b in out.blocks]
-    src = rows(x, level, need)
-    up = F.interpolate(src, scale_factor=2, mode="nearest")
-    up = up.narrow(level.dim, out.start - 1 - 2 * need[level.rank][0], out.stop - out.start + 2)
-    return F.conv2d(up, weight, bias, padding=_padding(level, 1)), out
+    need = [(a - padding, b + padding) for a, b in out.blocks]
+    up = _resample(x, level, out, need, mode)
+    return F.conv2d(up, weight, bias, padding=_padding(level, padding)), out
+
+
+def transposed_rows(a: int, b: int, k: int, s: int, p: int) -> Tuple[int, int]:
+    """The input rows [lo, hi) that output rows [a, b) of a transposed conv
+    (kernel k, stride s, padding p) read: output row o = i s - p + j takes
+    input row i through tap j in [0, k), so lo = ceil((a + p - k + 1) / s)
+    and hi = (b - 1 + p) // s + 1."""
+    return -((k - 1 - p - a) // s), (b - 1 + p) // s + 1
+
+
+def conv_transpose2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], level: Level,
+                     stride: int, padding: int) -> Tuple[torch.Tensor, Level]:
+    """A square transposed conv (``F.conv_transpose2d``, weight (C_in,
+    C_out, k, k)) of this rank's slab: the input rows its output block
+    reads (:func:`transposed_rows`; zeros beyond the grid), transposed-
+    convolved without padding on the sharded axis and cropped to the
+    block; its slab of the output and the output's level."""
+    level.check(x)
+    k, s, p = int(weight.shape[level.dim]), int(stride), int(padding)
+    grow = lambda n: (n - 1) * s - 2 * p + k  # noqa: E731
+    out = dataclasses.replace(level, total=grow(level.total), other=grow(level.other))
+    need = [transposed_rows(a, b, k, s, p) for a, b in out.blocks]
+    halo = rows(x, level, need)
+    y = F.conv_transpose2d(halo, weight, bias, stride=s, padding=_padding(level, p))
+    return y.narrow(level.dim, out.start - need[level.rank][0] * s + p, out.stop - out.start), out
 
 
 def group_norm(x: torch.Tensor, num_groups: int, weight: torch.Tensor, bias: torch.Tensor, eps: float,
                level: Level) -> torch.Tensor:
     """GroupNorm (biased variance) over the whole grid of this rank's slab
-    ``x`` (B, C, h, w): per (row, group) the f32 sum and sum of squares,
-    summed over the model group; computed in f32, returned in x's dtype."""
-    B, C = x.shape[:2]
-    xf = x.float().reshape(B, num_groups, -1)
-    moments = distributed.model_sum(torch.stack([xf.sum(-1), xf.square().sum(-1)]))
-    n = (C // num_groups) * level.tokens
-    mean = moments[0] / n
-    var = torch.clamp(moments[1] / n - mean.square(), min=0.0)
-    y = ((xf - mean[..., None]) * torch.rsqrt(var + eps)[..., None]).reshape(x.shape)
-    return (y * weight.float()[:, None, None] + bias.float()[:, None, None]).to(x.dtype)
+    ``x`` (B, C, h, w): per (row, group) the mean and variance summed over
+    the model group (``distributed.mean_var``); in f32 (f64 for an f64
+    ``x``), returned in x's dtype."""
+    level.check(x)
+    B = x.shape[0]
+    centred, _, var = distributed.mean_var(x.reshape(B, num_groups, -1), (-1,), distributed.model_group())
+    y = (centred * torch.rsqrt(var + eps)).reshape(x.shape)
+    return (y * weight.to(y.dtype)[:, None, None] + bias.to(y.dtype)[:, None, None]).to(x.dtype)
 
 
 def linear_attention(qkv: torch.Tensor, heads: int, dim_head: int, scale: float, level: Level) -> torch.Tensor:

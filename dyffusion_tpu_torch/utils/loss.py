@@ -3,8 +3,8 @@
 Each loss takes an optional ``mask`` of shape (B,) over the leading (batch)
 axis: masked rows contribute nothing and the mean runs over the unmasked
 rows only, a static-shape form of ``criterion(pred[rows], target[rows])``.
-Reductions always run in f32, so bf16 predictions under mixed-precision
-training keep their gradient signal. In a data-parallel train step
+Reductions run in f32 at least (f64 for f64 inputs), so bf16 predictions
+under mixed-precision training keep their gradient signal. In a data-parallel train step
 (``utils.rng.row_shard``) a masked mean counts the unmasked rows of the
 GLOBAL batch, so that the mean of the ranks' losses is the global batch's.
 Under spatial sharding (a D x K grid) a rank's mean runs over its slab of
@@ -41,7 +41,8 @@ def _masked_mean(per_elem: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.
 
 
 def _f32(x: torch.Tensor) -> torch.Tensor:
-    return x.float() if x.is_floating_point() else x
+    """``x`` in f32 at least (an f64 tensor stays f64)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32)) if x.is_floating_point() else x
 
 
 def mse_loss(preds: torch.Tensor, targets: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """Rank functions of the spatial-sharding tests of the port
-(``tests/test_torch_port_spatial.py``), spawned by
+(``tests/test_torch_port_spatial.py``, ``..._spatial_train.py``,
+``..._spatial_physical.py``), spawned by
 ``tests/_torch_ddp_workers.run_ranks``: each rank joins a model group of
 the whole world and computes its slab. This module imports no JAX, so that
 a rank starts fast.
@@ -70,15 +71,16 @@ def unet_rank(rank: int, world: int, case: Dict[str, Any], faults: List[Any]) ->
 
 
 def a2_raise(world: int) -> str:
-    """The error of an A2 backbone (``UNetSimple``) under a shard."""
+    """The error of an A2 backbone (``NCSNpp``) under a shard."""
     import torch
 
-    from dyffusion_tpu_torch.models import UNetSimple
+    from dyffusion_tpu_torch.models import NCSNpp
     from dyffusion_tpu_torch.parallel import spatial
 
+    net = NCSNpp(8, 1, 1, n_head_channels=8, dim_mults=(1,), num_res_blocks=1, attn_resolutions=(), spatial_height=8)
     try:
         with spatial.sharded("h", (8, 8)):
-            UNetSimple(8, 1, 1)(torch.zeros(1, 1, 8 // world, 8))
+            net(torch.zeros(1, 1, 8 // world, 8), torch.zeros(1))
     except NotImplementedError as e:
         return str(e)
     return "no error"
@@ -170,12 +172,12 @@ def grad_fault(name: str):
         spatial._Rows.backward = staticmethod(backward)
     elif name == "group norm moment gradients per rank":
         def group_norm(*args):
-            model_sum = distributed.model_sum
-            distributed.model_sum = lambda t: _ForwardOnlySum.apply(t, distributed.model_group())
+            group_sum = distributed.group_sum
+            distributed.group_sum = lambda t, group: _ForwardOnlySum.apply(t, group)
             try:
                 return saved[1](*args)
             finally:
-                distributed.model_sum = model_sum
+                distributed.group_sum = group_sum
 
         spatial.group_norm = group_norm
     elif name == "linear attention backward per rank":
@@ -301,4 +303,168 @@ def split_backward_rank(rank: int, world: int, shapes: List[tuple]) -> List[Dict
         out.append({"err": float((x.grad.float() - want[:, mine]).abs().max()), "scale": float(want.abs().max()),
                     "forward_err": float((y.detach().float() - y_want[:, mine].detach().float()).abs().max()),
                     "forward_scale": float(y_want.detach().float().abs().max()), "split": split})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the physical-systems backbones under a shard (tests/test_torch_port_spatial_physical.py)
+
+
+@contextlib.contextmanager
+def physical_fault(name: str):
+    """A planted fault of the physical-systems backbones under a shard, the
+    negative controls: 'halos zeroed' (no row crosses ranks, forward and
+    backward), 'batch norm per rank' (each rank's own batch statistics),
+    'resize per slab' (the outer resample of each slab alone, its
+    coordinates relative to the slab: ``F.interpolate`` on a slab),
+    'group norm per rank'."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from dyffusion_tpu_torch.models.base import BatchNorm2d
+    from dyffusion_tpu_torch.parallel import distributed, spatial
+
+    saved = (spatial.resize, BatchNorm2d._global_batch_norm)
+
+    def resize_per_slab(x, level, size, mode="bilinear"):
+        total, other = size if level.dim == -2 else tuple(size)[::-1]
+        out = dataclasses.replace(level, total=int(total), other=int(other))
+        n = out.stop - out.start
+        local = (n, out.other) if level.dim == -2 else (out.other, n)
+        return F.interpolate(x, size=local, mode=mode, **({"align_corners": False} if mode == "bilinear" else {})), out
+
+    def batch_norm_per_rank(self, x, batch_stats):
+        active = distributed.active
+        distributed.active = lambda: False
+        try:
+            return BatchNorm2d.forward(self, x, batch_stats)
+        finally:
+            distributed.active = active
+
+    if name == "resize per slab":
+        spatial.resize = resize_per_slab
+    elif name == "batch norm per rank":
+        BatchNorm2d._global_batch_norm = batch_norm_per_rank
+    try:
+        with fault(name if name in ("halos zeroed", "group norm per rank") else None):
+            yield
+    finally:
+        spatial.resize, BatchNorm2d._global_batch_norm = saved
+
+
+def backbone_rank(rank: int, world: int, case: Dict[str, Any]) -> Dict[Any, Dict[str, Any]]:
+    """A backbone (``case['cls']``: its kwargs, state dict, NCHW inputs,
+    cotangent, axis) on this rank's slab, dropout off, with no fault and
+    under each of ``case['faults']``: the eval forward (running averages)
+    and, with ``case['train']``, the train-mode forward, its BatchNorm
+    updates and the gradients of sum(output * cot) (the input's slab, each
+    weight's summed over the ranks)."""
+    import torch
+
+    from dyffusion_tpu_torch import models
+    from dyffusion_tpu_torch.models.base import apply_model, apply_model_train
+    from dyffusion_tpu_torch.parallel import distributed, spatial
+
+    model = getattr(models, case["cls"])(**case["kwargs"])
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in case["state"].items()}, strict=True)
+    axis, (H, W) = case["axis"], case["x"].shape[2:]
+    cond = torch.as_tensor(_slab(case["cond"], axis, rank, world))
+    t = torch.as_tensor(case["t"])
+    out = {}
+    for name in [None] + list(case["faults"]):
+        got = {}
+        x = torch.tensor(_slab(case["x"], axis, rank, world), requires_grad=True)
+        with physical_fault(name):
+            with torch.no_grad(), spatial.sharded(axis, (H, W)):
+                got["eval"] = apply_model(model, None, x, t, cond).numpy()
+            if case["train"]:
+                model.zero_grad()
+                with spatial.sharded(axis, (H, W)):
+                    y, updates = apply_model_train(model, None, x, t, cond)
+                (y * torch.as_tensor(_slab(case["cot"], axis, rank, world))).sum().backward()
+                grads = {k: p.grad.clone() for k, p in model.named_parameters()}
+                for g in grads.values():
+                    distributed.all_reduce_sum(g)
+                got.update(train=y.detach().numpy(), updates={k: v.numpy() for k, v in updates.items()},
+                           grads={"x": x.grad.numpy(), **{k: g.numpy() for k, g in grads.items()}})
+        out[name] = got
+    return out
+
+
+def boundary_rank(rank: int, world: int, case: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The NS boundary conditions on this rank's slab of H and of W of
+    ``case`` (predictions (N, B, H, W, C), the batch's metadata, times)."""
+    import torch
+
+    from dyffusion_tpu_torch.data.physical_systems import PhysicalSystemsDataModule
+    from dyffusion_tpu_torch.parallel import spatial
+
+    dm = PhysicalSystemsDataModule(case["data_dir"], physical_system="navier-stokes")
+    out = {}
+    for axis in ("h", "w"):
+        dim = 2 if axis == "h" else 3  # of (N, B, H, W, C)
+        a, b = spatial.blocks(case["preds"].shape[dim], world)[rank]
+        preds = torch.as_tensor(np.take(case["preds"], np.arange(a, b), axis=dim))
+        meta = {k: torch.as_tensor(_slab(v, axis, rank, world, nchw=False) if v.ndim == 4 else v)
+                for k, v in case["meta"].items()}
+        with spatial.sharded(axis, case["preds"].shape[2:4]):
+            out[axis] = dm.boundary_conditions(preds, meta, torch.as_tensor(case["time"])).numpy()
+    return out
+
+
+def raises_rank(commands: Dict[str, List[Any]]) -> Dict[str, str]:
+    """The error each (preset, overrides) command raises on this world,
+    through ``build_trainer`` then ``fit`` and, where that trains, the
+    val split's evaluation."""
+    from dyffusion_tpu_torch.config import get_config
+    from dyffusion_tpu_torch.interface import build_trainer
+
+    out = {}
+    for name, (preset, overrides) in commands.items():
+        errors = []
+        try:
+            trainer = build_trainer(get_config(preset, overrides), device="cpu")
+        except (ValueError, NotImplementedError) as e:
+            out[name] = [str(e)]
+            continue
+        for call in (trainer.fit, lambda: trainer.evaluate("val")):
+            try:
+                call()
+                errors.append("no error")
+            except NotImplementedError as e:
+                errors.append(str(e))
+        out[name] = errors
+    return out
+
+
+def physical_rank(rank: int, world: int, backbones: List[Dict[str, Any]], boundary: Dict[str, Any],
+                  runs: Dict[str, list], tests: Dict[str, tuple], raises: Dict[str, list],
+                  waits: Dict[str, str]) -> Dict[str, Any]:
+    """One spawn for the module: :func:`backbone_rank` per case,
+    :func:`boundary_rank`, each of ``runs`` (name -> commands,
+    :func:`run_commands`), each of ``tests`` (name -> (registry, run id):
+    ``mode=test`` of the stored run on this world, its metrics) and
+    :func:`raises_rank`; a run or test named in ``waits`` starts once the
+    file it names exists."""
+    import os
+    import time
+
+    from dyffusion_tpu_torch.interface import reload_and_test
+    from dyffusion_tpu_torch.parallel import distributed
+
+    def wait(name):
+        while name in waits and not os.path.exists(waits[name]):
+            time.sleep(0.1)
+
+    distributed.set_model_axis(world)
+    out = {"backbones": [backbone_rank(rank, world, c) for c in backbones],
+           "boundary": boundary_rank(rank, world, boundary), "runs": {}, "tests": {}}
+    out["raises"] = raises_rank(raises)
+    for name, commands in runs.items():
+        wait(name)
+        out["runs"][name] = run_commands(commands)
+    for name, (reg, run_id) in tests.items():
+        wait(name)
+        out["tests"][name] = reload_and_test(reg, run_id, device="cpu")
     return out

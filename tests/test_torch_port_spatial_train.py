@@ -255,10 +255,11 @@ def _initial_weights(registry, run_id):
     return {k: v.clone() for k, v in build_trainer(config, device="cpu").state.model.state_dict().items()}
 
 
-def assert_trains_as(registry, want_registry, run_id, init_registry=None, steps=3):
+def assert_trains_as(registry, want_registry, run_id, init_registry=None, steps=3, ignore=()):
     """The run ``run_id`` of ``registry`` against that of ``want_registry``:
     every logged loss within REL relative, the weights and the EMA within
-    CHANGE_REL of their change (relative L2)."""
+    CHANGE_REL of their change (relative L2), but for the names in
+    ``ignore``."""
     got, want = _metrics(registry, run_id), _metrics(want_registry, run_id)
     losses = [(a["train/loss"], b["train/loss"]) for a, b in zip(got, want) if "train/loss" in b]
     assert len(losses) == steps and len(got) == len(want)
@@ -268,7 +269,7 @@ def assert_trains_as(registry, want_registry, run_id, init_registry=None, steps=
     assert s["step"] == s1["step"]
     init = _initial_weights(init_registry or want_registry, run_id)
     for part in ("model", "ema"):
-        keys = [k for k, w in s1[part].items() if w.is_floating_point() and k in init]
+        keys = [k for k, w in s1[part].items() if w.is_floating_point() and k in init and k not in ignore]
         num = sum(float(((s[part][k] - s1[part][k]) ** 2).sum()) for k in keys)
         den = sum(float(((s1[part][k] - init[k]) ** 2).sum()) for k in keys)
         assert (num / den) ** 0.5 <= CHANGE_REL, (part, (num / den) ** 0.5)
