@@ -110,7 +110,7 @@ non-zero:
    registry: 4 train steps + a validation (10 sampler steps), falling
    losses, ``mode=test`` (50 members), serving by run id with the seed and
    members-differ checks (members sharing their noise must fail), one
-   full-sampler request (1001 forwards at 20 rows, timed), the busy share
+   full-sampler request (1001 forwards at 10 rows, timed), the busy share
    of a 21-forward request of the same run under the CUDA-activity
    profiler, and three short commands: the Fourier embedding with the EMA
    (its features unchanged bit for bit), the DDPM residual blocks, SPADE.
@@ -202,11 +202,23 @@ non-zero:
    within 1e-5 (the halo's backward zeroed beyond each); two stage-2 train
    steps at B32, each rank's peak at most 0.8x one rank's; one spring
    stage-2 step on H (B64) within 1e-3; no B1-B3 launch on these paths.
+   Then, in the same processes, the diffusion baselines on H: MCVD over
+   NCSN++ at ``[ncsnpp]``'s width (f32, TF32 off, weights moved off their
+   near-zero init): one forward at 4 rows within 1e-3 of max|one rank|
+   (every halo zeroed, the FIR resampling's too, and the attention over
+   each rank's own tokens beyond it), the MCVD loss and gradients at 4 rows
+   within 1e-3 (the halo's backward zeroed beyond it), a request of 2 rows
+   x 4 members through the 10-step sampler within 1e-3; the SPADE NCSN++
+   forward with the same checks; the DDPM over the SST ``Unet``: a request
+   of 2 rows x 20 members through the 10-step sampler within 1e-3 (each
+   rank drawing its noise at its slab's shape beyond it), B1 6 split calls
+   a forward (60 a request) on each rank, one train step's loss within
+   1e-5 relative; each rank's peak memory printed against the witness's.
 
 Each path (slice, train, fit, each cli command, ns, spring, each baseline
 command and request, ncsnpp, each export request, each oisst command, the
-unfolded members, ddp, spatial) sets the launch counts to 0 before it runs and reads
-them after. The line before
+unfolded members, ddp, spatial, its baselines' DDPM request) sets the
+launch counts to 0 before it runs and reads them after. The line before
 the last is the kernel summary as JSON
 (B1's top-level launches and times are the train path's; ``by_path`` has
 each path's count); the last line is ``{"ok": true, "device": {...}}``.
@@ -254,6 +266,13 @@ run phases 1, 2 and 18 (or 19, or 20) and stop, with no ``ok`` line.
 runs phase 1, then only the physical systems of phase 20 (NS on W and
 spring on H, in its three processes, with their checks; no kernel runs
 there, so nothing is built) and stops, with no ``ok`` line.
+
+    python3 chip_smoke.py --spatial-baselines
+
+runs phases 1 and 2, then only the split B1 check and the diffusion
+baselines of phase 20 (MCVD over NCSN++ and the DDPM over the SST ``Unet``
+on H, in its three processes, with their checks) and stops, with no ``ok``
+line.
 
     python3 chip_smoke.py --kernels
 
@@ -1812,7 +1831,8 @@ def phase_baselines(card):
     launches are set to 0 before each command and request and must read
     what its forwards imply (6 per ``Unet`` forward). B1 is first held
     against its plain version at the path's rows (train 4, eval 20, 40 and
-    100) and dtype (f32); then one DDPM and one MCVD step GPU against CPU; a
+    100; 8, ``[spatial]``'s DDPM train step) and dtype (f32); then one DDPM
+    and one MCVD step GPU against CPU; a
     negative control shows that a sampler whose members share their noise
     fails the members-differ check. Returns {method: B1 launches of all its
     commands and requests} and the per-request counts."""
@@ -1831,7 +1851,9 @@ def phase_baselines(card):
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     max_err = 0.0
-    for B in (4, 20, 40, 100):  # train batch; 20 members x 1 (seed checks), x 2 (eval); 50 x 2 (test)
+    # train batch; [spatial]'s DDPM train step (B8); 20 members x 1 (seed checks, the full requests), x 2
+    # (eval); 50 x 2 (test)
+    for B in (4, 8, 20, 40, 100):
         for N in (3600, 900, 225):
             qkv = _qkv(B, N, torch.float32, True, gen)
             got = la.linear_attention_qkv(qkv, 4, 32, 32**-0.5)
@@ -1952,11 +1974,13 @@ def phase_baselines(card):
 # one validation (40 rows, sampling subsampled to 10 steps + the denoise),
 # mode=test (50 members x 2 rows), serving's seed checks on one row, and one
 # request with the preset's full sampler (1000 steps + the denoise = 1001
-# forwards at 20 members x one row = 20 rows).
+# forwards at 10 members x one row = 10 rows: the request is launch-bound,
+# and 20 rows cost ~6 s more of the run's time).
 NCSNPP_TRAIN_STEPS = 4
 NCSNPP_EVAL_STEPS = 10
 NCSNPP_FULL_FORWARDS = 1001
-NCSNPP_FULL_BATCH = 1  # rows of the full-sampler request (x 20 members)
+NCSNPP_FULL_BATCH = 1  # rows of the full-sampler request
+NCSNPP_FULL_MEMBERS = 10  # its members (cut from 20 for the run's time)
 NCSNPP_BUSY_STEPS = 20
 NCSNPP_DATA = ["datamodule.n_traj=5", "datamodule.n_time=9", "datamodule.batch_size=4",
                "datamodule.eval_batch_size=2"]
@@ -2081,7 +2105,7 @@ def phase_ncsnpp(card):
     ``mode=test`` (50 members); serving by run id (a seed repeats its
     answer, another does not, the members differ; members sharing their
     noise must fail that check); one request with the full sampler (1001
-    forwards at 20 rows), timed, and the busy share of a 21-forward request
+    forwards at 10 rows), timed, and the busy share of a 21-forward request
     of the same run under the CUDA-activity profiler. Then three short commands: the
     Fourier time embedding with the EMA (its features must stay bit for bit
     as initialized, in the weights and the EMA), the DDPM residual blocks,
@@ -2170,19 +2194,20 @@ def phase_ncsnpp(card):
         if float(same.std(dim=0).max()) > 0:
             raise AssertionError(f"{tag} members sharing their noise still differ: the check cannot fail")
 
-        full = ["diffusion.sampling_timesteps=null"]
+        members = [f"module.num_predictions={NCSNPP_FULL_MEMBERS}"]
+        full = ["diffusion.sampling_timesteps=null", *members]
         predict_full, _, _ = build_predict_fn(reg, run_id, overrides=full)
         fwd = _sampler_forwards(reload_trainer(reg, run_id, full).experiment)
-        # one row of the predict batch (20 rows a forward), for the clock of the whole run
+        # one row of the predict batch at 10 members (10 rows a forward), for the clock of the whole run
         batch = {k: v[:NCSNPP_FULL_BATCH] for k, v in batch.items()}
-        rows = exp.num_members("predict") * batch["dynamics"].shape[0]
+        rows = NCSNPP_FULL_MEMBERS * batch["dynamics"].shape[0]
         out = step(f"full-sampler request ({fwd} forwards, {rows} rows)", lambda: predict_full(batch, SEED))
         if fwd != NCSNPP_FULL_FORWARDS or not bool(torch.isfinite(out).all()) or not float(out.std(dim=0).max()) > 0:
             raise AssertionError(f"{tag} the full-sampler request ({fwd} forwards) is not finite or its members agree")
         # the busy share, from the profiler over a request of the same run and rows with fewer steps:
         # every forward is the same work, and the profiler's processing of the full request's
         # 1.14 million kernel records takes minutes (--profile does it, by category)
-        window = [f"diffusion.sampling_timesteps={NCSNPP_BUSY_STEPS}"]
+        window = [f"diffusion.sampling_timesteps={NCSNPP_BUSY_STEPS}", *members]
         predict_window, _, _ = build_predict_fn(reg, run_id, overrides=window)
         fwd_window = _sampler_forwards(reload_trainer(reg, run_id, window).experiment)
         _profile(f"{tag} busy share over a {fwd_window}-forward request of the same run ({rows} rows):",
@@ -3327,11 +3352,12 @@ def _b1_split_emulated(parts, heads=4, dim_head=32, scale=32**-0.5):
 
 def _spatial_b1_check():
     """The split B1 kernel against B1's plain version over all the tokens,
-    two ranks emulated, at the per-rank SST shapes (120 rows), bf16 and
-    f32; times one rank's three steps (no collectives) against the plain
-    split (one rank's arithmetic) and its bound. Negative control: the
-    output pass of rank 0 with its own tokens' partial alone (k's softmax
-    over the local N)."""
+    two ranks emulated, at the per-rank SST shapes: 120 rows in bf16 and
+    f32, and in f32 also the 40 rows of ``[spatial]``'s DDPM request and the
+    8 of its train step; times one rank's three steps at 120 rows (no
+    collectives) against the plain split (one rank's arithmetic) and its
+    bound. Negative control: the output pass of rank 0 with its own
+    tokens' partial alone (k's softmax over the local N)."""
     import torch
 
     from dyffusion_tpu_torch.ops import linear_attention as la
@@ -3341,16 +3367,19 @@ def _spatial_b1_check():
     for dtype in (torch.bfloat16, torch.float32):
         dt = str(dtype)[6:]
         for n0, n1 in SPATIAL_B1:
+            for B in (120,) if dtype == torch.bfloat16 else (120, 40, 8):
+                full = _qkv(B, n0 + n1, dtype, True, gen)
+                parts = [full[:, :n0], full[:, n0:]]
+                got = torch.cat(_b1_split_emulated(parts), dim=1)
+                want = la.linear_attention_qkv_plain(full, 4, 32, 32**-0.5)
+                _check_vs_plain(f"[spatial] split B1 B={B} N={n0}+{n1} {dt}", got, want, REL_TOL[dt],
+                                negative_controls=n0 == 1800 and B == 120)
+                ws, S, m = la.split_partial(parts[0], 4, 32)
+                local = la.split_output(parts[0], la.split_merge(parts[0], ws, S, m), 4, 32, 32**-0.5, n0)
+                ok = _within(local, want[:, :n0], REL_TOL[dt])[0]
+                assert not ok, "the split B1 check accepts rank 0's tokens alone (k's softmax over the local N)"
             full = _qkv(120, n0 + n1, dtype, True, gen)
             parts = [full[:, :n0], full[:, n0:]]
-            got = torch.cat(_b1_split_emulated(parts), dim=1)
-            want = la.linear_attention_qkv_plain(full, 4, 32, 32**-0.5)
-            _check_vs_plain(f"[spatial] split B1 B=120 N={n0}+{n1} {dt}", got, want, REL_TOL[dt],
-                            negative_controls=n0 == 1800)
-            ws, S, m = la.split_partial(parts[0], 4, 32)
-            local = la.split_output(parts[0], la.split_merge(parts[0], ws, S, m), 4, 32, 32**-0.5, n0)
-            ok = _within(local, want[:, :n0], REL_TOL[dt])[0]
-            assert not ok, "the split B1 check accepts rank 0's tokens alone (k's softmax over the local N)"
 
             def kernel(q=parts[0], n=n0 + n1):
                 ws, S, m = la.split_partial(q, 4, 32)
@@ -3801,7 +3830,286 @@ def spatial_physical(work, data, world, rank):
     return out
 
 
-def spatial_rank_main(work, physical_only=False):
+# [spatial]'s diffusion baselines, in the same processes, after the physical
+# systems: MCVD over NCSN++ at [ncsnpp]'s width (64x64, C=1, horizon 7,
+# 27,941,767 parameters, dropout 0.1) and the DDPM over the SST Unet (60x60,
+# dim 64, mults (1,2,4)), both sharding H; f32, TF32 off; seeded weights, every
+# NCSN++ parameter moved by N(0, 0.05) draws (its output convs start at 1e-10)
+SPATIAL_NCSNPP = ["datamodule.n_traj=5", "datamodule.n_time=9", "datamodule.batch_size=4",
+                  "datamodule.eval_batch_size=2", "module.num_predictions=4", "diffusion.sampling_timesteps=10",
+                  "matmul_precision=highest"]
+SPATIAL_NCSNPP_ROWS = 4  # the forward's and the gradients' rows
+SPATIAL_DDPM = ["datamodule.n_traj=5", "datamodule.n_time=20", "datamodule.batch_size=8",
+                "datamodule.eval_batch_size=2", "diffusion.timesteps=10", "matmul_precision=highest"]
+SPATIAL_DDPM_B1 = 6  # split B1 calls per Unet forward on each rank (mults (1,2,4): 3 downs, 3 ups)
+SPATIAL_LOSS_TOL = 1e-5  # the DDPM train step's loss, relative
+
+
+@contextlib.contextmanager
+def _patched(module, name, value):
+    """``module.name`` set to ``value`` within the block."""
+    saved = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def _spatial_baseline_trainer(preset, overrides, world):
+    """The trainer of ``preset`` at ``overrides`` on ``world`` ranks
+    sharding H (1: the witness); NCSN++'s weights moved off their init by
+    seeded N(0, 0.05) draws, the same on every process."""
+    import torch
+
+    from dyffusion_tpu_torch.config import get_config
+    from dyffusion_tpu_torch.interface import build_trainer
+
+    trainer = build_trainer(get_config(preset, [*overrides, f"trainer.devices={world}",
+                                                f"trainer.spatial_shards={world}", "trainer.spatial_axis=h"]),
+                            device="cuda")
+    if "model.name=ncsnpp" in overrides:
+        gen = torch.Generator().manual_seed(SEED)
+        with torch.no_grad():
+            for p in trainer.experiment.model.parameters():
+                p.add_(0.05 * torch.randn(p.shape, generator=gen).to(p.device))
+    return trainer
+
+
+def _spatial_ncsnpp_forwards(net, world, faults):
+    """``net`` (an NCSN++ for 7 frames after 1 on 64x64) on seeded inputs at
+    SPATIAL_NCSNPP_ROWS rows of the global grid, this rank taking its slab
+    of H, dropout off; then under each of ``faults`` (name -> (module,
+    attribute, value)). This rank's output slab of each, and the sound
+    forward's seconds and peak memory."""
+    import torch
+
+    from dyffusion_tpu_torch.parallel import distributed, spatial
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((SPATIAL_NCSNPP_ROWS, 7, 64, 64), generator=gen, device="cuda")
+    cond = torch.randn((SPATIAL_NCSNPP_ROWS, 1, 64, 64), generator=gen, device="cuda")
+    t = 1000 * torch.rand((SPATIAL_NCSNPP_ROWS,), generator=gen, device="cuda")
+    a, b = spatial.blocks(64, world)[distributed.model_rank()]
+    out, info = {}, {}
+    for name, patch in [("sound", None)] + list(faults.items()):
+        with _patched(*patch) if patch else contextlib.nullcontext():
+            _sync()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with torch.no_grad(), spatial.sharded("h", (64, 64)):
+                y = net(x[:, :, a:b], t, cond[:, :, a:b])
+            _sync()
+        if name == "sound":
+            info = {"seconds": time.perf_counter() - t0, "peak": torch.cuda.max_memory_allocated()}
+        out[name] = y.cpu().numpy()
+    return out, info
+
+
+def spatial_baselines(work, world, rank):
+    """The diffusion baselines of one [spatial] process (sharding H; the
+    witness: one rank). MCVD over NCSN++ at full width: one forward at 4
+    rows, and on two ranks the same with every halo zeroed (the FIR
+    resampling's too) and with the attention over each rank's own tokens;
+    the MCVD loss and its gradients at 4 rows (dropout on), and on two
+    ranks with the halo's backward zeroed; one request of 2 rows x 4
+    members through the 10-step sampler (11 forwards); the SPADE NCSN++
+    forward with the same controls. The DDPM over the SST Unet: one request
+    of 2 rows x 20 members through the 10-step sampler (B1's launches
+    counted from 0), on two ranks again with every draw taken at the
+    slab's shape (the negative control); one train step's loss and
+    gradients at 8 rows. Each with its wall time and peak memory. Arrays
+    and gradients into ``work``; returns the rest."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from dyffusion_tpu_torch.config import get_config
+    from dyffusion_tpu_torch.models import BackboneSpec, build_backbone
+    from dyffusion_tpu_torch.ops import fused_act as fa
+    from dyffusion_tpu_torch.ops import linear_attention as la
+    from dyffusion_tpu_torch.parallel import spatial
+    from dyffusion_tpu_torch.utils import rng
+    from dyffusion_tpu_torch.utils.workloads import ncsnpp_overrides, sst_baseline_overrides
+
+    t0 = time.perf_counter()
+    la.reset_launches()
+    fa.reset_launches()
+
+    def progress(what):
+        print(f"[spatial baselines, rank {rank} of {world}] {what} at {time.perf_counter() - t0:.1f} s", flush=True)
+
+    faults = {} if world == 1 else {"halos zeroed": (spatial, "_halo_all_reduce", lambda buf: buf),
+                                   "attention per rank": (spatial, "gather", lambda x, level: x)}
+    out, arrays, grads = {}, {}, {}
+    trainer = _spatial_baseline_trainer("synthetic_mcvd", ncsnpp_overrides(SPATIAL_NCSNPP), world)
+    n_params = sum(p.numel() for p in trainer.experiment.model.parameters())
+    progress(f"NCSN++ trainer built ({n_params} parameters)")
+    got, out["ncsnpp forward"] = _spatial_ncsnpp_forwards(trainer.experiment.model, world, faults)
+    arrays.update({f"ncsnpp forward|{k}": v for k, v in got.items()})
+    progress("NCSN++ forwards")
+    for name, zeroed in (("sound", False), ("halo backward zeroed", True)):
+        if zeroed and world == 1:
+            continue
+        t = time.perf_counter()
+        grads[f"ncsnpp {name}"] = _spatial_grads(trainer, zeroed, rows=SPATIAL_NCSNPP_ROWS)
+        _sync()
+        out[f"ncsnpp grads {name}"] = {"seconds": time.perf_counter() - t}
+    progress("NCSN++ gradients")
+    _sync()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    got = _spatial_request(trainer)
+    _sync()
+    out["ncsnpp request"] = {"seconds": time.perf_counter() - t, "peak": torch.cuda.max_memory_allocated(),
+                             "members": trainer.experiment.num_members("predict")}
+    arrays.update({f"ncsnpp request|{k}": v for k, v in got.items()})
+    progress("NCSN++ request")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    model_cfg = get_config("synthetic_mcvd", ncsnpp_overrides(["model.name=ncsnpp_spade"]))["model"]
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        spade = build_backbone(model_cfg, BackboneSpec(7, 7, 1, spatial_shape=(64, 64)))
+    gen = torch.Generator().manual_seed(SEED + 1)
+    with torch.no_grad():
+        for p in spade.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    got, out["spade forward"] = _spatial_ncsnpp_forwards(spade.cuda(), world, faults)
+    arrays.update({f"spade forward|{k}": v for k, v in got.items()})
+    del spade
+    gc.collect()
+    torch.cuda.empty_cache()
+    progress("SPADE NCSN++ forwards")
+    launches = {"linear_attention_qkv": la.launches, "linear_attention_core": la.core_launches}
+
+    trainer = _spatial_baseline_trainer("synthetic_ddpm", sst_baseline_overrides(SPATIAL_DDPM), world)
+    requests = [("ddpm request", None)] + [("ddpm request, draws per slab", (rng, "grid_slab", lambda: None))] * (
+        world > 1)
+    for name, patch in requests:
+        la.reset_launches()
+        _sync()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        with _patched(*patch) if patch else contextlib.nullcontext():
+            got = _spatial_request(trainer)
+        _sync()
+        out[name] = {"seconds": time.perf_counter() - t, "peak": torch.cuda.max_memory_allocated(),
+                     "launches": la.launches, "split": la.split_launches,
+                     "members": trainer.experiment.num_members("predict")}
+        arrays.update({f"{name}|{k}": v for k, v in got.items()})
+        progress(name)
+    la.reset_launches()
+    t = time.perf_counter()
+    grads["ddpm"] = _spatial_grads(trainer, False, rows=trainer.datamodule.batch_size)
+    _sync()
+    out["ddpm step"] = {"seconds": time.perf_counter() - t, "launches": la.launches, "split": la.split_launches}
+    progress("DDPM train step")
+    out["ncsnpp launches"] = {**launches, "fused_leaky_relu": fa.launches}  # B2: over all of it
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    np.savez(os.path.join(work, f"baselines{world}_rank{rank}.npz"), **arrays)
+    torch.save(grads, os.path.join(work, f"baselines_grads{world}_rank{rank}.pt"))
+    return out
+
+
+def _spatial_baselines_checks(work, ranks, one, card):
+    """[spatial]'s diffusion baselines, two ranks against the one-rank
+    witness, each answer relative to max|one rank|: the NCSN++ and SPADE
+    NCSN++ forwards within 1e-3, every halo zeroed and the attention per
+    rank each beyond it; the MCVD loss and gradients within 1e-3 (the
+    halo's backward zeroed beyond it); the NCSN++ request within 1e-3; the
+    DDPM request within 1e-3 and its draws at the slab's shape beyond it,
+    B1 6 split calls a forward on each rank (60 a request); the DDPM train
+    step's loss within 1e-5 relative; no B1-B3 launch on the NCSN++ work
+    and no B2 launch at all. Prints the times and each rank's peak memory
+    against the witness's. Returns the two ranks' B1 launches on
+    this path (the sound request and the train step) and the per-request
+    count."""
+    import numpy as np
+    import torch
+
+    base = [r["baselines"] for r in ranks]
+    one = one["baselines"]
+    p1 = dict(np.load(os.path.join(work, "baselines1_rank0.npz")))
+    slabs = [np.load(os.path.join(work, f"baselines2_rank{r}.npz")) for r in range(2)]
+    # the H slabs joined: axis 2 of NCHW and of (members, rows, H, W, C)
+    p2 = {k: np.concatenate([s[k] for s in slabs], axis=2) for k in slabs[0].files}
+    g2 = [torch.load(os.path.join(work, f"baselines_grads2_rank{r}.pt"), weights_only=True) for r in range(2)]
+    g1 = torch.load(os.path.join(work, "baselines_grads1_rank0.pt"), weights_only=True)
+
+    def rel(name2, name1):
+        keys = [k for k in p1 if k.startswith(f"{name1}|")]
+        assert keys, name1
+        return max(float(np.abs(p2[k.replace(name1, name2, 1)] - p1[k]).max()) / float(np.abs(p1[k]).max())
+                   for k in keys)
+
+    def peaks(name):
+        return f"one rank {one[name]['peak'] / 2**30:.3f} GiB, two ranks " + ", ".join(
+            f"{b[name]['peak'] / 2**30:.3f} GiB ({b[name]['peak'] / one[name]['peak']:.3f}x)" for b in base)
+
+    def seconds(name):
+        return f"one rank {one[name]['seconds']:.2f} s, two ranks {[round(b[name]['seconds'], 2) for b in base]} s"
+
+    for net in ("ncsnpp", "spade"):
+        want = p1[f"{net} forward|sound"]
+        fwd = {k: float(np.abs(p2[f"{net} forward|{k}"] - want).max()) / float(np.abs(want).max())
+               for k in ("sound", "halos zeroed", "attention per rank")}
+        print(f"[spatial] {'SPADE ' if net == 'spade' else ''}NCSN++ at full width (nf 64, mults (1,2,3,4), 64x64 "
+              f"split on H, f32, dropout off): one forward at {SPATIAL_NCSNPP_ROWS} rows, two ranks vs one, rel. to "
+              f"max|one rank|: {fwd['sound']:.3e} (limit {SPATIAL_TOL}); every halo zeroed {fwd['halos zeroed']:.3e}, "
+              f"the attention per rank {fwd['attention per rank']:.3e} (each must exceed it); "
+              f"{seconds(f'{net} forward')}, peak {peaks(f'{net} forward')}; on {card}")
+        assert np.isfinite(want).all() and fwd["sound"] <= SPATIAL_TOL, \
+            f"the sharded {net} forward disagrees"
+        assert fwd["halos zeroed"] > SPATIAL_TOL and fwd["attention per rank"] > SPATIAL_TOL, \
+            f"a control of the {net} forward passes the check: it does not bite"
+    assert all(torch.equal(g2[1][n]["grads"][k], v) for n in g2[0] for k, v in g2[0][n]["grads"].items()), \
+        "the two ranks hold different summed gradients"
+    errs = {n: (abs(g2[0][f"ncsnpp {n}"]["loss"] - g1["ncsnpp sound"]["loss"]) / abs(g1["ncsnpp sound"]["loss"]),
+                _max_rel(g2[0][f"ncsnpp {n}"]["grads"], g1["ncsnpp sound"]["grads"]))
+            for n in ("sound", "halo backward zeroed")}
+    print(f"[spatial] MCVD over NCSN++: the loss and its {len(g1['ncsnpp sound']['grads'])} gradients at "
+          f"{SPATIAL_NCSNPP_ROWS} rows (dropout 0.1 on), two ranks vs one (loss rel., gradients rel. to scale): "
+          f"{errs['sound'][0]:.3e}, {errs['sound'][1]:.3e} (limit {SPATIAL_TOL}); the halo's backward zeroed "
+          f"{errs['halo backward zeroed'][0]:.3e}, {errs['halo backward zeroed'][1]:.3e} (must exceed it); "
+          f"{seconds('ncsnpp grads sound')}; on {card}")
+    assert max(errs["sound"]) <= SPATIAL_TOL, "the sharded NCSN++ gradients disagree"
+    assert errs["halo backward zeroed"][1] > SPATIAL_TOL, "the NCSN++ halo backward's control does not bite"
+    req = rel("ncsnpp request", "ncsnpp request")
+    print(f"[spatial] MCVD over NCSN++, one request of 2 rows x {one['ncsnpp request']['members']} members through "
+          f"the 10-step sampler (11 forwards), two ranks vs one, rel. to max|one rank|: {req:.3e} (limit "
+          f"{SPATIAL_TOL}); {seconds('ncsnpp request')}, peak {peaks('ncsnpp request')}; on {card}")
+    assert req <= SPATIAL_TOL, "the sharded NCSN++ request disagrees"
+    ddpm, own = rel("ddpm request", "ddpm request"), rel("ddpm request, draws per slab", "ddpm request")
+    b1 = [(b["ddpm request"]["launches"], b["ddpm request"]["split"]) for b in base]
+    loss = abs(g2[0]["ddpm"]["loss"] - g1["ddpm"]["loss"]) / abs(g1["ddpm"]["loss"])
+    print(f"[spatial] DDPM over the SST Unet (60x60 split on H, dim 64, mults (1,2,4)), one request of 2 rows x "
+          f"{one['ddpm request']['members']} members through the 10-step sampler, two ranks vs one, rel. to "
+          f"max|one rank|: {ddpm:.3e} (limit {SPATIAL_TOL}); each rank drawing at its slab's shape {own:.3e} "
+          f"(must exceed it); {seconds('ddpm request')}, peak {peaks('ddpm request')}; B1 one rank "
+          f"{one['ddpm request']['launches']}, two ranks {b1} "
+          f"(all, split); one train step at B8: loss {g1['ddpm']['loss']:.7f}, two ranks rel. {loss:.3e} (limit "
+          f"{SPATIAL_LOSS_TOL}), gradients {_max_rel(g2[0]['ddpm']['grads'], g1['ddpm']['grads']):.3e}; "
+          f"{seconds('ddpm step')}; on {card}")
+    assert ddpm <= SPATIAL_TOL and own > SPATIAL_TOL, "the sharded DDPM request disagrees, or its control passes"
+    assert loss <= SPATIAL_LOSS_TOL, "the sharded DDPM train step's loss disagrees"
+    per_request = 10 * SPATIAL_DDPM_B1
+    launches = [b["ncsnpp launches"] for b in base] + [one["ncsnpp launches"]]
+    print(f"[spatial] kernel launches on the NCSN++ work (B2 over all of the baselines' work), each process: "
+          f"{launches}")
+    assert not any(v for c in launches for v in c.values()), f"a kernel launched on the NCSN++ work: {launches}"
+    assert one["ddpm request"]["launches"] == per_request and one["ddpm request"]["split"] == 0, one["ddpm request"]
+    for b in base:
+        assert b["ddpm request"]["launches"] == b["ddpm request"]["split"] == per_request, b["ddpm request"]
+        assert b["ddpm step"]["launches"] == b["ddpm step"]["split"] == SPATIAL_DDPM_B1, b["ddpm step"]
+    return sum(b["ddpm request"]["launches"] + b["ddpm step"]["launches"] for b in base), per_request
+
+
+def spatial_rank_main(work, only=None):
     """One process of ``[spatial]`` (a rank of the two-rank group, or the
     one-rank witness with WORLD_SIZE=1): each of :func:`_spatial_commands`,
     a request (:func:`_spatial_request`), the forward
@@ -3812,8 +4120,9 @@ def spatial_rank_main(work, physical_only=False):
     workload's dropout, stage 2's gradients at 16 rows
     (:func:`_spatial_grads`, sound and, on two ranks, with the halo's
     backward zeroed) and each stage's train steps
-    (:func:`_spatial_train_steps`); results in ``work``. With
-    ``physical_only``, :func:`spatial_physical` alone."""
+    (:func:`_spatial_train_steps`); results in ``work``. First of all
+    :func:`spatial_physical`, then :func:`spatial_baselines`; ``only``
+    ('physical' or 'baselines') runs that one alone."""
     import gc
 
     import numpy as np
@@ -3829,10 +4138,11 @@ def spatial_rank_main(work, physical_only=False):
     rank = int(os.environ.get("RANK", "0"))
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    physical = spatial_physical(work, spec["physical"], world, rank)
-    if physical_only:
+    physical = spatial_physical(work, spec["physical"], world, rank) if only in (None, "physical") else None
+    baselines = spatial_baselines(work, world, rank) if only in (None, "baselines") else None
+    if only is not None:
         with open(os.path.join(work, f"spatial{world}_rank{rank}.json"), "w") as f:
-            json.dump({"physical": physical}, f)
+            json.dump({"physical": physical, "baselines": baselines}, f)
         if distributed.active():
             torch.distributed.destroy_process_group()
         return 0
@@ -3924,7 +4234,8 @@ def spatial_rank_main(work, physical_only=False):
             _sync()
             round_trip[where] = (time.perf_counter() - t) / 200
     with open(os.path.join(work, f"spatial{world}_rank{rank}.json"), "w") as f:
-        json.dump({"commands": out, "train": train, "physical": physical, "draw_s": draws, "backend": distributed.backend(),
+        json.dump({"commands": out, "train": train, "physical": physical, "baselines": baselines, "draw_s": draws,
+                   "backend": distributed.backend(),
                    "model_size": distributed.model_size(), "all_reduce_s": round_trip, "history": history}, f)
     distributed.barrier()
     if distributed.active():
@@ -4049,21 +4360,25 @@ def _spatial_start(work, flag):
     return procs
 
 
-def phase_spatial_physical(card):
-    """``[spatial]``'s physical systems alone, in its three processes
-    (``chip_smoke.py --spatial-physical-rank``): :func:`spatial_physical`
-    and :func:`_spatial_physical_checks`."""
+def phase_spatial_part(card, part):
+    """One part of ``[spatial]`` alone, in its three processes
+    (``chip_smoke.py --spatial-physical-rank`` or ``--spatial-baselines-rank``):
+    the physical systems (:func:`spatial_physical`,
+    :func:`_spatial_physical_checks`) or the diffusion baselines
+    (:func:`spatial_baselines`, :func:`_spatial_baselines_checks`; returns
+    theirs)."""
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_spatial_physical_") as work:
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_spatial_{part}_") as work:
         with open(os.path.join(work, "spatial.json"), "w") as f:
-            json.dump({"physical": _spatial_physical_archives(work)}, f)
+            json.dump({"physical": _spatial_physical_archives(work) if part == "physical" else None}, f)
         t = time.perf_counter()
-        seconds = _ddp_finish(work, _spatial_start(work, "--spatial-physical-rank"), t)
+        seconds = _ddp_finish(work, _spatial_start(work, f"--spatial-{part}-rank"), t)
         ranks = [json.load(open(os.path.join(work, f"spatial2_rank{r}.json"))) for r in range(2)]
         one = json.load(open(os.path.join(work, "spatial1_rank0.json")))
-        _spatial_physical_checks(work, ranks, one, card)
+        checks = (_spatial_physical_checks if part == "physical" else _spatial_baselines_checks)(work, ranks, one, card)
     print(f"[spatial] processes: {json.dumps({k: round(v, 1) for k, v in seconds.items()})} s (sharing the card); "
           f"phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return checks
 
 
 def phase_spatial(card, reg=None, ids=None):
@@ -4097,9 +4412,12 @@ def phase_spatial(card, reg=None, ids=None):
     witness's; the CLI's two-rank training within 1e-3 of the witness in
     every logged loss and within 1e-2 of its change in the final weights.
     Before all of it, in the same processes, the physical systems
-    (:func:`spatial_physical`, :func:`_spatial_physical_checks`); the CLI's
-    ``mode=test`` starts once they are done. Returns the two ranks' B1
-    launches, the per-request count and the split kernel's times."""
+    (:func:`spatial_physical`, :func:`_spatial_physical_checks`), then the
+    diffusion baselines (:func:`spatial_baselines`,
+    :func:`_spatial_baselines_checks`); the CLI's ``mode=test`` starts once
+    the physical systems are done. Returns the two ranks' B1 launches, the
+    per-request count, the split kernel's times and the baselines' B1
+    launches and per-request count."""
     import gc
 
     import numpy as np
@@ -4155,6 +4473,7 @@ def phase_spatial(card, reg=None, ids=None):
         grads = {r: torch.load(os.path.join(work, f"grads2_rank{r}.pt"), weights_only=True) for r in range(2)}
         grads["one"] = torch.load(os.path.join(work, "grads1_rank0.pt"), weights_only=True)
         _spatial_physical_checks(work, ranks, one, card)
+        baselines = _spatial_baselines_checks(work, ranks, one, card)
         with open(os.path.join(work, "cli_w.log")) as f:
             cli_w = [json.loads(x) for x in f if x.startswith('{"test/')][-1]
         slabs = [np.load(os.path.join(work, f"out2_rank{r}.npz")) for r in range(2)]
@@ -4295,7 +4614,7 @@ def phase_spatial(card, reg=None, ids=None):
           f"{time.perf_counter() - t_phase:.1f} s")
     launches = sum(c["launches"] for r in ranks for c in r["commands"].values())
     launches += sum(c["launches"] for r in ranks for steps in r["train"].values() for c in steps)
-    return launches, per_request, times
+    return launches, per_request, times, baselines
 
 
 def main(argv) -> int:
@@ -4309,19 +4628,23 @@ def main(argv) -> int:
         return ddp_witness_main(argv[1])
     if len(argv) == 2 and argv[0] == "--spatial-rank":  # a rank (or the witness) of [spatial]
         return spatial_rank_main(argv[1])
-    if len(argv) == 2 and argv[0] == "--spatial-physical-rank":  # the same, its physical systems alone
-        return spatial_rank_main(argv[1], physical_only=True)
+    if len(argv) == 2 and argv[0] in ("--spatial-physical-rank", "--spatial-baselines-rank"):  # one part alone
+        return spatial_rank_main(argv[1], only=argv[0].split("-")[3])
     modes = ([], ["--profile"], ["--kernels"], ["--physical"], ["--baselines"], ["--ncsnpp"], ["--export"], ["--oisst"],
-             ["--members"], ["--ddp"], ["--spatial"], ["--spatial-physical"])
+             ["--members"], ["--ddp"], ["--spatial"], ["--spatial-physical"], ["--spatial-baselines"])
     if argv not in modes:
         raise SystemExit(
             "usage: python3 chip_smoke.py [--profile | --kernels | --physical | --baselines | --ncsnpp | --export "
-            "| --oisst | --members | --ddp | --spatial | --spatial-physical]")
+            "| --oisst | --members | --ddp | --spatial | --spatial-physical | --spatial-baselines]")
     name, smi = phase_device()
     if argv == ["--spatial-physical"]:  # no kernel runs on these paths
-        phase_spatial_physical(smi)
+        phase_spatial_part(smi, "physical")
         return 0
     phase_build()
+    if argv == ["--spatial-baselines"]:
+        _spatial_b1_check()
+        phase_spatial_part(smi, "baselines")
+        return 0
     if argv == ["--spatial"]:
         phase_spatial(smi)
         return 0
@@ -4399,7 +4722,7 @@ def main(argv) -> int:
     members, members_per_request = phase_members(smi)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_") as work:
         ddp = phase_ddp(smi, work)  # [spatial] tests [ddp]'s one-rank stage-2 run
-        spatial, spatial_per_request, spatial_times = phase_spatial(
+        spatial, spatial_per_request, spatial_times, (spatial_baselines, baselines_per_request) = phase_spatial(
             smi, os.path.join(work, "registry1"), _ddp_commands(os.path.join(work, "registry1"), 1)[1:])
     # B1's top-level numbers are the [train] path's (this slice's main path);
     # by_path keeps each path's own count, read after setting it to 0.
@@ -4418,7 +4741,8 @@ def main(argv) -> int:
                      "members": {"launches": members, "per_request": members_per_request},
                      "ddp": {"launches": ddp},
                      "spatial": {"launches": spatial, "per_request": spatial_per_request,
-                                 "split_per_rank": spatial_times}}},
+                                 "split_per_rank": spatial_times},
+                     "spatial_baselines": {"launches": spatial_baselines, "per_request": baselines_per_request}}},
         {"name": "fused_leaky_relu", "route": "cuda", "source": fa.SOURCE, "replaces": fa.REPLACES,
          "launches": op_launches["fused_leaky_relu"], **b2, "library_ms": None,
          "by_path": {p: {"launches": c["fused_leaky_relu"]} for p, c in {**physical, "ncsnpp": ncsnpp}.items()}},

@@ -65,6 +65,13 @@ class BufferTable:
         return float(self.host[name][t])
 
 
+def initial_shape(sample_shape: Sequence[int], condition: torch.Tensor) -> Tuple[int, ...]:
+    """The shape of a sampler's initial draw: one sample of ``sample_shape``
+    (C, H, W) per row of ``condition``, on the condition's grid, which is
+    the sample's (under a shard the rank's slab of it)."""
+    return (condition.shape[0],) + tuple(sample_shape[:-2]) + tuple(condition.shape[-2:])
+
+
 @dataclass(frozen=True)
 class GaussianDiffusionConfig:
     timesteps: int = 1000
@@ -140,8 +147,10 @@ class GaussianDiffusionEngine:
         self._posterior_std = np.exp(f32(0.5) * lv).astype(np.float32)
 
     def draw(self, shape: Sequence[int], generator: Optional[torch.Generator], device: torch.device) -> torch.Tensor:
-        """A standard-normal f32 tensor: every random tensor of the engine."""
-        return rng.row_randn(shape, generator, device)
+        """A standard-normal f32 tensor: every random tensor of the engine,
+        each over the sample's grid (under a shard the rank's slab of the
+        global draw, ``utils.rng.spatial_shard``)."""
+        return rng.row_randn(shape, generator, device, grid=True)
 
     def draw_steps(self, n: int, generator: Optional[torch.Generator], device: torch.device) -> torch.Tensor:
         """The loss's per-row steps t ~ U{0..T-1}: the engine's only other random draw."""
@@ -204,7 +213,7 @@ class GaussianDiffusionEngine:
 
     # ---- sampling ----
     def _init(self, generator, condition) -> torch.Tensor:
-        return self.draw((condition.shape[0],) + self.sample_shape, generator, condition.device)
+        return self.draw(initial_shape(self.sample_shape, condition), generator, condition.device)
 
     def p_sample_loop(self, params: Params, generator: Optional[torch.Generator], condition: torch.Tensor) -> torch.Tensor:
         """The ancestral sampler over all T steps, T-1 down to 0."""

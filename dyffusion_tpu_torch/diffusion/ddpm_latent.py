@@ -31,7 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from dyffusion_tpu_torch.diffusion.ddpm import BufferTable
+from dyffusion_tpu_torch.diffusion.ddpm import BufferTable, initial_shape
 from dyffusion_tpu_torch.diffusion.schedules import make_beta_schedule
 from dyffusion_tpu_torch.models.base import apply_model
 from dyffusion_tpu_torch.utils import rng
@@ -126,8 +126,10 @@ class LatentDDPMEngine:
         return torch.full((self.num_timesteps,), float(self.cfg.logvar_init), dtype=torch.float32)
 
     def draw(self, shape: Sequence[int], generator: Optional[torch.Generator], device: torch.device) -> torch.Tensor:
-        """A standard-normal f32 tensor: every random tensor of the engine."""
-        return rng.row_randn(shape, generator, device)
+        """A standard-normal f32 tensor: every random tensor of the engine,
+        each over the sample's grid (under a shard the rank's slab of the
+        global draw, ``utils.rng.spatial_shard``)."""
+        return rng.row_randn(shape, generator, device, grid=True)
 
     def draw_steps(self, n: int, generator: Optional[torch.Generator], device: torch.device) -> torch.Tensor:
         """The loss's per-row steps t ~ U{0..T-1}: the engine's only other random draw."""
@@ -188,7 +190,7 @@ class LatentDDPMEngine:
         cfg, b = self.cfg, self.buffers
         B = condition.shape[0]
         T = self.num_timesteps
-        img = self.draw((B,) + self.sample_shape, generator, condition.device)
+        img = self.draw(initial_shape(self.sample_shape, condition), generator, condition.device)
         inter = [img] if return_intermediates else None
         lg = max(int(log_every_t), 1)
         for t in range(T - 1, -1, -1):

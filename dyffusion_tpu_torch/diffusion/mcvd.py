@@ -39,7 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from dyffusion_tpu_torch.diffusion.ddpm import BufferTable
+from dyffusion_tpu_torch.diffusion.ddpm import BufferTable, initial_shape
 from dyffusion_tpu_torch.models.base import apply_model
 from dyffusion_tpu_torch.utils import rng
 from dyffusion_tpu_torch.utils.loss import mse_loss
@@ -131,14 +131,15 @@ class McvdEngine:
         device: torch.device,
         concentration: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        """Every random tensor of the engine: standard normal (f32), or,
-        with ``concentration`` (broadcast to ``shape``), standard Gamma
-        draws of that shape parameter (scale 1). The normal draws of a
-        data-parallel train step are the global batch's
-        (``utils.rng.row_shard``); the Gamma draws are each rank's own."""
+        """Every random tensor of the engine, each over a grid: standard
+        normal (f32), or, with ``concentration`` (a scalar or one per row),
+        standard Gamma draws of that shape parameter (scale 1). Both are
+        the global batch's in a data-parallel train step
+        (``utils.rng.row_shard``) and the rank's slab of the global grid's
+        under a shard (``utils.rng.spatial_shard``)."""
         if concentration is None:
-            return rng.row_randn(shape, generator, device)
-        return rng.standard_gamma(concentration.expand(tuple(shape)).contiguous(), generator)
+            return rng.row_randn(shape, generator, device, grid=True)
+        return rng.row_gamma(concentration, shape, generator, device, grid=True)
 
     def draw_steps(self, n: int, generator: Optional[torch.Generator], device: torch.device) -> torch.Tensor:
         """The loss's per-row steps t ~ U{0..T-1}: the engine's only other random draw."""
@@ -207,7 +208,7 @@ class McvdEngine:
         return steps, alphas, alphas_prev, betas
 
     def _init_sample(self, generator, condition) -> torch.Tensor:
-        shape = (condition.shape[0],) + self.sample_shape
+        shape = initial_shape(self.sample_shape, condition)
         if self.cfg.gamma:  # shifted to mean 0, not scaled
             k0 = float(self.buffers.host["k_cum"][0])
             th0 = float(self.buffers.host["theta_t"][0])
@@ -325,8 +326,9 @@ Draw = Callable[[Sequence[int], Optional[torch.Generator], torch.device], torch.
 
 
 def normal_draw(shape: Sequence[int], generator: Optional[torch.Generator], device: torch.device) -> torch.Tensor:
-    """The Langevin functions' default draw: standard normal f32."""
-    return rng.randn(shape, generator, device)
+    """The Langevin functions' default draw: standard normal f32 over a
+    grid (under a shard the rank's slab of the global draw)."""
+    return rng.grid_randn(shape, generator, device)
 
 
 def _score(scorenet: nn.Module, params: Params, x: torch.Tensor, t, condition) -> torch.Tensor:

@@ -37,7 +37,6 @@ import torch
 
 from dyffusion_tpu_torch.experiments.base import Experiment, cast_params, stack_window
 from dyffusion_tpu_torch.models.base import MODEL_STATE_UPDATES, apply_model, apply_model_train
-from dyffusion_tpu_torch.parallel import spatial
 from dyffusion_tpu_torch.utils import rng
 from dyffusion_tpu_torch.utils.loss import get_loss_fn
 
@@ -408,8 +407,6 @@ class SimultaneousForecastingExperiment(ForecastingExperiment):
             static = self.static_condition(batch)
             engine = self.diffusion_engine
             if engine is not None:
-                # its noise is drawn at the rank's slab, not sliced from the global draw
-                spatial.refuse(f"training the {type(engine).__name__}", spatial.BACKBONES)
                 cond = self.diffusion_condition(inputs, static)
                 logvar = self.logvar(params)
                 if logvar is not None:
@@ -436,7 +433,6 @@ class SimultaneousForecastingExperiment(ForecastingExperiment):
 
             def window(x, sc, g):
                 if self.diffusion_engine is not None:
-                    spatial.refuse(f"the {type(self.diffusion_engine).__name__} sampler", spatial.BACKBONES)
                     out = self.diffusion_engine.sample(p, g, self.diffusion_condition(x, sc))
                 else:
                     out = apply_model(self.model, p, x, None, sc, g if use_dropout else None)

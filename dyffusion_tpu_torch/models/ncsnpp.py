@@ -19,6 +19,17 @@ the exception, see :mod:`dyffusion_tpu_torch.models.convert`.
 (:func:`dyffusion_tpu_torch.models.unet.remat_call`). The FIR resampling is
 :mod:`dyffusion_tpu_torch.ops.upfirdn2d`; the attention is plain matmuls
 and a softmax, as the JAX package computes it outside Pallas.
+
+Inside ``parallel.spatial.sharded`` the same ladder runs on this rank's
+slab of the grid, every block given the ``level`` of its input (``None``
+on one device): the 3 x 3 convs through their halos, the GroupNorms'
+moments over the model group, the FIR resampling (``spatial.fir_upsample``
+and the fused ``upsample_conv_fir``, their downs) on the rows their output
+block reads, the attention of this rank's queries against every rank's
+keys and values, dropout on the slab of the global mask, and the SPADE
+maps resized from this rank's slab of the global condition (taps from
+global coordinates). The 1 x 1 convs, NINs, dense layers and SiLUs stay
+local.
 """
 from __future__ import annotations
 
@@ -57,6 +68,34 @@ def ddpm_dense(c_in: int, c_out: int, init_scale: float = 1.0) -> PromotingLinea
     _init(dense.weight, init_scale, c_in, c_out)
     nn.init.zeros_(dense.bias)
     return dense
+
+
+def _conv(conv: nn.Conv2d, x: torch.Tensor, level: Optional[spatial.Level]) -> torch.Tensor:
+    """A square 'same' conv of ``x``: the module on one device (``level``
+    None) or for a 1 x 1 conv, else through the level's halo."""
+    if level is None or conv.kernel_size[0] == 1:
+        return conv(x)
+    return spatial.conv2d(x, conv.weight, conv.bias, level, padding=conv.padding[0])[0]
+
+
+def _norm(norm: nn.GroupNorm, x: torch.Tensor, level: Optional[spatial.Level]) -> torch.Tensor:
+    """A GroupNorm of ``x``: over the whole grid, the moments of a slab
+    summed over the model group (``spatial.group_norm``)."""
+    if level is None:
+        return norm(x)
+    return spatial.group_norm(x, norm.num_groups, norm.weight, norm.bias, norm.eps, level)
+
+
+def _slab(level: Optional[spatial.Level]):
+    return None if level is None else level.slab
+
+
+def _fir_level(level: Optional[spatial.Level], up: bool) -> Optional[spatial.Level]:
+    """The level after a x2 FIR resample of ``level`` (up or down; the
+    fused conv resamplers give the same extents)."""
+    if level is None:
+        return None
+    return spatial.upfirdn_level(level, len(FIR_KERNEL), 2 if up else 1, 1 if up else 2, (2, 1) if up else (1, 1))
 
 
 def _groups(ch: int) -> int:
@@ -116,8 +155,9 @@ class ActNorm(nn.Module):
         self.Norm_0 = nn.GroupNorm(_groups(ch), ch, eps=1e-5, affine=temb_dim is None)
         self.Dense_0 = ddpm_dense(temb_dim, 2 * ch) if temb_dim is not None else None
 
-    def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor]) -> torch.Tensor:
-        h = self.Norm_0(x)
+    def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor],
+                level: Optional[spatial.Level] = None) -> torch.Tensor:
+        h = _norm(self.Norm_0, x, level)
         if self.Dense_0 is not None:
             scale, shift = self.Dense_0(F.silu(temb))[:, :, None, None].chunk(2, dim=1)
             h = h * (1.0 + scale.to(h.dtype)) + shift.to(h.dtype)
@@ -139,12 +179,17 @@ class AttnBlockpp(nn.Module):
         self.n_heads = max(channels // n_head_channels, 1)
         self.skip_rescale = skip_rescale
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                level: Optional[spatial.Level] = None) -> torch.Tensor:
         B, C, H, W = x.shape
         nh = self.n_heads
         dh = C // nh
-        h = self.GroupNorm_0(x)
-        q, k, v = (nin(h).reshape(B, nh, dh, H * W) for nin in (self.NIN_0, self.NIN_1, self.NIN_2))
+        h = _norm(self.GroupNorm_0, x, level)
+        q = self.NIN_0(h).reshape(B, nh, dh, H * W)
+        kv = torch.stack([self.NIN_1(h), self.NIN_2(h)], dim=1)
+        if level is not None:  # this rank's queries against every rank's keys and values
+            kv = spatial.gather(kv, level)
+        k, v = kv.reshape(B, 2, nh, dh, -1).unbind(1)
         sim = torch.matmul(q.transpose(-1, -2), k) / math.sqrt(dh)
         attn = torch.softmax(sim, dim=-1)
         out = torch.matmul(attn, v.transpose(-1, -2))  # (B, nh, N, dh)
@@ -162,10 +207,15 @@ class Resample(nn.Module):
         self.up = up
         self.Conv2d_0 = ddpm_conv(c_in, c_out, 3) if with_conv else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, level: Optional[spatial.Level] = None) -> torch.Tensor:
         if self.Conv2d_0 is None:
+            if level is not None:
+                return (spatial.fir_upsample if self.up else spatial.fir_downsample)(x, FIR_KERNEL, level)[0]
             return upsample_2d(x, FIR_KERNEL) if self.up else downsample_2d(x, FIR_KERNEL)
         w, b = self.Conv2d_0.weight, self.Conv2d_0.bias[:, None, None]
+        if level is not None:
+            op = spatial.upsample_conv_fir if self.up else spatial.conv_downsample_fir
+            return op(x, w, FIR_KERNEL, level)[0] + b
         if self.up:
             return upsample_conv_2d(x, w, FIR_KERNEL) + b
         return conv_downsample_2d(x, w, FIR_KERNEL) + b
@@ -175,13 +225,16 @@ def _skip_sum(x: torch.Tensor, h: torch.Tensor, skip_rescale: bool) -> torch.Ten
     return (x + h) / math.sqrt(2.0) if skip_rescale else x + h
 
 
-def _resample_both(h, x, up: bool, down: bool):
-    """FIR-resample the residual path and the skip path alike."""
-    if up:
-        return upsample_2d(h, FIR_KERNEL), upsample_2d(x, FIR_KERNEL)
-    if down:
-        return downsample_2d(h, FIR_KERNEL), downsample_2d(x, FIR_KERNEL)
-    return h, x
+def _resample_both(h, x, up: bool, down: bool, level: Optional[spatial.Level] = None):
+    """FIR-resample the residual path and the skip path alike; the level
+    after it."""
+    if not (up or down):
+        return h, x, level
+    if level is not None:
+        op = spatial.fir_upsample if up else spatial.fir_downsample
+        return op(h, FIR_KERNEL, level)[0], op(x, FIR_KERNEL, level)[0], _fir_level(level, up)
+    op = upsample_2d if up else downsample_2d
+    return op(h, FIR_KERNEL), op(x, FIR_KERNEL), None
 
 
 class ResnetBlockBigGAN(nn.Module):
@@ -199,11 +252,11 @@ class ResnetBlockBigGAN(nn.Module):
         self.Conv_2 = ddpm_conv(in_ch, out_ch, 1) if in_ch != out_ch or up or down else None
         self.up, self.down, self.p, self.skip_rescale = up, down, float(dropout), skip_rescale
 
-    def forward(self, x, temb=None, generator=None):
-        h = self.actnorm0(x, temb)
-        h, x = _resample_both(h, x, self.up, self.down)
-        h = self.actnorm1(self.Conv_0(h), temb)
-        h = self.Conv_1(dropout(h, self.p, generator))
+    def forward(self, x, temb=None, generator=None, level=None):
+        h = self.actnorm0(x, temb, level)
+        h, x, level = _resample_both(h, x, self.up, self.down, level)
+        h = self.actnorm1(_conv(self.Conv_0, h, level), temb, level)
+        h = _conv(self.Conv_1, dropout(h, self.p, generator, _slab(level)), level)
         if self.Conv_2 is not None:
             x = self.Conv_2(x)
         return _skip_sum(x, h, self.skip_rescale)
@@ -225,12 +278,12 @@ class ResnetBlockDDPM(nn.Module):
         self.NIN_0 = NIN(in_ch, out_ch) if in_ch != out_ch else None
         self.p, self.skip_rescale = float(dropout), skip_rescale
 
-    def forward(self, x, temb=None, generator=None):
-        h = self.Conv_0(F.silu(self.GroupNorm_0(x)))
+    def forward(self, x, temb=None, generator=None, level=None):
+        h = _conv(self.Conv_0, F.silu(_norm(self.GroupNorm_0, x, level)), level)
         if self.Dense_0 is not None and temb is not None:
             h = h + self.Dense_0(F.silu(temb))[:, :, None, None].to(h.dtype)
-        h = F.silu(self.GroupNorm_1(h))
-        h = self.Conv_1(dropout(h, self.p, generator))
+        h = F.silu(_norm(self.GroupNorm_1, h, level))
+        h = _conv(self.Conv_1, dropout(h, self.p, generator, _slab(level)), level)
         if self.NIN_0 is not None:
             x = self.NIN_0(x)
         return _skip_sum(x, h, self.skip_rescale)
@@ -256,11 +309,20 @@ class MySPADE(nn.Module):
         self.mlp_gamma = ddpm_conv(spade_dim, ch, 3)
         self.mlp_beta = ddpm_conv(spade_dim, ch, 3)
 
-    def forward(self, x: torch.Tensor, segmap: torch.Tensor) -> torch.Tensor:
-        h = self.param_free_norm(x)
-        seg = torch_nearest_resize(segmap, x.shape[-2:]).to(h.dtype)
-        actv = self.mlp_shared(seg)
-        return h * (1.0 + self.mlp_gamma(actv)) + self.mlp_beta(actv)
+    def forward(self, x: torch.Tensor, segmap: torch.Tensor, seg_level: Optional[spatial.Level] = None,
+                level: Optional[spatial.Level] = None) -> torch.Tensor:
+        """``segmap`` on one device; on a slab of ``level``, this rank's
+        slab of the global condition, of ``seg_level``."""
+        h = _norm(self.param_free_norm, x, level)
+        if level is None:
+            seg = torch_nearest_resize(segmap, x.shape[-2:])
+        elif (seg_level.total, seg_level.other) == (level.total, level.other):
+            seg = segmap
+        else:
+            size = (level.total, level.other) if level.dim == -2 else (level.other, level.total)
+            seg = spatial.resize(segmap, seg_level, size, "nearest")[0]
+        actv = self.mlp_shared[1](_conv(self.mlp_shared[0], seg.to(h.dtype), level))
+        return h * (1.0 + _conv(self.mlp_gamma, actv, level)) + _conv(self.mlp_beta, actv, level)
 
 
 class SPADEActNorm(nn.Module):
@@ -272,8 +334,8 @@ class SPADEActNorm(nn.Module):
         self.Norm_0 = MySPADE(ch, cond_ch, spade_dim)
         self.Dense_0 = ddpm_dense(temb_dim, 2 * ch) if temb_dim is not None else None
 
-    def forward(self, x, temb, cond):
-        h = self.Norm_0(x, cond)
+    def forward(self, x, temb, cond, cond_level=None, level=None):
+        h = self.Norm_0(x, cond, cond_level, level)
         if self.Dense_0 is not None and temb is not None:
             scale, shift = self.Dense_0(F.silu(temb))[:, :, None, None].chunk(2, dim=1)
             h = h * (1.0 + scale.to(h.dtype)) + shift.to(h.dtype)
@@ -294,11 +356,12 @@ class ResnetBlockBigGANSPADE(nn.Module):
         self.Conv_2 = ddpm_conv(in_ch, out_ch, 1) if in_ch != out_ch or up or down else None
         self.up, self.down, self.p, self.skip_rescale = up, down, float(dropout), skip_rescale
 
-    def forward(self, x, temb, cond, generator=None):
-        h = self.actnorm0(x, temb, cond)
-        h, x = _resample_both(h, x, self.up, self.down)
-        h = self.actnorm1(self.Conv_0(h), temb, cond)
-        h = self.Conv_1(dropout(h, self.p, generator))
+    def forward(self, x, temb, cond, cond_level=None, generator=None, level=None):
+        """``cond_level``: the level of ``cond`` under a shard (else None)."""
+        h = self.actnorm0(x, temb, cond, cond_level, level)
+        h, x, level = _resample_both(h, x, self.up, self.down, level)
+        h = self.actnorm1(_conv(self.Conv_0, h, level), temb, cond, cond_level, level)
+        h = _conv(self.Conv_1, dropout(h, self.p, generator, _slab(level)), level)
         if self.Conv_2 is not None:
             x = self.Conv_2(x)
         return _skip_sum(x, h, self.skip_rescale)
@@ -356,10 +419,12 @@ class _NCSNppBase(nn.Module):
         self.n_res, self.all_res = n_res, all_res
         self.num_res_blocks, self.attn_resolutions = num_res_blocks, tuple(attn_resolutions)
 
-    def _call(self, block: nn.Module, generator, *args) -> torch.Tensor:
+    def _call(self, block: nn.Module, generator, level: Optional[spatial.Level], *args) -> torch.Tensor:
+        """``block(*args, generator, level)``, checkpointed under remat when
+        gradients are being recorded."""
         if self.remat and torch.is_grad_enabled():
-            return remat_call(block, generator, *args)
-        return block(*args, generator)
+            return remat_call(block, generator, *args, level=level)
+        return block(*args, generator, level)
 
     def _temb(self, emb: Optional[torch.Tensor], x: torch.Tensor, cond_mask, modules: Iterator[nn.Module]):
         if emb is None:
@@ -373,33 +438,37 @@ class _NCSNppBase(nn.Module):
             temb = torch.cat([temb.to(dt), cemb.to(dt)], dim=-1)
         return temb
 
-    def _ladder(self, h, temb, modules: Iterator[nn.Module], block_args, generator, resample):
-        """conv_in through the last up block; ``block_args`` follow h and
-        temb into every residual block, ``resample(module, h)`` runs a
-        resampling entry."""
-        g = generator
-        h = next(modules)(h)
+    def _ladder(self, h, temb, modules: Iterator[nn.Module], block_args, generator, resample,
+                level: Optional[spatial.Level]):
+        """conv_in through the last up block, from the top ``level`` (None
+        on one device) and back to it; ``block_args`` follow h and temb into
+        every residual block, ``resample(module, h, level)`` runs a
+        resampling entry. A skip comes back on the level it left."""
+        g, lv = generator, level
+        h = _conv(next(modules), h, lv)
         hs = [h]
         for i in range(self.n_res):
             for _ in range(self.num_res_blocks):
-                h = self._call(next(modules), g, h, temb, *block_args)
+                h = self._call(next(modules), g, lv, h, temb, *block_args)
                 if self.all_res[i] in self.attn_resolutions:
-                    h = self._call(next(modules), g, h)
+                    h = self._call(next(modules), g, lv, h)
                 hs.append(h)
             if i != self.n_res - 1:
-                h = resample(next(modules), h)
+                h = resample(next(modules), h, lv)
+                lv = _fir_level(lv, up=False)
                 hs.append(h)
-        h = self._call(next(modules), g, h, temb, *block_args)
-        h = self._call(next(modules), g, h)
-        h = self._call(next(modules), g, h, temb, *block_args)
+        h = self._call(next(modules), g, lv, h, temb, *block_args)
+        h = self._call(next(modules), g, lv, h)
+        h = self._call(next(modules), g, lv, h, temb, *block_args)
         for i in reversed(range(self.n_res)):
             for _ in range(self.num_res_blocks + 1):
-                h = self._call(next(modules), g, torch.cat([h, hs.pop()], dim=1), temb, *block_args)
+                h = self._call(next(modules), g, lv, torch.cat([h, hs.pop()], dim=1), temb, *block_args)
             if self.all_res[i] in self.attn_resolutions:
-                h = self._call(next(modules), g, h)
+                h = self._call(next(modules), g, lv, h)
             if i != 0:
-                h = resample(next(modules), h)
-        assert not hs
+                h = resample(next(modules), h, lv)
+                lv = _fir_level(lv, up=True)
+        assert not hs and lv == level
         return h
 
 
@@ -473,7 +542,8 @@ class NCSNpp(_NCSNppBase):
         generator: Optional[torch.Generator] = None,
         cond_mask: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        spatial.refuse("NCSNpp", spatial.BACKBONES)
+        shard = spatial.current()
+        top = None if shard is None else shard.top()
         if condition is not None:
             x = torch.cat([x, condition], dim=1)  # x first
         modules = iter(self.all_modules)
@@ -482,12 +552,12 @@ class NCSNpp(_NCSNppBase):
             emb = self.fourier_emb(time) if self.embedding_type == "fourier" else timestep_embedding(time, self.nf)
         temb = self._temb(emb, x, cond_mask, modules)
 
-        def resample(m, h):
-            return self._call(m, generator, h, temb) if self.biggan else m(h)
+        def resample(m, h, level):
+            return self._call(m, generator, level, h, temb) if self.biggan else m(h, level)
 
-        h = self._ladder(x, temb, modules, (), generator, resample)
-        h = next(modules)(h, None)  # the final act-norm: affine GroupNorm -> SiLU
-        return next(modules)(h)
+        h = self._ladder(x, temb, modules, (), generator, resample, top)
+        h = next(modules)(h, None, top)  # the final act-norm: affine GroupNorm -> SiLU
+        return _conv(next(modules), h, top)
 
 
 class SPADENCSNpp(_NCSNppBase):
@@ -538,15 +608,16 @@ class SPADENCSNpp(_NCSNppBase):
         generator: Optional[torch.Generator] = None,
         cond_mask: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        spatial.refuse("SPADENCSNpp", spatial.BACKBONES)
         assert condition is not None, "SPADENCSNpp requires conditioning frames"
+        shard = spatial.current()
+        top = None if shard is None else shard.top()
         modules = iter(self.all_modules)
         emb = timestep_embedding(time, self.nf) if self.with_time_emb else None
         temb = self._temb(emb, x, cond_mask, modules)
 
-        def resample(m, h):
-            return self._call(m, generator, h, temb, condition)
+        def resample(m, h, level):
+            return self._call(m, generator, level, h, temb, condition, top)
 
-        h = self._ladder(x, temb, modules, (condition,), generator, resample)
-        h = next(modules)(h, None, condition)  # the final act-norm: SPADE, no time embedding
-        return next(modules)(h)
+        h = self._ladder(x, temb, modules, (condition, top), generator, resample, top)
+        h = next(modules)(h, None, condition, top, top)  # the final act-norm: SPADE, no time embedding
+        return _conv(next(modules), h, top)

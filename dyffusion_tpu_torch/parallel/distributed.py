@@ -143,6 +143,26 @@ def model_group():
     return axis[1] if axis is not None else None
 
 
+def data_group():
+    """This rank's data group (None: the world, without a model axis)."""
+    axis = _axis()
+    return axis[2] if axis is not None else None
+
+
+def gather_rows(t: torch.Tensor, total: int, first: int) -> torch.Tensor:
+    """The ``total`` rows of a batch split over the data axis, this rank
+    holding ``t``, its rows from ``first`` on: each rank's rows placed in a
+    zero-filled buffer and summed over its data group (no rank of the group
+    holds another's rows, so the sum adds only zeros); ``t`` outside a
+    process group."""
+    if not active():
+        return t
+    buf = torch.zeros((int(total),) + tuple(t.shape[1:]), dtype=t.dtype, device=collective_device())
+    buf[first:first + t.shape[0]] = t.detach().to(buf.device)
+    dist.all_reduce(buf, group=data_group())
+    return buf.to(t.device)
+
+
 def model_all_reduce(t: torch.Tensor) -> torch.Tensor:
     """``t`` summed over this rank's model group in place, outside autograd;
     ``t`` without a model axis."""

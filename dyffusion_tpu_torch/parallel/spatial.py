@@ -24,14 +24,20 @@ rank; what crosses ranks:
   ``UNetSimple``'s k4 s2 p1 readout. A resample's taps come from the GLOBAL
   coordinates of the output block (half-pixel centres, the source index
   clamped at the grid's edges 0 and total - 1, as torch's and the JAX
-  package's resizes do): the source rows they read, from whichever ranks
+  package's resizes do; torch's floor ``nearest`` for NCSN++'s SPADE
+  maps): the source rows they read, from whichever ranks
   own them, are a halo like any other; so are the input rows a transposed
   conv's output block reads (:func:`transposed_rows`).
+- :func:`upfirdn2d` (NCSN++'s FIR resampling, and on it the x2 resamplers
+  :func:`fir_upsample`, :func:`fir_downsample`, :func:`upsample_conv_fir`,
+  :func:`conv_downsample_fir`): output rows [a, b) read the zero-stuffed
+  rows [a down - pad0, (b - 1) down + k - pad0), whose samples are a halo
+  of input rows.
 - :func:`group_norm`: per (row, group) the sum and count, then the
   squares about the mean, in f32, summed over the group
   (``distributed.mean_var``, as the cross-rank BatchNorm).
 - :func:`gather`: a small tensor whole (the mid-block attention's keys and
-  values, 15 x 15 tokens at SST).
+  values, 15 x 15 tokens at SST; NCSN++'s at 32 x 32 and below).
 - :func:`linear_attention`: B1 split across ranks (``ops.linear_attention
   .linear_attention_qkv_split``).
 
@@ -58,8 +64,8 @@ the weight gradient is that of the loss over the whole grid and batch.
 
 :func:`sharded` is the context of a sharded forward or train step: the
 trainer enters it around its evaluation and its train step, and the
-``Unet`` (:func:`current`) then runs on its slab; the draws over the input
-grid take the rank's slab (``utils.rng.spatial_shard``).
+backbones (:func:`current`) then run on their slab; the draws over the
+input grid take the rank's slab (``utils.rng.spatial_shard``).
 """
 from __future__ import annotations
 
@@ -78,7 +84,7 @@ from dyffusion_tpu_torch.utils import rng
 # the sharded axis of an NCHW tensor for trainer.spatial_axis
 AXES = {"h": -2, "w": -1}
 # the ROADMAP item of what is not ported under a shard
-BACKBONES = "A2, other backbones and layouts under a shard"
+BACKBONES = "A2: the 'qk' linear attention and levels of fewer rows than ranks under a shard"
 
 
 def blocks(total: int, k: int) -> List[Tuple[int, int]]:
@@ -186,12 +192,6 @@ def sharded(axis: str, spatial: Sequence[int]) -> Iterator[Shard]:
 def current() -> Optional[Shard]:
     """The layout of :func:`sharded`, or None outside it."""
     return _SHARD.get()
-
-
-def refuse(what: str, roadmap: str) -> None:
-    """Raise ``NotImplementedError`` for ``what`` inside :func:`sharded`."""
-    if current() is not None:
-        raise NotImplementedError(f"{what} under spatial sharding is not ported (ROADMAP {roadmap})")
 
 
 def _with_extent(x: torch.Tensor, dim: int, n: int) -> Tuple[int, ...]:
@@ -328,9 +328,13 @@ def _taps(lo: int, hi: int, n_in: int, n_out: int, mode: str,
     centres and no antialias, computed in ``dtype`` as torch computes them
     for a tensor of that type (float32 for float32, bfloat16 and float16;
     ``align_corners=False``: the source index clamped at 0, i1 at n_in - 1;
-    ``nearest-exact``: one tap)."""
+    ``nearest-exact``: one tap; torch's ``nearest``: one tap at
+    floor(i n_in / n_out), no half-pixel centres)."""
     i = np.arange(lo, hi, dtype=dtype)
     scale, half = dtype(n_in) / dtype(n_out), dtype(0.5)
+    if mode == "nearest":
+        i0 = np.minimum(np.floor(i * scale).astype(np.int64), n_in - 1)
+        return i0, i0, np.zeros_like(i)
     if mode == "bilinear":
         src = np.maximum(scale * (i + half) - half, dtype(0.0))
         i0 = np.minimum(np.floor(src).astype(np.int64), n_in - 1)
@@ -376,8 +380,9 @@ def _resample(x: torch.Tensor, level: Level, out: Level, need: Sequence[Tuple[in
 
 def resize(x: torch.Tensor, level: Level, size: Sequence[int], mode: str = "bilinear") -> Tuple[torch.Tensor, Level]:
     """This rank's slab of ``F.interpolate(x, size, mode)`` of the whole
-    grid (half-pixel centres, no antialias; ``mode`` 'bilinear' or
-    'nearest-exact'), and the level of the ``size`` = (H, W) grid."""
+    grid (no antialias; ``mode`` 'bilinear' or 'nearest-exact', with
+    half-pixel centres, or torch's 'nearest'), and the level of the
+    ``size`` = (H, W) grid."""
     total, other = (size if level.dim == -2 else tuple(size)[::-1])
     out = dataclasses.replace(level, total=int(total), other=int(other))
     return _resample(x, level, out, out.blocks, mode), out
@@ -424,17 +429,101 @@ def conv_transpose2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch
     return y.narrow(level.dim, out.start - need[level.rank][0] * s + p, out.stop - out.start), out
 
 
-def group_norm(x: torch.Tensor, num_groups: int, weight: torch.Tensor, bias: torch.Tensor, eps: float,
-               level: Level) -> torch.Tensor:
+def upfirdn_level(level: Level, k: int, up: int, down: int, pad: Tuple[int, int]) -> Level:
+    """The level of :func:`upfirdn2d`'s output: (n up + pad0 + pad1 - k)
+    // down + 1 rows of n on each axis."""
+    grow = lambda n: (n * up + pad[0] + pad[1] - k) // down + 1  # noqa: E731
+    return dataclasses.replace(level, total=grow(level.total), other=grow(level.other))
+
+
+def upfirdn2d(x: torch.Tensor, kernel: np.ndarray, level: Level, up: int = 1, down: int = 1,
+              pad: Tuple[int, int] = (0, 0)) -> Tuple[torch.Tensor, Level]:
+    """This rank's slab of ``ops.upfirdn2d.upfirdn2d(x, kernel, up, down,
+    pad)`` of the whole grid (a square ``kernel``; ``up`` - 1 zeros after
+    each sample, ``pad`` on both ends, the flipped kernel correlated at
+    stride ``down``), and the output's level. Output rows [a, b) read the
+    zero-stuffed rows [a down - pad0, (b - 1) down + k - pad0), whose
+    samples are the input rows [ceil((a down - pad0) / up), ((b - 1) down
+    + k - 1 - pad0) // up + 1): a halo (:func:`rows`, zeros beyond the
+    grid), stuffed and padded to that span on the sharded axis and by
+    ``pad`` on the other, then filtered."""
+    level.check(x)
+    kernel = np.asarray(kernel, np.float32)
+    k, (p0, p1) = int(kernel.shape[0]), pad
+    out = upfirdn_level(level, k, up, down, pad)
+    span = [(a * down - p0, (b - 1) * down + k - p0) for a, b in out.blocks]
+    need = [(-(-s0 // up), (s1 - 1) // up + 1) for s0, s1 in span]
+    z = rows(x, level, need)
+    (lo, hi), (s0, s1) = need[level.rank], span[level.rank]
+    B, C, H, W = z.shape
+    if up > 1:
+        z = F.pad(z.reshape(B, C, H, 1, W, 1), (0, up - 1, 0, 0, 0, up - 1)).reshape(B, C, H * up, W * up)
+    front, back = lo * up - s0, s1 - hi * up  # a negative pad crops
+    z = F.pad(z, [p0, p1, front, back] if level.dim == -2 else [front, back, p0, p1])
+    w = torch.flip(torch.as_tensor(kernel, device=z.device, dtype=z.dtype), (0, 1))
+    return F.conv2d(z, w[None, None].expand(C, 1, k, k), stride=down, groups=C), out
+
+
+def fir_upsample(x: torch.Tensor, kernel, level: Level) -> Tuple[torch.Tensor, Level]:
+    """``ops.upfirdn2d.upsample_2d(x, kernel)`` (x2, gain 1) of this rank's
+    slab, and the output's level."""
+    from dyffusion_tpu_torch.ops.upfirdn2d import setup_fir_kernel
+
+    k = setup_fir_kernel(kernel, 4.0)
+    p = k.shape[0] - 2
+    return upfirdn2d(x, k, level, up=2, pad=((p + 1) // 2 + 1, p // 2))
+
+
+def fir_downsample(x: torch.Tensor, kernel, level: Level) -> Tuple[torch.Tensor, Level]:
+    """``ops.upfirdn2d.downsample_2d(x, kernel)`` (/2, gain 1) of this
+    rank's slab, and the output's level."""
+    from dyffusion_tpu_torch.ops.upfirdn2d import setup_fir_kernel
+
+    k = setup_fir_kernel(kernel)
+    p = k.shape[0] - 2
+    return upfirdn2d(x, k, level, down=2, pad=((p + 1) // 2, p // 2))
+
+
+def upsample_conv_fir(x: torch.Tensor, w: torch.Tensor, kernel, level: Level) -> Tuple[torch.Tensor, Level]:
+    """``ops.upfirdn2d.upsample_conv_2d(x, w, kernel)`` (x2) of this rank's
+    slab: the stride-2 transposed conv on its halo (:func:`conv_transpose2d`,
+    a level of 2n + k - 2 rows), then the FIR on that level's halo; the
+    output's level."""
+    from dyffusion_tpu_torch.ops.upfirdn2d import setup_fir_kernel
+
+    k = setup_fir_kernel(kernel, 4.0)
+    p = (k.shape[0] - 2) - (w.shape[3] - 1)
+    y, mid = conv_transpose2d(x, torch.flip(w, (2, 3)).transpose(0, 1), None, level, stride=2, padding=0)
+    return upfirdn2d(y, k, mid, pad=((p + 1) // 2 + 1, p // 2 + 1))
+
+
+def conv_downsample_fir(x: torch.Tensor, w: torch.Tensor, kernel, level: Level) -> Tuple[torch.Tensor, Level]:
+    """``ops.upfirdn2d.conv_downsample_2d(x, w, kernel)`` (/2) of this
+    rank's slab: the FIR on its halo (a level of n + 1 rows for the 3 x 3
+    ``w``), then the stride-2 VALID conv on that level's halo; the output's
+    level."""
+    from dyffusion_tpu_torch.ops.upfirdn2d import setup_fir_kernel
+
+    k = setup_fir_kernel(kernel)
+    p = (k.shape[0] - 2) + (w.shape[3] - 1)
+    y, mid = upfirdn2d(x, k, level, pad=((p + 1) // 2, p // 2))
+    return conv2d(y, w, None, mid, stride=2)
+
+
+def group_norm(x: torch.Tensor, num_groups: int, weight: Optional[torch.Tensor], bias: Optional[torch.Tensor],
+               eps: float, level: Level) -> torch.Tensor:
     """GroupNorm (biased variance) over the whole grid of this rank's slab
     ``x`` (B, C, h, w): per (row, group) the mean and variance summed over
     the model group (``distributed.mean_var``); in f32 (f64 for an f64
-    ``x``), returned in x's dtype."""
+    ``x``), returned in x's dtype. ``weight`` and ``bias`` None: no
+    affine."""
     level.check(x)
     B = x.shape[0]
     centred, _, var = distributed.mean_var(x.reshape(B, num_groups, -1), (-1,), distributed.model_group())
     y = (centred * torch.rsqrt(var + eps)).reshape(x.shape)
-    return (y * weight.to(y.dtype)[:, None, None] + bias.to(y.dtype)[:, None, None]).to(x.dtype)
+    if weight is not None:
+        y = y * weight.to(y.dtype)[:, None, None] + bias.to(y.dtype)[:, None, None]
+    return y.to(x.dtype)
 
 
 def linear_attention(qkv: torch.Tensor, heads: int, dim_head: int, scale: float, level: Level) -> torch.Tensor:

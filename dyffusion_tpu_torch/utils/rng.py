@@ -30,7 +30,8 @@ Under spatial sharding a rank holds a slab of every grid tensor: rows
 slab is made at the tensor's global shape and sliced to the rank's rows,
 so every rank of a model group, drawing from the same generator, keeps its
 part of the one draw a single device would make (as the JAX package's draw
-of a global shape is on a sharded grid). Each rank draws the whole grid: K
+of a global shape is on a sharded grid); :func:`row_gamma` draws MCVD's
+Gamma noise so, at the global batch and grid. Each rank draws the whole grid: K
 times the draws, and a temporary of the global size per draw.
 :func:`spatial_shard` holds the slab of the top-level grid, which the draws
 over the network's inputs take (:func:`grid_randn`); the network passes the
@@ -132,9 +133,6 @@ def randint(low: int, high: int, shape: Sequence[int], generator: Generator, dev
     return torch.randint(low, high, tuple(shape), **_kw(generator), device=device)
 
 
-def standard_gamma(concentration: torch.Tensor, generator: Generator) -> torch.Tensor:
-    """Gamma(concentration, 1), one draw per element, on its device."""
-    return torch._standard_gamma(concentration, **_kw(generator))
 
 
 def split(generator: Generator, n: int) -> List[Generator]:
@@ -214,3 +212,32 @@ def row_randn(shape: Sequence[int], generator: Generator, device, dtype: Optiona
         return randn(shape, generator, device, dtype, **kw)
     g, total, first = shard
     return randn((total,) + tuple(shape[1:]), g, g.device, dtype, **kw)[first:first + int(shape[0])].to(device)
+
+
+def row_gamma(concentration: torch.Tensor, shape: Sequence[int], generator: Generator, device,
+              grid: bool = False) -> torch.Tensor:
+    """Standard Gamma draws (scale 1) of ``shape``, whose first axis is the
+    batch's rows, of shape parameter ``concentration``: a scalar tensor, or
+    one per row ((n, 1, ..., 1)), constant over the other axes. Drawn as
+    :func:`row_randn` draws: inside :func:`row_shard` at the global batch
+    (the rows' concentrations gathered over the data axis,
+    ``parallel.distributed.gather_rows``: an element of a Gamma draw may
+    depend on the concentrations of those before it) and, with ``grid`` under
+    :func:`spatial_shard`, at the global grid, then sliced to this rank's
+    rows and slab."""
+    shape = tuple(int(s) for s in shape)
+    n = shape[0]
+    slab = grid_slab() if grid else None
+    shard = _rows(n)
+    g, first, conc = generator, 0, concentration
+    if shard is not None:
+        from dyffusion_tpu_torch.parallel.distributed import gather_rows
+
+        g, total, first = shard
+        conc = conc if conc.dim() == 0 else gather_rows(conc, total, first)
+        conc, shape = conc.to(g.device), (total,) + shape[1:]
+
+    def draw(full):
+        return torch._standard_gamma(conc.expand(full).contiguous(), **_kw(g))
+
+    return _sliced(draw, shape, slab)[first:first + n].to(device)

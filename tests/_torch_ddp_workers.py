@@ -5,21 +5,22 @@ launcher's environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
 ``MASTER_PORT`` on a free port), one torch thread and ``OMP_NUM_THREADS=1``,
 joins them into one gloo group through ``parallel.init_distributed`` and
 runs ``fn(rank, world, *args)``. Each rank's return value comes back
-through a queue. Every rank has a deadline of its own (120 s at most): a
-rank that hangs is killed and fails the test, as does one that raises (its
-traceback is in the failure). This module imports no JAX, so that a rank
-starts fast.
+through a queue. Every rank has a deadline of its own (120 s unless the
+caller gives another): a rank that hangs is killed and fails the test, as
+does one that raises (its traceback is in the failure). This module
+imports no JAX, so that a rank starts fast.
 """
 from __future__ import annotations
 
 import builtins
+import contextlib
 import os
 import queue
 import shutil
 import socket
 import time
 import traceback
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Optional
 
 import numpy as np
 
@@ -210,11 +211,32 @@ class _WriteSpy:
         builtins.open, os.replace, shutil.rmtree, torch.save = self._saved
 
 
-def train_rank(rank: int, world: int, stage1: list, stage2: list, spring: list, registry: str) -> dict:
+@contextlib.contextmanager
+def own_gamma():
+    """The planted fault of MCVD's Gamma noise in a data-parallel step: each
+    rank draws the Gamma noise of its own rows from its own step generator
+    (instead of its rows of the global batch's draw)."""
+    import torch
+
+    from dyffusion_tpu_torch.utils import rng
+
+    saved = rng.row_gamma
+    rng.row_gamma = lambda conc, shape, generator, device, grid=False: torch._standard_gamma(
+        conc.expand(tuple(shape)).contiguous(), generator=generator)
+    try:
+        yield
+    finally:
+        rng.row_gamma = saved
+
+
+def train_rank(rank: int, world: int, stage1: list, stage2: list, spring: list, registry: str,
+               mcvd: Optional[list] = None, mcvd_fault: Optional[list] = None) -> dict:
     """Stage 1 (``run_experiment`` into ``registry``), stage 2 from the
-    registry by run id, then :func:`spring_step` on this rank's rows;
-    returns the run ids, the stage-2 ``Trainer.predict`` of the val split,
-    the writes this rank made under the registry and the spring step."""
+    registry by run id, then :func:`spring_step` on this rank's rows, then
+    the MCVD run of ``mcvd`` and, under :func:`own_gamma`, of
+    ``mcvd_fault``; returns the run ids, the stage-2 ``Trainer.predict`` of
+    the val split, the writes this rank made under the registry and the
+    spring step."""
     import torch
 
     from dyffusion_tpu_torch.config import get_config
@@ -233,6 +255,11 @@ def train_rank(rank: int, world: int, stage1: list, stage2: list, spring: list, 
     out = {"run1": run1, "run2": os.path.basename(tr2.ckpt.run_dir), "writes": spy.writes,
            "predict": {k: v for k, v in predicted.items()}}
     out["spring"] = spring_step(get_config("spring_mesh_interpolation", spring), rank, world)
+    for key, overrides, fault in (("mcvd", mcvd, contextlib.nullcontext()), ("mcvd_fault", mcvd_fault, own_gamma())):
+        if overrides is not None:
+            with fault:
+                out[key] = os.path.basename(run_experiment(get_config("synthetic_mcvd", overrides),
+                                                           device="cpu")[0].ckpt.run_dir)
     distributed.barrier()
     return out
 

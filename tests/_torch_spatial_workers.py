@@ -71,19 +71,31 @@ def unet_rank(rank: int, world: int, case: Dict[str, Any], faults: List[Any]) ->
 
 
 def a2_raise(world: int) -> str:
-    """The error of an A2 backbone (``NCSNpp``) under a shard."""
+    """The errors of the layouts still refused under a shard (ROADMAP A2):
+    the 'qk' linear attention and, on a world of more than one rank, a
+    ``Unet`` level of fewer rows than ranks (8 rows, mults (1, 2, 4, 8):
+    the deepest level has one); "no error" if one of them runs."""
     import torch
 
-    from dyffusion_tpu_torch.models import NCSNpp
+    from dyffusion_tpu_torch.models import Unet
+    from dyffusion_tpu_torch.models.modules import LinearAttention
     from dyffusion_tpu_torch.parallel import spatial
 
-    net = NCSNpp(8, 1, 1, n_head_channels=8, dim_mults=(1,), num_res_blocks=1, attn_resolutions=(), spatial_height=8)
-    try:
-        with spatial.sharded("h", (8, 8)):
-            net(torch.zeros(1, 1, 8 // world, 8), torch.zeros(1))
-    except NotImplementedError as e:
-        return str(e)
-    return "no error"
+    x = torch.zeros(1, 8, 8 // world, 8)
+    calls = [lambda: LinearAttention(8, 1, 8, rescale="qk")(x, None, spatial.current().top())]
+    if world > 1:
+        net = Unet(8, 8, 1, dim_mults=(1, 2, 4, 8), resnet_block_groups=4, attn_heads=1, attn_dim_head=8)
+        calls.append(lambda: net(x))
+    errors = []
+    for call in calls:
+        try:
+            with torch.no_grad(), spatial.sharded("h", (8, 8)):
+                call()
+        except NotImplementedError as e:
+            errors.append(str(e))
+            continue
+        return "no error"
+    return "; ".join(errors)
 
 
 def stages_rank(rank: int, world: int, stage1: List[str], stage2: List[str]) -> Dict[str, Any]:
@@ -467,4 +479,166 @@ def physical_rank(rank: int, world: int, backbones: List[Dict[str, Any]], bounda
     for name, (reg, run_id) in tests.items():
         wait(name)
         out["tests"][name] = reload_and_test(reg, run_id, device="cpu")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the diffusion baselines under a shard (tests/test_torch_port_spatial_baselines.py)
+
+
+@contextlib.contextmanager
+def baseline_fault(name: str):
+    """A planted fault of the NCSN++ backbones and the diffusion engines
+    under a shard, the negative controls: 'halos zeroed' (no row crosses
+    ranks, the FIR resampling's halos too), 'group norm per rank',
+    'attention per rank' (the keys and values of the rank's own tokens),
+    'resize per slab' (the SPADE map resized from each slab alone,
+    ``F.interpolate`` on a slab), 'draws per slab' (every draw over the
+    grid taken at the slab's shape instead of sliced from the global
+    draw)."""
+    from dyffusion_tpu_torch.parallel import spatial
+    from dyffusion_tpu_torch.utils import rng
+
+    saved = (spatial.gather, rng.grid_slab)
+    if name == "attention per rank":
+        spatial.gather = lambda x, level: x
+    elif name == "draws per slab":
+        rng.grid_slab = lambda: None
+    try:
+        with physical_fault(name if name in ("halos zeroed", "group norm per rank", "resize per slab") else None):
+            yield
+    finally:
+        spatial.gather, rng.grid_slab = saved
+
+
+def ncsnpp_rank(rank: int, world: int, case: Dict[str, Any]) -> Dict[Any, Dict[str, Any]]:
+    """An NCSN++ backbone (``case['cls']``: its kwargs, state dict, NCHW
+    inputs, cotangent, axis) on this rank's slab, dropout off, with no
+    fault and under each of ``case['faults']``: the eval forward and, with
+    ``case['grads']`` and no fault, the gradients of sum(output * cot)
+    (the input's slab, each weight's summed over the ranks)."""
+    import torch
+
+    from dyffusion_tpu_torch import models
+    from dyffusion_tpu_torch.parallel import distributed, spatial
+
+    model = getattr(models, case["cls"])(**case["kwargs"])
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in case["state"].items()}, strict=True)
+    axis, (H, W) = case["axis"], case["x"].shape[2:]
+    cond = torch.as_tensor(_slab(case["cond"], axis, rank, world))
+    t = torch.as_tensor(case["t"])
+    out = {}
+    for name in [None] + list(case["faults"]):
+        got = {}
+        x = torch.tensor(_slab(case["x"], axis, rank, world), requires_grad=True)
+        with baseline_fault(name):
+            with torch.no_grad(), spatial.sharded(axis, (H, W)):
+                got["eval"] = model(x, t, cond).numpy()
+            if case["grads"] and name is None:
+                model.zero_grad()
+                with spatial.sharded(axis, (H, W)):
+                    y = model(x, t, cond)
+                (y * torch.as_tensor(_slab(case["cot"], axis, rank, world))).sum().backward()
+                grads = {k: p.grad.clone() for k, p in model.named_parameters() if p.grad is not None}
+                for g in grads.values():
+                    distributed.all_reduce_sum(g)
+                got["grads"] = {"x": x.grad.numpy(), **{k: g.numpy() for k, g in grads.items()}}
+        out[name] = got
+    return out
+
+
+LANGEVIN = ("plain", "sparse", "consistent", "sparse_consistent", "inpainting", "interpolation")
+
+
+def langevin_run(case: Dict[str, Any], rank: int = 0, world: int = 1) -> Dict[str, np.ndarray]:
+    """The six annealed-Langevin functions over ``case``'s score network
+    (an ``NCSNpp``: kwargs, state dict) on this rank's slab of the case's
+    NCHW tensors (the whole of them for ``world`` 1, unsharded), each from
+    a generator seeded alike, with the functions' own draw (over the
+    grid: under a shard the slab of the global draw)."""
+    import torch
+
+    from dyffusion_tpu_torch import models
+    from dyffusion_tpu_torch.diffusion import mcvd
+    from dyffusion_tpu_torch.parallel import spatial
+
+    net = models.NCSNpp(**case["kwargs"])
+    net.load_state_dict({k: torch.as_tensor(v) for k, v in case["state"].items()}, strict=True)
+    axis, (H, W) = case["axis"], case["x"].shape[2:]
+    a = {k: torch.as_tensor(_slab(case[k], axis, rank, world)) for k in ("x", "cond", "sparsity", "refer", "mask")}
+    sig, n = case["sigmas"], case["n_steps"]
+    n_i = 3
+    calls = {
+        "plain": lambda g: mcvd.anneal_langevin_dynamics(net, None, g, a["x"], a["cond"], sig, n, step_lr=2e-5),
+        "sparse": lambda g: mcvd.sparse_anneal_langevin_dynamics(net, None, g, a["x"], a["sparsity"], a["cond"], sig,
+                                                                 n, step_lr=2e-5, frac_steps=0.5),
+        "consistent": lambda g: mcvd.anneal_langevin_dynamics_consistent(net, None, g, a["x"], a["cond"], sig, n,
+                                                                         step_lr=1e-4),
+        "sparse_consistent": lambda g: mcvd.sparse_anneal_langevin_dynamics_consistent(
+            net, None, g, a["x"], a["sparsity"], a["cond"], sig, n, step_lr=1e-4),
+        "inpainting": lambda g: mcvd.anneal_langevin_dynamics_inpainting(
+            net, None, g, a["x"], a["refer"], a["mask"], a["cond"], sig, n, step_lr=2e-5),
+        "interpolation": lambda g: mcvd.anneal_langevin_dynamics_interpolation(
+            net, None, g, a["x"], n_i, torch.repeat_interleave(a["cond"], n_i, dim=0), sig, n, step_lr=2e-5),
+    }
+    out = {}
+    shard = spatial.sharded(axis, (H, W)) if world > 1 else contextlib.nullcontext()
+    with torch.no_grad(), shard:
+        for name in LANGEVIN:
+            out[name] = calls[name](torch.Generator().manual_seed(case["seed"])).numpy()
+    return out
+
+
+def baselines_rank(rank: int, world: int, fir: tuple, cases: List[Dict[str, Any]], langevin: Dict[str, Any],
+                   runs: Dict[str, list], faulty: Dict[str, list], tests: Dict[str, tuple],
+                   faulty_tests: Dict[str, tuple]) -> Dict[str, Any]:
+    """One spawn for the module: :func:`fir_rank` on ``fir``,
+    :func:`ncsnpp_rank` per case, :func:`langevin_run`, each of ``runs``
+    (name -> commands, :func:`run_commands`), each of ``faulty`` (the same
+    under the fault 'draws per slab'), each of ``tests`` (name ->
+    (registry, run id, overrides): ``mode=test`` of a stored run on this
+    world, its metrics), and each of ``faulty_tests`` (the same under
+    'draws per slab')."""
+    from dyffusion_tpu_torch.interface import reload_and_test
+    from dyffusion_tpu_torch.parallel import distributed
+
+    distributed.set_model_axis(world)
+    out = {"fir": fir_rank(rank, world, *fir), "ncsnpp": [ncsnpp_rank(rank, world, c) for c in cases],
+           "langevin": langevin_run(langevin, rank, world)}
+    out["runs"] = {name: run_commands(commands) for name, commands in runs.items()}
+    with baseline_fault("draws per slab"):
+        out["faulty"] = {name: run_commands(commands) for name, commands in faulty.items()}
+    def test(specs):
+        return {name: reload_and_test(reg, run_id, list(ov), device="cpu") for name, (reg, run_id, ov) in specs.items()}
+
+    out["tests"] = test(tests)
+    with baseline_fault("draws per slab"):
+        out["faulty_tests"] = test(faulty_tests)
+    return out
+
+
+def fir_rank(rank: int, world: int, x: np.ndarray, w: np.ndarray, taps: List[float],
+             cases: List[tuple]) -> Dict[str, np.ndarray]:
+    """The slab-aware FIR resampling of ``parallel.spatial`` on this rank's
+    slab of ``x`` (NCHW), on H and on W: ``upfirdn2d`` with the 2-D
+    ``taps`` outer product at each (up, down, pad) of ``cases``, and the
+    four x2 resamplers with the 1-D ``taps`` (the fused ones with the conv
+    weight ``w``, OIHW)."""
+    import torch
+
+    from dyffusion_tpu_torch.parallel import spatial
+
+    k2 = np.outer(taps, taps[::-1]).astype(np.float32)  # asymmetric on both axes
+    wt = torch.as_tensor(w)
+    out = {}
+    for axis in ("h", "w"):
+        xs = torch.as_tensor(_slab(x, axis, rank, world))
+        with torch.no_grad(), spatial.sharded(axis, x.shape[2:]) as shard:
+            level = shard.top()
+            for up, down, pad in cases:
+                out[f"{axis} upfirdn2d {up} {down} {pad}"] = spatial.upfirdn2d(xs, k2, level, up, down, pad)[0].numpy()
+            for name in ("fir_upsample", "fir_downsample"):
+                out[f"{axis} {name}"] = getattr(spatial, name)(xs, taps, level)[0].numpy()
+            for name in ("upsample_conv_fir", "conv_downsample_fir"):
+                out[f"{axis} {name}"] = getattr(spatial, name)(xs, wt, taps, level)[0].numpy()
     return out

@@ -24,12 +24,17 @@ the JAX package's global-batch computation and against one process.
   ``SimpleConvNet`` train step (BatchNorm) gives the one-process loss,
   gradients and running statistics (1e-5, with the same floor), and rank
   0's rows alone (per-rank statistics) must not.
+- MCVD with ``diffusion.gamma=true`` (and noise in the condition) on two
+  ranks against one process, 3 steps: the losses within 1e-5 relative,
+  the weights within 1e-2 of their change; each rank drawing the Gamma
+  noise of its own rows from its own generator (the planted fault) must
+  fail the same check.
 - ``mode=test`` of the two-rank run through the CLI (which starts its two
   ranks itself) against the one-process run's.
 - The native loader's per-rank rows against the global batch's slices; the
   run id of a two-rank config against the JAX package's; a world that does
   not match ``trainer.devices`` raises, so does ``trainer.spatial_shards=2``
-  on one process (K must divide the world), and an A2 backbone under a
+  on one process (K must divide the world), and an A2 layout under a
   shard.
 
 Every spawned rank has a deadline of 120 s (``tests/_torch_ddp_workers.py``).
@@ -71,6 +76,9 @@ TINY = [
 ]
 SPRING = ["datamodule.horizon=4", "datamodule.prediction_horizon=8", "model.dim=32", "model.dropout=0.0",
           "module.num_predictions=2", "trainer.save_checkpoints=False"]
+# MCVD with Gamma noise (in the loss, the condition and the sampler), 3 steps and no validation
+MCVD = [o for o in TINY if not o.startswith("module.use_ema")] + [
+    "diffusion.gamma=true", "diffusion.noise_in_cond=true", "diffusion.timesteps=10", "trainer.val_every_n_epochs=100"]
 
 
 def _close(got, want, r, what=""):
@@ -199,11 +207,14 @@ def runs(tmp_path_factory):
         reg = str(root / f"registry{world}")
         common = TINY + [f"datamodule.batch_size={4 // world}", f"trainer.devices={world}", f"registry_dir={reg}"]
         spring_w = spring + [f"datamodule.batch_size={4 // world}", f"trainer.devices={world}"]
+        mcvd = MCVD + [f"datamodule.batch_size={4 // world}", f"trainer.devices={world}", f"registry_dir={reg}"]
         if world == 1:
-            ranks = [workers.train_rank(0, 1, common, common, spring_w, reg)]
+            ranks = [workers.train_rank(0, 1, common, common, spring_w, reg, mcvd)]
         else:
-            ranks = workers.run_ranks(workers.train_rank, world, common, common, spring_w, reg)
+            fault = mcvd[:-1] + [f"registry_dir={root / 'own_gamma'}"]
+            ranks = workers.run_ranks(workers.train_rank, world, common, common, spring_w, reg, mcvd, fault)
         out[world] = dict(ranks=ranks, registry=reg)
+    out["own_gamma"] = str(root / "own_gamma")
     out["spring_rank0_alone"] = workers.spring_step(
         get_config("spring_mesh_interpolation", spring + ["datamodule.batch_size=2"]))
     return out
@@ -250,6 +261,40 @@ def test_two_ranks_train_as_one_process(runs, stage):
         num = sum(float(((s2[part][k] - s1[part][k]) ** 2).sum()) for k in keys)
         den = sum(float(((s1[part][k] - init[k]) ** 2).sum()) for k in keys)
         assert (num / den) ** 0.5 <= CHANGE_REL, (part, (num / den) ** 0.5)
+
+
+def _mcvd_trains_as(registry, want_registry, run_id):
+    """The MCVD run ``run_id`` of ``registry`` against that of
+    ``want_registry``: every logged loss within REL relative, the final
+    weights within CHANGE_REL of their change (relative L2)."""
+    got, want = _metrics(registry, run_id), _metrics(want_registry, run_id)
+    losses = [(a["train/loss"], b["train/loss"]) for a, b in zip(got, want) if "train/loss" in b]
+    assert len(losses) == 3
+    for g, w in losses:
+        np.testing.assert_allclose(g, w, rtol=REL)
+    s2, s1 = _state(registry, run_id), _state(want_registry, run_id)
+    init = _initial_weights(want_registry, run_id)
+    keys = [k for k, w in s1["model"].items() if w.is_floating_point() and k in init]
+    num = sum(float(((s2["model"][k] - s1["model"][k]) ** 2).sum()) for k in keys)
+    den = sum(float(((s1["model"][k] - init[k]) ** 2).sum()) for k in keys)
+    assert (num / den) ** 0.5 <= CHANGE_REL, (num / den) ** 0.5
+
+
+def test_two_ranks_train_mcvd_with_gamma_noise_as_one_process(runs):
+    """MCVD's Gamma draws (the loss's noise and the condition's) are the
+    global batch's, each rank keeping its rows, as the normal draws are."""
+    run_id = runs[WORLD]["ranks"][0]["mcvd"]
+    assert [r["mcvd"] for r in runs[WORLD]["ranks"]] == [run_id] * WORLD == [runs[1]["ranks"][0]["mcvd"]] * WORLD
+    _mcvd_trains_as(runs[WORLD]["registry"], runs[1]["registry"], run_id)
+
+
+def test_per_rank_gamma_draws_fail_the_check(runs):
+    """The planted fault: each rank draws the Gamma noise of its rows from
+    its own generator."""
+    run_id = runs[WORLD]["ranks"][0]["mcvd_fault"]
+    assert run_id == runs[1]["ranks"][0]["mcvd"]
+    with pytest.raises(AssertionError):
+        _mcvd_trains_as(runs["own_gamma"], runs[1]["registry"], run_id)
 
 
 def test_two_ranks_predict_every_row(runs):
@@ -352,7 +397,7 @@ def test_world_must_match_trainer_devices():
     with pytest.raises(ValueError, match="trainer.devices=2"):
         build_trainer(get_config("synthetic_interpolation", TINY + ["trainer.devices=2"]), device="cpu")
     # training under a shard runs: on one process only the world is refused (K must divide it),
-    # and an A2 backbone still raises under a shard
+    # and an A2 layout still raises under a shard
     with pytest.raises(ValueError, match="not divisible by trainer.spatial_shards=2"):
         run_experiment(get_config("synthetic_interpolation", TINY + ["trainer.spatial_shards=2"]), device="cpu")
     assert "ROADMAP A2" in a2_raise(1)

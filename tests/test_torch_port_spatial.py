@@ -22,7 +22,7 @@ package's single-device computation and against one process.
   grid (``trainer.devices=4``) against two data-parallel ranks, whose
   data indices draw as the grid's do.
 - The grid's divisibility error in the JAX package's words, and the raise
-  of an A2 backbone under a shard.
+  of an A2 layout under a shard.
 
 Every spawned rank has a deadline of 120 s (``tests/_torch_ddp_workers.py``).
 """
@@ -169,7 +169,8 @@ def test_sharded_test_metrics_match_one_process(ranks, one_process):
 def test_training_under_a_shard_raises(ranks):
     """Training under a shard runs (ROADMAP A1 is done): stage 2's ``fit``
     on the two ranks gives one finite best score. What still raises under
-    a shard is an A2 backbone, ``UNetSimple`` here, on the ranks and in
+    a shard are the layouts of ROADMAP A2 (the 'qk' linear attention, and
+    on the ranks a level of fewer rows than ranks), on the ranks and in
     this process."""
     scores = [r["fit"] for r in ranks["out"]]
     assert np.isfinite(scores[0]) and scores == [scores[0]] * WORLD

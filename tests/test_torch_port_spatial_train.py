@@ -29,8 +29,8 @@ against one process.
   ranks) with ``trainer.devices=2 trainer.spatial_shards=2
   trainer.spatial_axis=w`` for stage 1, then stage 2 by run id; the run
   ids equal the JAX package's.
-- An A2 backbone (``UNetSimple``) still raises ``NotImplementedError``
-  naming ROADMAP A2 under a shard.
+- An A2 layout (the 'qk' attention, a level of fewer rows than ranks)
+  still raises ``NotImplementedError`` naming ROADMAP A2 under a shard.
 
 One spawn of two ranks for (a)-(c) beside the JAX gradients and the
 one-process runs, then the CLI and the 2 x 2 grid with its witness, each
