@@ -90,12 +90,18 @@ non-zero:
    f32, 20 members) in a temporary registry: a few train steps and one
    validation, ``mode=test`` (50 members), serving by run id (a seed
    repeats, another does not, the members differ; a sampler whose members
-   share their noise fails that check), and for each diffusion engine one
-   request with its preset's full sampler (1000 / 1001 / 1000 forwards).
+   share their noise fails that check), the DDPM and MCVD commands with
+   their samplers subsampled to 10 steps and the LDM's at T = 10, and for
+   each diffusion engine one request with its preset's full sampler
+   (1000 / 1001 / 1000 forwards).
    B1 is checked against its plain version at the path's rows in f32 first,
    and one DDPM and one MCVD step of the trained SST denoiser GPU against
    CPU. B1 launches per command and per request (42 / 6 / 6,000 / 6,006 /
-   6,000) are asserted.
+   6,000) are asserted. The trained DDPM and MCVD runs are exported with
+   their full samplers in the background (each sampler's loop one loop op)
+   and served by a fresh process at the end of the phase: one full request
+   each at the eager request's batch and seed, bit for bit or within 1e-5
+   of max, B1 6,000 / 6,006 times.
 
 14. ncsnpp-ref: the MCVD NCSN++ slice, f32, GPU against CPU, each check
    with a negative control that must fail it: the FIR resampling ops at the
@@ -116,19 +122,31 @@ non-zero:
    (its features unchanged bit for bit), the DDPM residual blocks, SPADE.
    No kernel of the port lies on this path: B1-B3 must read 0 launches.
 16. export: [cli]'s stage-2 run exported by the serving CLI (``python -m
-   dyffusion_tpu_torch.serving``) as a ``torch.export`` artifact with a
-   symbolic batch, and as a ``reduce=mean_std`` one pinned to batch 6, in
-   subprocesses started right after [cli] (the traces run beside phases
-   11-15); a fresh process per artifact loads it with ``load_exported``.
-   Checks, in that process: the members artifact gives the eager
+   dyffusion_tpu_torch.serving``) as ``torch.export`` artifacts, each
+   sampler loop one loop op: with a symbolic batch; pinned to batch 6
+   (``reduce=mean_std``, and the members in f32); data-parallel
+   (``devices=2``, 3 rows a replica, bf16 and f32) and the same with each
+   replica drawing at its own batch's shape (the planted fault); and a
+   small two-stage run like [fit]'s, trained in its pipeline, exported for
+   ``platforms=cuda,cpu``. The exports run in subprocesses started right
+   after [cli] (beside phases 11-15, two at a time, one CPU thread each);
+   a fresh process per artifact loads it with
+   ``load_exported`` (the replicas on cuda:0 twice, the two-platform one on
+   the CPU). Checks, in that process: the members artifact gives the eager
    ``build_predict_fn`` answer (batch 6 at four seeds, batches 1 and 7) bit
    for bit, or within 1e-2 of max|eager| in bf16 with the difference
    printed; seeds 0 and 1 differ; B1 launches 378 times per request; the
-   mean_std artifact is the host reduction of the members; nothing of the
-   package but ``serving`` and ``ops`` was imported. Prints the export time,
-   file size and graph nodes, the load time, the request times against the
-   eager ones, and B1's host cost per call through its ``torch.library`` op
-   against the direct launch.
+   mean_std artifact is the host reduction of the members; the two replicas
+   answer as one device, within 1e-1 of max in bf16 (against the members
+   artifact at four seeds) and 1e-3 in f32 (against the pinned f32 one),
+   B1 378 times per replica, and the fault exceeds both limits;
+   the CPU-served two-platform artifact answers as the eager CPU predict,
+   bit for bit or within 1e-5 of max; nothing of the package but
+   ``serving`` and ``ops`` was imported. Prints each artifact's nodes, loop
+   ops, export, load and first-request times beside those of the unrolled
+   artifact (the sampler's loop unrolled into the graph), the request times
+   against the eager ones, and B1's host cost per call through its
+   ``torch.library`` op against the direct launch.
 17. oisst: the OISST presets through the CLI at full width (60x60, C=1,
    h=7, k=25, Unet dim 64 mults (1,2,4), 20 members folded, eval batch 6,
    bf16 eval) on the 11 Pacific boxes written by ``write_fake_oisst_dir``
@@ -179,12 +197,12 @@ non-zero:
    runs alone), two gloo ranks sharing cuda:0 (``chip_smoke.py
    --spatial-rank``) split the grid's H axis for one-batch requests (f32
    with the workload's dropout; the same with every halo zeroed, the
-   negative control, both with the sampler cut to 13 forwards; a full bf16
-   request without dropout), beside a one-rank witness and the CLI's own
-   two ranks running ``mode=test`` (cut alike) on the W axis: answers
-   within 1e-3 of max|one rank| (the zeroed halos beyond it), B1 378 split
-   calls per full request on each rank, each rank's peak device memory at
-   most 0.7x one rank's. Training: the same processes reload both stages
+   negative control; a bf16 request without dropout; all with the sampler
+   cut to 13 forwards), beside a one-rank witness and the CLI's own two
+   ranks running ``mode=test`` (cut alike) on the W axis: answers within
+   1e-3 of max|one rank| (the zeroed halos beyond it), B1 78 split calls
+   per request on each rank, each rank's peak device memory at most 0.7x
+   one rank's. Training: the same processes reload both stages
    with the workload's dropout: stage 2's loss and forecaster gradients at
    16 rows within 1e-3 of max|one rank| (the halo's backward zeroed beyond
    it), two f32 train steps of each stage at the global batch of 64 with
@@ -287,6 +305,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 SEED = 0
@@ -1110,41 +1129,78 @@ def phase_cli(card, reg):
     return sum(counts.values()), id2
 
 
-# [export]: [cli]'s stage-2 run as two artifacts, written by the serving CLI
-# in subprocesses that start right after [cli] and trace while the later
-# phases run (each export holds one CPU core for minutes): the members
-# artifact with a symbolic batch, and the mean_std one pinned to the eval
-# batch of 6. A fresh process per artifact (``chip_smoke.py
-# --serve-exported``) then loads it with ``load_exported`` and waits; the
-# phase itself hands it the requests once the GPU is free of other work.
+# [export]: [cli]'s stage-2 run as artifacts, written by the serving CLI in
+# subprocesses that start right after [cli] and trace while the later phases
+# run: the members artifact with a symbolic batch, the mean_std one pinned
+# to the eval batch of 6, the data-parallel one (devices=2, 3 rows a
+# replica) and the same with each replica drawing at its own batch's shape
+# (the planted fault, ``--export-own-draws``), both data-parallel and pinned
+# in f32; and a small run like [fit]'s (``--export-small-run``) exported for
+# the platforms cuda and cpu. A fresh
+# process per artifact (``chip_smoke.py --serve-exported``) then loads it
+# with ``load_exported`` (the replicas on cuda:0 twice; the two-platform
+# artifact on the CPU) and waits; the phase itself hands it the requests
+# once the GPU is free of other work.
 EXPORT_BATCH = 6
 EXPORT_SEEDS = (SEED, SEED + 1, SEED + 2, SEED + 3)  # warm-up, then the timed requests
+EXPORT_DEVICES = 2  # replicas of the data-parallel artifact, both on cuda:0
+# the data-parallel check's limits, of max|one device|: in f32 (TF32 off) 1e-3; in
+# bf16 1e-1, where the replicas' 60-row forwards round otherwise than 120-row
+# ones and 63 sampler steps carry it on (1.7e-2-3.0e-2 measured; the planted
+# fault reads 1.47)
+EXPORT_F32 = "module.eval_dtype=float32"
+DP_TOL = {"float32": 1e-3, "bfloat16": 1e-1}
+# the SST members artifact on this card when the sampler's loop was unrolled
+# into its graph (PERF.md §6), beside which [export] prints its own
+UNROLLED_EXPORT = "46,547 nodes; trace 114.8-125.4 s, CLI export 188.1-214.2 s, load 75.0-94.1 s"
+# the run of the platform leg: [fit]'s size, a few steps a stage
+PLATFORM_RUN = [
+    "datamodule.spatial=(24,24)", "datamodule.channels=1", "datamodule.horizon=3", "datamodule.n_traj=6",
+    "datamodule.n_time=12", "datamodule.batch_size=4", "datamodule.eval_batch_size=4", "model.dim=16",
+    "model.dim_mults=(1,2)", "module.num_predictions=3", "diffusion.additional_interpolation_steps=2",
+    "trainer.max_steps=2", "trainer.val_every_n_epochs=100",
+]
+
+
+# exports and loads running at once, each on one CPU thread (of the host's
+# 8; the phases beside them are bound by the host's launch rate); with two
+# at once the nine pipelines (~75 s each) outlasted phases 11-15 and
+# [export] waited ~200 s for them. An idle loaded server holds no core
+EXPORT_CONCURRENCY = 4
+_EXPORT_SLOTS = threading.BoundedSemaphore(EXPORT_CONCURRENCY)
+_ONE_THREAD = {**os.environ, "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
 
 
 class _ExportPipeline:
-    """One artifact: the CLI's export, then a serving process that loads it
+    """One artifact: the CLI's export (or ``cmd``), then a serving process
+    that loads it (on ``serve_on``: a device, or devices joined by commas)
     and waits for its requests on stdin."""
 
-    def __init__(self, reg, run_id, out_dir, extra):
-        import threading
-
-        self.out_dir, self.server, self.error = out_dir, None, None
-        self.cmd = [sys.executable, "-m", "dyffusion_tpu_torch.serving", f"run_id={run_id}", f"out={out_dir}",
-                    f"registry_dir={reg}", *extra]
+    def __init__(self, reg, run_id, out_dir, extra, serve_on=None, cmd=None):
+        self.out_dir, self.server, self.error, self.serve_on, self.run_id = out_dir, None, None, serve_on, run_id
+        args = ([f"run_id={run_id}"] if run_id else []) + [f"out={out_dir}", f"registry_dir={reg}", *extra]
+        self.cmd = (cmd or [sys.executable, "-m", "dyffusion_tpu_torch.serving"]) + args
         self.thread = threading.Thread(target=self._run, daemon=True)
         self.thread.start()
 
     def _run(self):
+        with _EXPORT_SLOTS:
+            self._export_and_load()
+
+    def _export_and_load(self):
         t = time.perf_counter()
-        proc = subprocess.run(self.cmd, capture_output=True, text=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+        proc = subprocess.run(self.cmd, capture_output=True, text=True, cwd=os.path.dirname(os.path.abspath(__file__)),
+                              env=_ONE_THREAD)
         self.export_wall = time.perf_counter() - t
         if proc.returncode != 0:
             self.error = f"export failed (exit {proc.returncode}): {' '.join(self.cmd)}\n{proc.stdout}{proc.stderr[-4000:]}"
             return
         self.stderr = open(self.out_dir + ".stderr", "w+")
         self.server = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--serve-exported", self.out_dir],
+            [sys.executable, os.path.abspath(__file__), "--serve-exported", self.out_dir,
+             *([self.serve_on] if self.serve_on else [])],
             stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=self.stderr, text=True,
+            env=None if self.serve_on == "cpu" else _ONE_THREAD,  # a CPU server sums as the main process does
         )
         lines = []
         for line in self.server.stdout:  # {"loaded": seconds} once the artifact is loaded
@@ -1181,31 +1237,84 @@ class _ExportPipeline:
             self.stderr.close()
 
 
+def export_small_run_main(args):
+    """``--export-small-run out=DIR registry_dir=REG key=value ...``: the
+    platform leg's run in its pipeline's process: both stages of
+    ``PLATFORM_RUN`` trained in REG, then the serving CLI on the stage-2
+    run with ``args``; the run id goes to DIR.run_id."""
+    from dyffusion_tpu_torch import serving
+    from dyffusion_tpu_torch.config import get_config
+    from dyffusion_tpu_torch.interface import run_experiment
+
+    kw = dict(a.split("=", 1) for a in args)
+    common = PLATFORM_RUN + [f"registry_dir={kw['registry_dir']}"]
+    tr1, _ = run_experiment(get_config("synthetic_interpolation", common))
+    run1 = os.path.basename(tr1.ckpt.run_dir)
+    tr2, _ = run_experiment(get_config("synthetic_dyffusion", common + [f"diffusion.interpolator_run_id={run1}"]))
+    run2 = os.path.basename(tr2.ckpt.run_dir)
+    serving._main([f"run_id={run2}", *args])
+    with open(kw["out"] + ".run_id", "w") as f:
+        f.write(run2)
+    return 0
+
+
 def start_exports(reg, run_id, work):
-    """The two artifacts' pipelines of ``[export]``, started in the background."""
+    """The artifacts' pipelines of ``[export]``, started in the background
+    (the platform leg's pipeline trains its run first)."""
+    pinned = ["polymorphic_batch=false", f"batch_size={EXPORT_BATCH}"]
+    dp = pinned + [f"devices={EXPORT_DEVICES}"]
+    on_card = ",".join(["cuda:0"] * EXPORT_DEVICES)
+    own = [sys.executable, os.path.abspath(__file__), "--export-own-draws"]
+    small = [sys.executable, os.path.abspath(__file__), "--export-small-run"]
     return {
         "members": _ExportPipeline(reg, run_id, os.path.join(work, "members"), []),
-        "mean_std": _ExportPipeline(reg, run_id, os.path.join(work, "mean_std"),
-                                    ["reduce=mean_std", "polymorphic_batch=false", f"batch_size={EXPORT_BATCH}"]),
+        "mean_std": _ExportPipeline(reg, run_id, os.path.join(work, "mean_std"), ["reduce=mean_std", *pinned]),
+        "dp": _ExportPipeline(reg, run_id, os.path.join(work, "dp"), dp, serve_on=on_card),
+        "dp_own_draws": _ExportPipeline(reg, run_id, os.path.join(work, "dp_own"), dp, serve_on=on_card, cmd=own),
+        "pinned_f32": _ExportPipeline(reg, run_id, os.path.join(work, "pinned_f32"), pinned + [EXPORT_F32]),
+        "dp_f32": _ExportPipeline(reg, run_id, os.path.join(work, "dp_f32"), dp + [EXPORT_F32], serve_on=on_card),
+        "platforms": _ExportPipeline(reg, None, os.path.join(work, "platforms"), ["platforms=cuda,cpu"],
+                                     serve_on="cpu", cmd=small),
     }
 
 
-def serve_exported_main(out_dir):
-    """``--serve-exported DIR``: the serving side of ``[export]`` in a fresh
-    process. Loads the artifact with ``load_exported`` and prints
+def export_own_draws_main(args):
+    """``--export-own-draws key=value ...``: the serving CLI with the planted
+    fault of ``[export]``'s data-parallel check: each replica draws at its
+    own batch's shape (``utils.rng.replica_rows`` does nothing)."""
+    from dyffusion_tpu_torch import serving
+    from dyffusion_tpu_torch.utils import rng
+
+    rng.replica_rows = lambda total, rows: contextlib.nullcontext()
+    serving._main(args)
+    return 0
+
+
+def serve_exported_main(out_dir, serve_on=None):
+    """``--serve-exported DIR [DEVICES]``: the serving side of ``[export]``
+    in a fresh process, TF32 off as in the main process. Loads the artifact
+    with ``load_exported`` (on DEVICES, a device or devices joined by commas,
+    else its own) and prints
     ``{"loaded": seconds}``; then reads one job from stdin ({"batches": npz,
-    "requests": [[name, batch key, seed], ...], "out": npz}), runs the requests in order (each ending in a device sync, the B1
-    launch count set to 0 before each and read after), saves the outputs and
-    prints the report as its last line."""
+    "requests": [[name, batch key, seed], ...], "out": npz, optionally
+    "threads"}), runs the requests in order (each ending in a device sync,
+    the B1 launch count set to 0 before each and read after), saves the
+    outputs and prints the report as its last line."""
     import numpy as np
     import torch
 
     t = time.perf_counter()
     from dyffusion_tpu_torch.serving import load_exported
 
-    predict, manifest = load_exported(out_dir)
+    # f32 as this script's main process computes it (phase_device): TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = None if serve_on is None else (serve_on.split(",") if "," in serve_on else serve_on)
+    predict, manifest = load_exported(out_dir, device=device)
     print(json.dumps({"loaded": time.perf_counter() - t}), flush=True)
     job = json.loads(sys.stdin.readline())
+    if "threads" in job:  # the CPU's sums split by thread: the eager side's count
+        torch.set_num_threads(job["threads"])
     from dyffusion_tpu_torch.ops import linear_attention as la
 
     batches = dict(np.load(job["batches"]))
@@ -1264,10 +1373,20 @@ def phase_export(card, reg, run_id, pipelines, work):
     artifact whose generator were a traced constant would fail it); B1
     launches 378 times per artifact request; the mean_std artifact is the
     host reduction of the members'; the serving process imported nothing
-    of the package but ``serving`` and ``ops``. Prints the export time, file
-    size and node count, the load time, the request times against the
-    eager ones (mean of 3 after a warm-up), and the op's host cost per call.
-    Returns B1's launches over the artifact requests."""
+    of the package but ``serving`` and ``ops``. The data-parallel artifact
+    (2 replicas of 3 rows, both on cuda:0) answers as one device does at
+    batch 6 within ``DP_TOL`` (bf16 against the members artifact at 4
+    seeds, f32 against the pinned f32 artifact at one), with B1 378 times
+    per replica per request; the same with each
+    replica drawing at its own batch's shape must exceed both limits. The
+    platform leg: a small run's artifact exported for cuda and cpu, served
+    on the CPU in a fresh process, answers as the eager CPU predict does,
+    bit for bit or within 1e-5 of max with the difference printed. Prints
+    the export times, file sizes, node and loop counts beside the
+    unrolled artifact's, the load times, the first request of each fresh
+    process, the request times against the eager ones, and the op's host
+    cost per call. Returns B1's launches over the artifact requests, those
+    per request, and the data-parallel artifact's."""
     import numpy as np
     import torch
 
@@ -1300,25 +1419,36 @@ def phase_export(card, reg, run_id, pipelines, work):
         eager_s[name] = time.perf_counter() - t
         eager[name] = eager[name].cpu().numpy()
 
-    members = pipelines["members"].request({"batches": os.path.join(work, "batches.npz"), "requests": requests,
-                                            "out": os.path.join(work, "members_out.npz")})
-    stats = pipelines["mean_std"].request({"batches": os.path.join(work, "batches.npz"),
-                                           "requests": [["b6_seed0", "b6", SEED]],
-                                           "out": os.path.join(work, "mean_std_out.npz")})
+    def job(name, reqs):
+        return {"batches": os.path.join(work, "batches.npz"), "requests": reqs, "out": os.path.join(work, f"{name}.npz")}
+
+    b6_requests = [[f"b6_seed{s}", "b6", s] for s in EXPORT_SEEDS]
+    reports = {
+        "members": pipelines["members"].request(job("members_out", requests)),
+        "mean_std": pipelines["mean_std"].request(job("mean_std_out", [["b6_seed0", "b6", SEED]])),
+        "dp": pipelines["dp"].request(job("dp_out", b6_requests)),
+        "dp_own_draws": pipelines["dp_own_draws"].request(job("dp_own_out", b6_requests[:1])),
+        "pinned_f32": pipelines["pinned_f32"].request(job("pinned_f32_out", b6_requests[:1])),
+        "dp_f32": pipelines["dp_f32"].request(job("dp_f32_out", b6_requests[:1])),
+    }
+    members = reports["members"]
     got = dict(np.load(os.path.join(work, "members_out.npz")))
     reduced = np.load(os.path.join(work, "mean_std_out.npz"))["b6_seed0"]
     manifest = members["manifest"]
-    size = os.path.getsize(os.path.join(pipelines["members"].out_dir, "sampler.pt2"))
     timed = [n for n, _, _ in requests[1:len(EXPORT_SEEDS)]]
     art_ms, eager_ms = (float(np.mean([t[n] for n in timed])) for t in (members["seconds"], eager_s))
-    print(f"[export] members artifact: {manifest['graph']['nodes']} graph nodes ({manifest['graph']['b1_nodes']} B1), "
-          f"{size} bytes; trace {manifest['graph']['export_seconds']:.1f} s, CLI export (reload, trace, save) "
-          f"{pipelines['members'].export_wall:.1f} s; load in a fresh process {pipelines['members'].loaded['loaded']:.1f} s; "
-          f"mean_std artifact (batch pinned to {EXPORT_BATCH}): CLI export {pipelines['mean_std'].export_wall:.1f} s, "
-          f"load {pipelines['mean_std'].loaded['loaded']:.1f} s")
-    print(f"[export] request latency, batch {EXPORT_BATCH}: artifact {art_ms:.4f} s, eager {eager_ms:.4f} s "
-          f"(mean of {len(timed)} after a warm-up); artifact {[round(members['seconds'][n], 4) for n, _, _ in requests]} s, "
-          f"eager {[round(eager_s[n], 4) for n, _, _ in requests]} s; serving process peak memory "
+    for name in reports:
+        pl, g = pipelines[name], reports[name]["manifest"]["graph"]
+        first = next(iter(reports[name]["seconds"].values()))
+        print(f"[export] {name} artifact: {g['nodes']} graph nodes in all, {g['loops']} loop ops, {g['b1_nodes']} B1 "
+              f"nodes; {os.path.getsize(os.path.join(pl.out_dir, 'sampler.pt2'))} bytes; trace "
+              f"{g['export_seconds']:.1f} s, CLI export (reload, trace, save) {pl.export_wall:.1f} s; load in a fresh "
+              f"process {pl.loaded['loaded']:.1f} s; its first request {first:.4f} s")
+    print(f"[export] the members artifact with the sampler's loop unrolled: {UNROLLED_EXPORT}; on {card}")
+    print(f"[export] request latency, batch {EXPORT_BATCH}: artifact {art_ms:.4f} s, eager {eager_ms:.4f} s, artifact "
+          f"/ eager {art_ms / eager_ms:.3f} (mean of {len(timed)} after the first request of each side); artifact "
+          f"{[round(members['seconds'][n], 4) for n, _, _ in requests]} s, eager "
+          f"{[round(eager_s[n], 4) for n, _, _ in requests]} s; serving process peak memory "
           f"{members['peak_bytes'] / 2**30:.2f} GiB; on {card}")
 
     failures = []
@@ -1347,15 +1477,76 @@ def phase_export(card, reg, run_id, pipelines, work):
           f"std {ms_err[1]:.2e} of scale (limit 1e-4); shape {reduced.shape}")
     if reduced.shape != (2,) + host.shape[1:] or max(ms_err) > 1e-4:
         failures.append(f"the mean_std artifact is not the host reduction: {ms_err}, shape {reduced.shape}")
+
+    # the data-parallel artifact against one device: in bf16 the members artifact's batch-6 answers (bit
+    # for bit the eager ones, as a pinned artifact's were in every run that served one), in f32 the
+    # pinned f32 artifact
+    def rel(a, b):
+        return float(np.abs(a - b).max()) / float(np.abs(b).max())
+
+    out = {n: dict(np.load(os.path.join(work, f"{n}_out.npz"))) for n in ("dp", "pinned_f32", "dp_f32")}
+    out["one"] = {n: got[n] for n in out["dp"]}
+    own = np.load(os.path.join(work, "dp_own_out.npz"))["b6_seed0"]
+    dp_err = {dt: {n: rel(out[dp][n], out[ref][n]) for n in out[dp]}
+              for dt, dp, ref in (("bfloat16", "dp", "one"), ("float32", "dp_f32", "pinned_f32"))}
+    own_err = rel(own, out["one"]["b6_seed0"])
+    dp_launches = reports["dp"]["launches"]
+    print(f"[export] data-parallel artifact ({EXPORT_DEVICES} replicas of {EXPORT_BATCH // EXPORT_DEVICES} rows on "
+          f"cuda:0) vs one device, max diff / max|one device| (bf16: the members artifact; f32: pinned): bf16 "
+          f"{ {n: float(f'{e:.3e}') for n, e in dp_err['bfloat16'].items()} } (limit {DP_TOL['bfloat16']}), f32 "
+          f"{ {n: float(f'{e:.3e}') for n, e in dp_err['float32'].items()} } (limit {DP_TOL['float32']}); each replica "
+          f"drawing at its own batch's shape (bf16): {own_err:.3e} (must exceed both limits); B1 launches per request "
+          f"{dp_launches} "
+          f"({EXPORT_DEVICES} x {per_request} expected); request times dp "
+          f"{[round(v, 4) for v in reports['dp']['seconds'].values()]} s, f32 dp "
+          f"{[round(v, 4) for v in reports['dp_f32']['seconds'].values()]} s, f32 pinned "
+          f"{[round(v, 4) for v in reports['pinned_f32']['seconds'].values()]} s (two replicas on one card: no "
+          f"throughput is measured)")
+    for dt, errs in dp_err.items():
+        if max(errs.values()) > DP_TOL[dt] or not all(np.isfinite(v).all() for v in out["dp"].values()):
+            failures.append(f"the {dt} data-parallel artifact disagrees with the one-device one: {errs}")
+    if not own_err > max(DP_TOL.values()):
+        failures.append(f"replicas drawing at their own shape pass the data-parallel check: {own_err:.3e}")
+    if any(n != EXPORT_DEVICES * per_request for n in dp_launches.values()):
+        failures.append(f"B1 launches per data-parallel request {dp_launches} != {EXPORT_DEVICES} x {per_request}")
+
+    # the platform leg: a two-platform artifact traced on the card, served on the CPU
+    small = pipelines["platforms"]
+    with open(small.out_dir + ".run_id") as f:
+        small_run = f.read()
+    cpu_predict, _, cpu_info = build_predict_fn(reg, small_run, device="cpu")
+    tr_small = reload_trainer(reg, small_run, device="cpu")
+    xb = np.asarray(next(tr_small.datamodule.predict_batches())["dynamics"])[:, :cpu_info["dynamics_frames"]]
+    np.savez(os.path.join(work, "small_batch.npz"), b=xb)
+    t = time.perf_counter()
+    want_cpu = cpu_predict({"dynamics": xb}, SEED).numpy()
+    eager_cpu_s = time.perf_counter() - t
+    rep = small.request({"batches": os.path.join(work, "small_batch.npz"), "requests": [["seed0", "b", SEED]],
+                         "out": os.path.join(work, "small_out.npz"), "threads": torch.get_num_threads()})
+    have_cpu = np.load(os.path.join(work, "small_out.npz"))["seed0"]
+    diff = float(np.abs(have_cpu - want_cpu).max()) if have_cpu.shape == want_cpu.shape else float("inf")
+    scale = float(np.abs(want_cpu).max())
+    print(f"[export] platforms {rep['manifest']['platforms']} (traced on {rep['manifest']['device']}), served on the "
+          f"CPU in a fresh process, {xb.shape[0]} rows x {cpu_info['ensemble_members']} members: vs the eager CPU "
+          f"predict {'bit for bit' if diff == 0 else f'max diff {diff:.3e}, {diff / scale:.2e} of max (limit 1e-5)'}; "
+          f"CLI export {small.export_wall:.1f} s, load {small.loaded['loaded']:.1f} s, request "
+          f"{rep['seconds']['seed0']:.3f} s (eager CPU {eager_cpu_s:.3f} s), B1 launches {rep['launches']['seed0']} "
+          f"(the plain version runs on the CPU)")
+    if rep["manifest"]["platforms"] != ["cuda", "cpu"] or not diff <= 1e-5 * scale:
+        failures.append(f"the two-platform artifact on the CPU disagrees with eager: {diff:.3e} of {scale:.3e}")
+    if rep["launches"]["seed0"] != 0:
+        failures.append(f"the CPU-served artifact launched B1 {rep['launches']['seed0']} times")
+
     allowed = {"dyffusion_tpu_torch", "dyffusion_tpu_torch.serving"}
-    for report in (members, stats):
+    for report in (*reports.values(), rep):
         extra = [m for m in report["modules"] if m not in allowed and not m.startswith("dyffusion_tpu_torch.ops")]
         if extra:
             failures.append(f"the serving process imported {extra}")
     print(f"[export] serving process imported {members['modules']}")
     if failures:
         raise AssertionError("[export] " + "; ".join(failures))
-    return sum(members["launches"].values()), per_request
+    return sum(members["launches"].values()), per_request, {
+        "launches": sum(dp_launches.values()), "per_request": dp_launches["b6_seed0"]}
 
 
 # the physical-systems paths at their canonical widths (utils/workloads.py:
@@ -1757,6 +1948,11 @@ def phase_slice(card):
 BASELINES = ("time_conditioned", "simultaneous", "ddpm", "mcvd", "ddpm_v2")
 BASELINE_DIFFUSION = ("ddpm", "mcvd", "ddpm_v2")
 BASELINE_EVAL_STEPS = 10
+# the LDM preset's T, for its full request: its commands train and sample at
+# T = BASELINE_EVAL_STEPS (it has no sampling_timesteps to subsample with)
+BASELINE_FULL_STEPS = 1000
+# the runs whose full sampler is also exported and served as an artifact
+BASELINE_ARTIFACTS = ("ddpm", "mcvd")
 BASELINE_TRAIN_STEPS = 4
 BASELINE_DATA = ["datamodule.n_traj=5", "datamodule.n_time=9", "datamodule.batch_size=4",
                  "datamodule.eval_batch_size=2"]
@@ -1825,8 +2021,9 @@ def phase_baselines(card):
     """The five baselines through the CLI (``train.main``) at SST width, in a
     temporary registry, each: a few train steps and one validation,
     ``mode=test`` (50 members), serving by run id (a seed repeats its
-    answer, another does not, the members differ), and for the diffusion
-    engines one request with the preset's full sampler (DDPM 1000, MCVD
+    answer, another does not, the members differ), the diffusion engines
+    at 10 sampler steps (the LDM trained and sampled at T = 10), and for
+    them one request with the preset's full sampler (DDPM 1000, MCVD
     1000 + the final denoise, LDM-DDPM 1000 forwards) at 20 members. B1's
     launches are set to 0 before each command and request and must read
     what its forwards imply (6 per ``Unet`` forward). B1 is first held
@@ -1834,8 +2031,13 @@ def phase_baselines(card):
     100; 8, ``[spatial]``'s DDPM train step) and dtype (f32); then one DDPM
     and one MCVD step GPU against CPU; a
     negative control shows that a sampler whose members share their noise
-    fails the members-differ check. Returns {method: B1 launches of all its
-    commands and requests} and the per-request counts."""
+    fails the members-differ check. The trained DDPM and MCVD runs are
+    exported with their full samplers (batch pinned to the request's 1 row)
+    in the background; at the phase's end each artifact, loaded in a fresh
+    process, answers the full request at the eager one's batch and seed, bit
+    for bit or within 1e-5 of max with the difference printed, with B1
+    6,000 / 6,006 times. Returns {method: B1 launches of all its commands
+    and requests}, the per-request counts, and the artifacts' counts."""
     import numpy as np
     import torch
 
@@ -1864,7 +2066,10 @@ def phase_baselines(card):
             max_err = max(max_err, e)
 
     totals, per_request, timings = {}, {}, {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_baselines_") as reg:
+    pipelines, eager_full, artifacts = {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_baselines_") as reg, \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_baseline_artifacts_") as work, \
+            contextlib.ExitStack() as stops:
         common = sst_baseline_overrides([*BASELINE_DATA, f"trainer.max_steps={BASELINE_TRAIN_STEPS}",
                                          "trainer.val_every_n_epochs=100", "trainer.log_every_n_steps=1",
                                          f"registry_dir={reg}"])
@@ -1873,6 +2078,8 @@ def phase_baselines(card):
             args = list(common)
             if method in ("ddpm", "mcvd"):
                 args.append(f"diffusion.sampling_timesteps={BASELINE_EVAL_STEPS}")
+            elif method == "ddpm_v2":  # no subsampling: the LDM runs its commands at T = 10
+                args.append(f"diffusion.timesteps={BASELINE_EVAL_STEPS}")
             run_id = get_run_id(get_config(f"synthetic_{method}", args))
             counts, seconds = {}, {}
 
@@ -1933,7 +2140,8 @@ def phase_baselines(card):
                         raise AssertionError(f"{tag} members sharing their noise still differ: the check cannot fail")
                     print(f"{tag} negative control: members sharing their noise spread "
                           f"{float(same.std(dim=0).max()):.3e} (must be 0)")
-                full = ["diffusion.sampling_timesteps=null"] if method in ("ddpm", "mcvd") else []
+                full = ["diffusion.sampling_timesteps=null"] if method in ("ddpm", "mcvd") else [
+                    f"diffusion.timesteps={BASELINE_FULL_STEPS}"]
 
                 def full_request():
                     predict, _, info = build_predict_fn(reg, run_id, overrides=full)
@@ -1957,6 +2165,13 @@ def phase_baselines(card):
                     raise AssertionError(f"{tag} the full-sampler request is not finite or its members do not differ")
                 per_request[method] = launches
                 timings[method] = latency
+                if method in BASELINE_ARTIFACTS:  # the artifact of the same full sampler, exported meanwhile
+                    frames = np.asarray(batch["dynamics"][:1])[:, :info["dynamics_frames"]]
+                    np.savez(os.path.join(work, f"{method}_batch.npz"), b=frames)
+                    eager_full[method] = (out.cpu().numpy(), latency)
+                    pipelines[method] = _ExportPipeline(reg, run_id, os.path.join(work, method),
+                                                        full + ["polymorphic_batch=false", "batch_size=1"])
+                    stops.callback(pipelines[method].stop)
                 if method == "ddpm":
                     _baseline_one_step_vs_cpu(exp.model, batch["dynamics"].shape[2:4])
             else:
@@ -1964,9 +2179,30 @@ def phase_baselines(card):
             if counts != expected:
                 raise AssertionError(f"{tag} B1 launches {counts} != {expected}")
             totals[method] = sum(counts.values())
+        for method, pipeline in pipelines.items():  # the GPU is free of the phase's other work now
+            tag = f"[baselines-{method}]"
+            rep = pipeline.request({"batches": os.path.join(work, f"{method}_batch.npz"),
+                                    "requests": [["full", "b", SEED]], "out": os.path.join(work, f"{method}_out.npz")},
+                                   timeout=1200)
+            have = np.load(os.path.join(work, f"{method}_out.npz"))["full"]
+            (want, eager_s), g = eager_full[method], rep["manifest"]["graph"]
+            diff = float(np.abs(have - want).max()) if have.shape == want.shape else float("inf")
+            scale = float(np.abs(want).max())
+            print(f"{tag} full-sampler artifact: {g['nodes']} graph nodes in all, {g['loops']} loop op(s), "
+                  f"{g['b1_nodes']} B1 nodes; trace {g['export_seconds']:.1f} s, CLI export {pipeline.export_wall:.1f} s, "
+                  f"load in a fresh process {pipeline.loaded['loaded']:.1f} s; its one request "
+                  f"{rep['seconds']['full']:.3f} s (eager {eager_s:.3f} s), B1 {rep['launches']['full']}; vs the eager "
+                  f"full request {'bit for bit' if diff == 0 else f'max diff {diff:.3e}, {diff / scale:.2e} of max'} "
+                  f"(limit 1e-5 of max); on {card}")
+            if not diff <= 1e-5 * scale:
+                raise AssertionError(f"{tag} the full-sampler artifact disagrees with eager: {diff:.3e} of {scale:.3e}")
+            if rep["launches"]["full"] != per_request[method]:
+                raise AssertionError(f"{tag} the artifact launched B1 {rep['launches']['full']} times, eager "
+                                     f"{per_request[method]}")
+            artifacts[method] = {"launches": rep["launches"]["full"], "per_request": rep["launches"]["full"]}
     print(f"[baselines] B1 launches per request {per_request}; full-sampler request times "
           f"{ {m: round(t, 3) for m, t in timings.items()} } s; B1 max_abs_err {max_err:.3e}; on {card}")
-    return totals, per_request
+    return totals, per_request, artifacts
 
 
 # The MCVD NCSN++ path (utils/workloads.py::NCSNPP_CORE: MCVD's published
@@ -3396,9 +3632,10 @@ def _spatial_b1_check():
 
 # On two ranks sharing the card each Unet forward waits on ~80 gloo round
 # trips (1.4-2.1 ms each): a full request (63 forwards) takes 21-52 s. So
-# the checks of the answers run the sampler without its 25 auxiliary steps
-# (13 forwards), and only the bf16 request (memory, B1 per request) runs in
-# full. mode=test: the test split's 23 rows as one batch (10 members)
+# the requests run the sampler without its 25 auxiliary steps (13 forwards;
+# the bf16 request, which holds the memory and B1 checks, ran in full
+# before: each forward's peak is the same). mode=test: the test split's 23
+# rows as one batch (10 members)
 SPATIAL_SHORT = ["diffusion.additional_interpolation_steps=0", *SPATIAL_DROPOUT]
 SPATIAL_TEST = ["datamodule.eval_batch_size=24", *SPATIAL_SHORT]
 # one forecaster forward at a request's 120 rows (6 rows x 20 members),
@@ -3529,7 +3766,7 @@ def _spatial_commands(k):
     out = [("request f32", "request", layout + SPATIAL_SHORT)]
     if k > 1:  # the negative control
         out.append(("request f32, halos zeroed", "request", layout + SPATIAL_SHORT))
-    bf16 = layout + SPATIAL_NO_DROPOUT + ["module.eval_dtype=bfloat16"]
+    bf16 = layout + SPATIAL_NO_DROPOUT + ["module.eval_dtype=bfloat16", "diffusion.additional_interpolation_steps=0"]
     out.append(("request bf16", "request", bf16))
     out.append(("forward", "forward", bf16))  # casts the weights itself; the bf16 request's trainer
     if k == 1:
@@ -4395,15 +4632,15 @@ def phase_spatial(card, reg=None, ids=None):
     members): in f32 with the SST workload's dropout, the same with every
     halo zeroed (the negative control, under a memory history), both, and
     ``mode=test``, with the sampler cut to 13 forwards (no auxiliary steps;
-    :data:`SPATIAL_SHORT`); one full bf16 request with dropout off; one
+    :data:`SPATIAL_SHORT`); one bf16 request with dropout off, cut alike; one
     forecaster forward in f32, bf16 and bf16 with every halo zeroed; then
     each process's training work (:func:`spatial_rank_main`). 4. The CLI's
     own spawn trains both stages on two ranks sharding H, beside a one-rank
     witness of the same commands (:func:`_spatial_train_commands`). Checks:
     the f32 request within 1e-3 of max|one rank| and the zeroed-halo request
     beyond it; the bf16 forward within 5e-2 of max|one rank| and its zeroed
-    halos beyond it; the W-axis test metrics within 1e-3 relative; B1 378
-    calls per full request (78 per cut one) on each rank, every one split
+    halos beyond it; the W-axis test metrics within 1e-3 relative; B1 78
+    calls per (cut) request on each rank, every one split
     across the ranks; each rank's peak device memory for the bf16 request at
     most 0.7x the witness's; stage 2's loss and forecaster gradients at 16
     rows within 1e-3 of max|one rank| and, with the halo's backward zeroed,
@@ -4517,7 +4754,7 @@ def phase_spatial(card, reg=None, ids=None):
     t_w = _metrics_rel(cli_w, one["commands"]["test f32"]["value"])
     print(f"[spatial] two ranks vs one, rel. to max|one rank|: f32 request (dropout on, no auxiliary steps) "
           f"{req:.3e}, the same with every halo zeroed {zeroed:.3e} (must exceed {SPATIAL_TOL}), bf16 request "
-          f"(dropout off, full) {bf16:.3e}; mode=test f32 metrics on W (the CLI's own ranks) {t_w:.3e}, "
+          f"(dropout off) {bf16:.3e}; mode=test f32 metrics on W (the CLI's own ranks) {t_w:.3e}, "
           f"test/crps one rank {one['commands']['test f32']['value']['test/crps']:.6f}, two ranks "
           f"{cli_w['test/crps']:.6f}")
     assert req <= SPATIAL_TOL and t_w <= SPATIAL_TOL, "two ranks disagree with one rank"
@@ -4534,9 +4771,9 @@ def phase_spatial(card, reg=None, ids=None):
     assert fwd["f32"] <= SPATIAL_TOL and fwd["bf16"] <= SPATIAL_BF16_TOL, "the sharded forward disagrees with one rank"
     assert fwd["bf16, halos zeroed"] > SPATIAL_BF16_TOL, "the zeroed halos pass the bf16 check: it does not bite"
 
-    # B1: on each rank the one-rank count of each request (378 at full depth), every call split
+    # B1: on each rank the one-rank count of each request (78 at 13 forwards), every call split
     per_request = one["commands"]["request bf16"]["launches"]
-    assert per_request == 378, per_request
+    assert per_request == 78, per_request
     for r in ranks:
         for name, c in r["commands"].items():
             want = one["commands"][name.replace(", halos zeroed", "")]["launches"]
@@ -4620,8 +4857,14 @@ def phase_spatial(card, reg=None, ids=None):
 def main(argv) -> int:
     import torch
 
-    if len(argv) == 2 and argv[0] == "--serve-exported":  # the serving process of [export]
-        return serve_exported_main(argv[1])
+    t_run = time.perf_counter()
+
+    if len(argv) in (2, 3) and argv[0] == "--serve-exported":  # a serving process of [export] or [baselines]
+        return serve_exported_main(*argv[1:])
+    if argv and argv[0] == "--export-own-draws":  # [export]'s planted data-parallel fault
+        return export_own_draws_main(argv[1:])
+    if argv and argv[0] == "--export-small-run":  # [export]'s platform leg
+        return export_small_run_main(argv[1:])
     if len(argv) == 2 and argv[0] == "--ddp-rank":  # a rank of [ddp]'s two-rank run
         return ddp_rank_main(argv[1])
     if len(argv) == 2 and argv[0] == "--ddp-witness":  # the one-rank witnesses of [ddp]
@@ -4711,10 +4954,10 @@ def main(argv) -> int:
         try:
             phase_physical_reference()
             physical = {spec["label"]: phase_physical(smi, key) for key, spec in PHYSICAL.items()}
-            baselines, baseline_requests = phase_baselines(smi)
+            baselines, baseline_requests, baseline_artifacts = phase_baselines(smi)
             phase_ncsnpp_reference()
             ncsnpp = phase_ncsnpp(smi)
-            export, export_per_request = phase_export(smi, reg, run2, pipelines, work)
+            export, export_per_request, export_dp = phase_export(smi, reg, run2, pipelines, work)
         finally:
             for p in pipelines.values():
                 p.stop()
@@ -4724,6 +4967,7 @@ def main(argv) -> int:
         ddp = phase_ddp(smi, work)  # [spatial] tests [ddp]'s one-rank stage-2 run
         spatial, spatial_per_request, spatial_times, (spatial_baselines, baselines_per_request) = phase_spatial(
             smi, os.path.join(work, "registry1"), _ddp_commands(os.path.join(work, "registry1"), 1)[1:])
+    print(f"[run] the full run took {time.perf_counter() - t_run:.1f} s of this script's 1150 s budget")
     # B1's top-level numbers are the [train] path's (this slice's main path);
     # by_path keeps each path's own count, read after setting it to 0.
     # No single PyTorch call computes any of the three functions: library_ms is null
@@ -4735,8 +4979,10 @@ def main(argv) -> int:
                      **{p: {"launches": c["linear_attention_qkv"]} for p, c in physical.items()},
                      **{f"baselines_{m}": {"launches": n, "per_request": baseline_requests[m]}
                         for m, n in baselines.items()},
+                     **{f"baselines_{m}_artifact": c for m, c in baseline_artifacts.items()},
                      "ncsnpp": {"launches": ncsnpp["linear_attention_qkv"]},
                      "export": {"launches": export, "per_request": export_per_request},
+                     "export_data_parallel": export_dp,
                      "oisst": {"launches": oisst, "per_request": oisst_per_request},
                      "members": {"launches": members, "per_request": members_per_request},
                      "ddp": {"launches": ddp},

@@ -5,9 +5,10 @@ schedules with every cumprod buffer (``hardcode_betaN`` forces the last
 step to pure noise; the p2 weights are kept but, as there, not applied),
 the ``pred_noise`` and ``pred_x0`` objectives with optional clipping,
 ``q_sample``, the denoising loss at per-row steps t, the ancestral sampler
-and DDIM with eta. The JAX ``lax.scan`` becomes a Python loop over the
-steps; the per-step coefficients are f32 scalars computed on the host in
-the JAX package's order of f32 operations. Tensors are NCHW.
+and DDIM with eta. The JAX ``lax.scan`` becomes :func:`utils.loop.loop`
+over the steps (a Python loop when run, one loop op when exported); the
+per-step coefficients are f32 scalars computed on the host in the JAX
+package's order of f32 operations. Tensors are NCHW.
 
 The denoiser is a backbone called as ``(x, time, condition, generator)``,
 time the step t in [0, T) as a float. In training its dropout is live when
@@ -32,6 +33,7 @@ from torch import nn
 from dyffusion_tpu_torch.diffusion.schedules import cosine_beta_schedule, linear_beta_schedule
 from dyffusion_tpu_torch.models.base import apply_model
 from dyffusion_tpu_torch.utils import rng
+from dyffusion_tpu_torch.utils.loop import loop
 from dyffusion_tpu_torch.utils.loss import mse_loss
 
 Params = Optional[Mapping[str, torch.Tensor]]
@@ -164,30 +166,6 @@ class GaussianDiffusionEngine:
             "sqrt_one_minus_alphas_cumprod", t, x_start.ndim
         ) * noise
 
-    def predict_start_from_noise(self, x_t, t, noise):
-        c = self.buffers.coef
-        return c("sqrt_recip_alphas_cumprod", t, x_t.ndim) * x_t - c("sqrt_recipm1_alphas_cumprod", t, x_t.ndim) * noise
-
-    def predict_noise_from_start(self, x_t, t, x0):
-        c = self.buffers.coef
-        return (c("sqrt_recip_alphas_cumprod", t, x_t.ndim) * x_t - x0) / c("sqrt_recipm1_alphas_cumprod", t, x_t.ndim)
-
-    def model_predictions(
-        self, params: Params, x: torch.Tensor, t: Union[int, torch.Tensor], condition: Optional[torch.Tensor]
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(predicted noise, predicted x_0) under either objective, the
-        denoiser called without a generator. ``t``: an int (every row) or
-        per-row steps."""
-        t_in = t.float() if isinstance(t, torch.Tensor) else torch.full((x.shape[0],), float(t), device=x.device)
-        out = apply_model(self.denoiser, params, x, t_in, condition, None)
-        if self.cfg.objective == "pred_noise":
-            x_start = self.predict_start_from_noise(x, t, out)
-            if self.cfg.clip_denoised:
-                x_start = torch.clamp(x_start, -1.0, 1.0)
-            return out, x_start
-        x_start = torch.clamp(out, -1.0, 1.0) if self.cfg.clip_denoised else out
-        return self.predict_noise_from_start(x, t, x_start), x_start
-
     # ---- training ----
     def p_losses(
         self,
@@ -215,17 +193,49 @@ class GaussianDiffusionEngine:
     def _init(self, generator, condition) -> torch.Tensor:
         return self.draw(initial_shape(self.sample_shape, condition), generator, condition.device)
 
+    def model_predictions(self, params: Params, img: torch.Tensor, x, condition) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(predicted noise, predicted x_0) at one sampler step under either
+        objective, the denoiser called without a generator; ``x``: the
+        step's values (``t`` and the two ``sqrt_recip*`` coefficients), 0-dim
+        CPU tensors."""
+        t_in = torch.zeros((img.shape[0],), dtype=torch.float32, device=img.device) + x["t"]
+        out = apply_model(self.denoiser, params, img, t_in, condition, None)
+        recip, recipm1 = x["sqrt_recip_alphas_cumprod"], x["sqrt_recipm1_alphas_cumprod"]
+        if self.cfg.objective == "pred_noise":
+            x_start = recip * img - recipm1 * out
+            if self.cfg.clip_denoised:
+                x_start = torch.clamp(x_start, -1.0, 1.0)
+            return out, x_start
+        x_start = torch.clamp(out, -1.0, 1.0) if self.cfg.clip_denoised else out
+        return (recip * img - x_start) / recipm1, x_start
+
+    def _step_values(self, ts: Sequence[int], names: Sequence[str]) -> Dict[str, torch.Tensor]:
+        """Per-step f32 CPU vectors: ``t`` and the buffers ``names`` at the steps ``ts``."""
+        idx = np.asarray(ts, np.int64)
+        out = {"t": torch.from_numpy(idx.astype(np.float32))}
+        out.update({n: torch.from_numpy(self.buffers.host[n][idx]) for n in names})
+        return out
+
     def p_sample_loop(self, params: Params, generator: Optional[torch.Generator], condition: torch.Tensor) -> torch.Tensor:
-        """The ancestral sampler over all T steps, T-1 down to 0."""
-        b = self.buffers
+        """The ancestral sampler over all T steps, T-1 down to 0: the steps
+        that add noise as one :func:`utils.loop.loop` (one loop op in an
+        exported sampler), the noise-free t = 0 peeled after it."""
         img = self._init(generator, condition)
-        for t in range(self.num_timesteps - 1, -1, -1):
-            _, x_start = self.model_predictions(params, img, t, condition)
-            mean = b.coef("posterior_mean_coef1", t, img.ndim) * x_start + b.coef("posterior_mean_coef2", t, img.ndim) * img
-            if t > 0:  # no noise at t = 0
-                mean = mean + float(self._posterior_std[t]) * self.draw(img.shape, generator, img.device)
-            img = mean
-        return img
+        names = ("sqrt_recip_alphas_cumprod", "sqrt_recipm1_alphas_cumprod", "posterior_mean_coef1", "posterior_mean_coef2")
+
+        def step(carry, x, consts):
+            (img,), (params, condition) = carry, consts
+            _, x_start = self.model_predictions(params, img, x, condition)
+            mean = x["posterior_mean_coef1"] * x_start + x["posterior_mean_coef2"] * img
+            return (mean + x["std"] * self.draw(img.shape, generator, img.device),)
+
+        T = self.num_timesteps
+        xs = self._step_values(range(T - 1, 0, -1), names)
+        xs["std"] = torch.from_numpy(self._posterior_std[T - 1:0:-1].copy())
+        (img,) = loop(step, (img,), xs, (params, condition), (self.denoiser,))
+        x = {k: v[0] for k, v in self._step_values([0], names).items()}  # no noise at t = 0
+        _, x_start = self.model_predictions(params, img, x, condition)
+        return x["posterior_mean_coef1"] * x_start + x["posterior_mean_coef2"] * img
 
     def ddim_steps(self):
         """The DDIM schedule: (t, t_next) pairs, t_next = -1 at the end."""
@@ -234,22 +244,36 @@ class GaussianDiffusionEngine:
         return list(zip(times[:-1], times[1:]))
 
     def ddim_sample(self, params: Params, generator: Optional[torch.Generator], condition: torch.Tensor) -> torch.Tensor:
-        """DDIM with ``ddim_sampling_eta`` over the subsampled schedule."""
+        """DDIM with ``ddim_sampling_eta`` over the subsampled schedule: the
+        steps to a t_next >= 0 as one :func:`utils.loop.loop`, the last
+        (t_next = -1, which returns the predicted x_0) peeled after it."""
         ac = self.buffers.host["alphas_cumprod"]
         eta = f32(self.cfg.ddim_sampling_eta)
         one, zero = f32(1.0), f32(0.0)
+        names = ("sqrt_recip_alphas_cumprod", "sqrt_recipm1_alphas_cumprod")
         img = self._init(generator, condition)
-        for t, t_next in self.ddim_steps():
-            pred_noise, x_start = self.model_predictions(params, img, t, condition)
-            if t_next < 0:
-                img = x_start
-                continue
+        pairs = self.ddim_steps()
+        body, (t_last, _) = pairs[:-1], pairs[-1]
+        coefs = []
+        for t, t_next in body:
             alpha, alpha_next = ac[t], ac[t_next]
             sigma = eta * np.sqrt(np.maximum((one - alpha / alpha_next) * (one - alpha_next) / (one - alpha), zero))
             c = np.sqrt(np.maximum(one - alpha_next - sigma * sigma, zero))
+            coefs.append((np.sqrt(alpha_next), c, sigma))
+
+        def step(carry, x, consts):
+            (img,), (params, condition) = carry, consts
+            pred_noise, x_start = self.model_predictions(params, img, x, condition)
             noise = self.draw(img.shape, generator, img.device)
-            img = x_start * float(np.sqrt(alpha_next)) + float(c) * pred_noise + float(sigma) * noise
-        return img
+            return (x_start * x["sqrt_alpha_next"] + x["c"] * pred_noise + x["sigma"] * noise,)
+
+        xs = self._step_values([t for t, _ in body], names)
+        for i, k in enumerate(("sqrt_alpha_next", "c", "sigma")):
+            xs[k] = torch.tensor([v[i] for v in coefs], dtype=torch.float32)
+        if body:
+            (img,) = loop(step, (img,), xs, (params, condition), (self.denoiser,))
+        x = {k: v[0] for k, v in self._step_values([t_last], names).items()}
+        return self.model_predictions(params, img, x, condition)[1]
 
     def sample(self, params: Params, generator: Optional[torch.Generator], condition: torch.Tensor) -> torch.Tensor:
         """DDPM, or DDIM when ``sampling_timesteps`` < T: (B, C, H, W)."""

@@ -35,6 +35,7 @@ from dyffusion_tpu_torch.diffusion.ddpm import BufferTable, initial_shape
 from dyffusion_tpu_torch.diffusion.schedules import make_beta_schedule
 from dyffusion_tpu_torch.models.base import apply_model
 from dyffusion_tpu_torch.utils import rng
+from dyffusion_tpu_torch.utils.loop import loop
 
 Params = Optional[Mapping[str, torch.Tensor]]
 f32 = np.float32
@@ -176,6 +177,19 @@ class LatentDDPMEngine:
         return self.p_losses(params, generator, x_start, condition, t, logvar)
 
     # ---- sampling ----
+    def _step(self, params: Params, img: torch.Tensor, x, condition) -> torch.Tensor:
+        """The posterior mean of one ancestral step, its values ``x`` (``t``
+        and the step's coefficients) 0-dim CPU tensors."""
+        t_in = torch.zeros((img.shape[0],), dtype=torch.float32, device=img.device) + x["t"]
+        out = apply_model(self.denoiser, params, img, t_in, condition, None)
+        if self.cfg.parameterization == "pred_noise":
+            x0 = x["sqrt_recip_alphas_cumprod"] * img - x["sqrt_recipm1_alphas_cumprod"] * out
+        else:
+            x0 = out
+        if self.cfg.clip_denoised:
+            x0 = torch.clamp(x0, -1.0, 1.0)
+        return x["posterior_mean_coef1"] * x0 + x["posterior_mean_coef2"] * img
+
     def sample(
         self,
         params: Params,
@@ -186,31 +200,41 @@ class LatentDDPMEngine:
     ):
         """The ancestral sampler: (B, C, H, W); with ``return_intermediates``
         also the (K, B, C, H, W) stack of the initial noise and the image
-        after each step t with ``t % log_every_t == 0`` or t = T-1."""
-        cfg, b = self.cfg, self.buffers
-        B = condition.shape[0]
+        after each step t with ``t % log_every_t == 0`` or t = T-1.
+
+        The steps T-1 .. 1, which add noise, run as one
+        :func:`utils.loop.loop` (one loop op in an exported sampler), or as
+        a Python loop over the same step where the intermediates are kept;
+        the noise-free t = 0 is peeled."""
         T = self.num_timesteps
         img = self.draw(initial_shape(self.sample_shape, condition), generator, condition.device)
-        inter = [img] if return_intermediates else None
-        lg = max(int(log_every_t), 1)
-        for t in range(T - 1, -1, -1):
-            t_in = torch.full((B,), float(t), device=img.device)
-            out = apply_model(self.denoiser, params, img, t_in, condition, None)
-            if cfg.parameterization == "pred_noise":
-                x0 = b.coef("sqrt_recip_alphas_cumprod", t, img.ndim) * img - b.coef(
-                    "sqrt_recipm1_alphas_cumprod", t, img.ndim
-                ) * out
-            else:
-                x0 = out
-            if cfg.clip_denoised:
-                x0 = torch.clamp(x0, -1.0, 1.0)
-            mean = b.coef("posterior_mean_coef1", t, img.ndim) * x0 + b.coef("posterior_mean_coef2", t, img.ndim) * img
-            if t > 0:  # no noise at t = 0
-                mean = mean + float(self._posterior_std[t]) * self.draw(img.shape, generator, img.device)
-            img = mean
-            if return_intermediates and (t % lg == 0 or t == T - 1):
-                inter.append(img)
+        names = ("sqrt_recip_alphas_cumprod", "sqrt_recipm1_alphas_cumprod", "posterior_mean_coef1", "posterior_mean_coef2")
+        h = self.buffers.host
+
+        def values(ts):
+            idx = np.asarray(ts, np.int64)
+            return {"t": torch.from_numpy(idx.astype(np.float32)), **{n: torch.from_numpy(h[n][idx]) for n in names},
+                    "std": torch.from_numpy(self._posterior_std[idx])}
+
+        def step(carry, x, consts):
+            (img,), (params, condition) = carry, consts
+            mean = self._step(params, img, x, condition)
+            return (mean + x["std"] * self.draw(img.shape, generator, img.device),)
+
+        xs, consts = values(range(T - 1, 0, -1)), (params, condition)
+        inter = None
         if return_intermediates:
+            lg = max(int(log_every_t), 1)
+            inter = [img]
+            for j, t in enumerate(range(T - 1, 0, -1)):
+                (img,) = step((img,), {k: v[j] for k, v in xs.items()}, consts)
+                if t % lg == 0 or t == T - 1:
+                    inter.append(img)
+        else:
+            (img,) = loop(step, (img,), xs, consts, (self.denoiser,))
+        img = self._step(params, img, {k: v[0] for k, v in values([0]).items()}, condition)  # no noise at t = 0
+        if return_intermediates:
+            inter.append(img)
             return img, torch.stack(inter)
         return img
 

@@ -3,9 +3,10 @@
 Counterpart of ``dyffusion_tpu/diffusion/dyffusion.py``: the step mapping,
 the sampling-schedule DSL, the precomputed static schedule, the cold/naive
 sampler and the two-term training loss (``p_losses``, ``loss``). The JAX
-``lax.scan`` becomes a Python loop over the precomputed steps; each cold
-step still runs the two interpolator calls as ONE 2B-batch forward, and the
-last step is peeled. Tensors are NCHW.
+``lax.scan`` becomes :func:`utils.loop.loop` over the precomputed steps (a
+Python loop when run, one loop op when exported); each cold step still
+runs the two interpolator calls as ONE 2B-batch forward, and the last step
+is peeled. Tensors are NCHW.
 
 Randomness comes from one explicit ``torch.Generator``, drawn in a fixed
 order, so the same seed gives the same samples; ``sample_ensemble`` runs the
@@ -28,6 +29,7 @@ from torch import nn
 
 from dyffusion_tpu_torch.models.base import MODEL_STATE_UPDATES, apply_model, apply_model_train
 from dyffusion_tpu_torch.utils import rng
+from dyffusion_tpu_torch.utils.loop import loop
 from dyffusion_tpu_torch.utils.loss import mse_loss
 
 Params = Optional[Mapping[str, torch.Tensor]]
@@ -200,8 +202,8 @@ class _SampleSteps:
     i_next: np.ndarray  # (K-1,) float32 — interpolation time of s_next
     i_cur: np.ndarray  # (K-1,) float32 — interpolation time of s (clamped at s=0)
     s_pos: np.ndarray  # (K-1,) float32 — 1.0 where s > 0 (cold second q_sample)
-    is_dyn: np.ndarray  # (K-1,) bool — records a dynamical output this step
-    slot: np.ndarray  # (K-1,) int32 — output slot (junk slot when not is_dyn)
+    is_dyn: np.ndarray  # (K-1,) bool — records a dynamical output this step (the JAX scan's input)
+    slot: np.ndarray  # (K-1,) int32 — output slot, or n_outputs (the spare slot) when not is_dyn
     last_s: float
     last_is_N_minus_1: bool
     n_outputs: int
@@ -450,7 +452,13 @@ class DyffusionEngine:
         static_condition: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """Run the sampler. ``initial_condition`` is (B, window*C, H, W);
-        returns (B, h, C, H, W), the h dynamical predictions t1..th."""
+        returns (B, h, C, H, W), the h dynamical predictions t1..th.
+
+        The steps before the last run as one :func:`utils.loop.loop` over
+        the precomputed steps (one loop op in an exported sampler), the
+        JAX scan's body: the s = 0 step is a mask, and a step that records
+        no dynamical output writes the spare slot ``n_outputs``. The final
+        step is peeled, and the refinement is a loop of its own."""
         cfg, st, mp = self.cfg, self._steps, self.mapping
         B = initial_condition.shape[0]
         C = cfg.num_input_channels
@@ -458,35 +466,44 @@ class DyffusionEngine:
         x_s = initial_condition[:, -C:]
         cold = cfg.sampling_type == "cold"
         ip_gen = generator if cfg.enable_interpolator_dropout else None
-        out = torch.zeros((st.n_outputs,) + tuple(x_s.shape), dtype=x_s.dtype, device=dev)
+        # the outputs, and one spare slot for the steps that record none
+        out = torch.zeros((st.n_outputs + 1,) + tuple(x_s.shape), dtype=x_s.dtype, device=dev)
+        slots = torch.arange(st.n_outputs + 1, device=dev).reshape((-1,) + (1,) * x_s.ndim)
         ic2 = torch.cat([initial_condition, initial_condition], dim=0) if cold else None
         sc2 = None
         if cold and static_condition is not None:
             sc2 = torch.cat([static_condition, static_condition], dim=0)
+        consts = (initial_condition, static_condition, ic2, sc2, fc_params, ip_params, slots)
 
-        def full(v, n=B):
-            return torch.full((n,), float(v), dtype=torch.float32, device=dev)
+        def full(v):  # (B,) f32 rows of the step value v (a float or a 0-dim CPU tensor)
+            return torch.zeros((B,), dtype=torch.float32, device=dev) + v
 
-        for j in range(len(st.s)):
-            x0_hat = self.predict_x_last(
-                fc_params, initial_condition, x_s, full(st.s[j]), static_condition, noise_generator=generator
-            )
+        def write(out, slot, x, slots):
+            return torch.where(slots == slot, x.unsqueeze(0), out)
+
+        def step(carry, x, consts):
+            x_s, out = carry
+            ic, sc, ic2, sc2, fc_p, ip_p, slots = consts
+            x0_hat = self.predict_x_last(fc_p, ic, x_s, full(x["s"]), sc, noise_generator=generator)
             if cold:
                 # one 2B-batch interpolator call for i_next and i_cur
-                t2 = torch.cat([full(st.i_next[j]), full(st.i_cur[j])])
-                x_pair = self.interpolate(ip_params, ic2, torch.cat([x0_hat, x0_hat], dim=0), t2, sc2, ip_gen)
+                t2 = torch.cat([full(x["i_next"]), full(x["i_cur"])])
+                x_pair = self.interpolate(ip_p, ic2, torch.cat([x0_hat, x0_hat], dim=0), t2, sc2, ip_gen)
                 x_ip_next, x_ip_cur = x_pair[:B], x_pair[B:]
-                if st.s_pos[j] == 0.0:  # at s = 0 the "current" interpolation is x_s itself
-                    x_ip_cur = x_s
-                # f32 update, as the JAX scan promotes it through the f32 s_pos mask
-                x_new = x_s.float() - x_ip_cur.float() + x_ip_next.float()
+                # at s = 0 (s_pos 0) the "current" interpolation is x_s itself;
+                # the update in f32, as the JAX scan promotes it through the f32 mask
+                s_pos = x["s_pos"]
+                x_ip_cur = s_pos * x_ip_cur.float() + (1.0 - s_pos) * x_s.float()
+                x_new = x_s.float() - x_ip_cur + x_ip_next.float()
             else:
-                x_new = self.interpolate(
-                    ip_params, initial_condition, x0_hat, full(st.i_next[j]), static_condition, ip_gen
-                )
-            x_s = x_new.to(out.dtype)
-            if st.is_dyn[j]:
-                out[int(st.slot[j])] = x_s
+                x_new = self.interpolate(ip_p, ic, x0_hat, full(x["i_next"]), sc, ip_gen)
+            x_new = x_new.to(out.dtype)
+            return x_new, write(out, x["slot"], x_new, slots)
+
+        xs = {k: torch.from_numpy(getattr(st, k)) for k in ("s", "i_next", "i_cur", "s_pos")}
+        xs["slot"] = torch.from_numpy(st.slot.astype(np.int64))
+        nets = (self.forecaster, self.interpolator)  # the networks the loops call
+        x_s, out = loop(step, (x_s, out), xs, consts, nets)
 
         # peeled final step
         x0_hat = self.predict_x_last(
@@ -506,12 +523,21 @@ class DyffusionEngine:
         if cfg.refine_intermediate_predictions:
             dyn_times = list(cfg.prediction_timesteps or mp.dynamical_steps.values())
             dyn_times = [i for i in dyn_times if i < self.num_timesteps and i < mp.horizon]
-            for i_n in dyn_times:  # one batch-B interpolator forward per time
-                r = self.interpolate(ip_params, initial_condition, x0_hat, full(i_n), static_condition, ip_gen)
-                if float(i_n).is_integer():
-                    out[int(i_n) - 1] = r.to(out.dtype)
+            if dyn_times:  # one batch-B interpolator forward per time; a fractional time writes the spare slot
 
-        return out.transpose(0, 1)  # (B, h, C, H, W)
+                def refine(carry, x, consts):
+                    ic, sc, x0_hat, ip_p, slots = consts
+                    r = self.interpolate(ip_p, ic, x0_hat, full(x["t"]), sc, ip_gen)
+                    return (write(carry[0], x["slot"], r.to(out.dtype), slots),)
+
+                xs = {
+                    "t": torch.tensor(dyn_times, dtype=torch.float32),
+                    "slot": torch.tensor([int(i) - 1 if float(i).is_integer() else st.n_outputs for i in dyn_times]),
+                }
+                (out,) = loop(refine, (out,), xs, (initial_condition, static_condition, x0_hat, ip_params, slots),
+                              nets)
+
+        return out[: st.n_outputs].transpose(0, 1)  # (B, h, C, H, W)
 
     def sample_ensemble(
         self,

@@ -12,14 +12,15 @@ Counterpart of ``dyffusion_tpu/diffusion/mcvd.py`` (``get_sigmas`` and
 - the DDPM sampler with ``sampling_timesteps`` subsampling, ``frac_steps``,
   ``just_beta``, ``clip_before`` and the final denoise, which is conditioned
   on the step COUNT n-1, not on the last step's index (as the JAX package
-  and its reference do); DDIM; F-PNDM, whose Runge-Kutta warm-up and
-  4th-order Adams-Bashforth steps become a Python branch per step;
+  and its reference do); DDIM; F-PNDM, whose three Runge-Kutta warm-up
+  steps and its 4th-order Adams-Bashforth steps are two loops;
 - the annealed-Langevin (SMLD) sampler library, which no config reaches:
   :func:`anneal_langevin_dynamics`, its sparse, consistent and sparse
   consistent forms, inpainting and interpolation.
 
-The samplers are Python loops over f32 scalar coefficients computed on the
-host in the JAX package's order of f32 operations. The score network is a
+The samplers' steps run through :func:`utils.loop.loop` (a Python loop
+when run, one loop op when exported) over f32 scalar coefficients computed
+on the host in the JAX package's order of f32 operations. The score network is a
 backbone called as ``(x, time, condition, generator)`` with time the step
 index as a float; in training its dropout is live when a generator is
 given and BatchNorm reads its running averages; the samplers call it
@@ -42,6 +43,7 @@ from torch import nn
 from dyffusion_tpu_torch.diffusion.ddpm import BufferTable, initial_shape
 from dyffusion_tpu_torch.models.base import apply_model
 from dyffusion_tpu_torch.utils import rng
+from dyffusion_tpu_torch.utils.loop import loop
 from dyffusion_tpu_torch.utils.loss import mse_loss
 
 Params = Optional[Mapping[str, torch.Tensor]]
@@ -152,9 +154,24 @@ class McvdEngine:
         if not self.cfg.gamma:
             return self.draw(shape, generator, device)
         c = self.buffers.coef
-        k, theta, alpha = (c(n, t, len(shape)) for n in ("k_cum", "theta_t", "alphas"))
+        return self._gamma_noise(shape, *(c(n, t, len(shape)) for n in ("k_cum", "theta_t", "alphas")),
+                                 generator, device)
+
+    def _gamma_noise(self, shape, k, theta, alpha, generator, device) -> torch.Tensor:
+        """Gamma noise of concentration ``k`` and scale ``theta``, normalized
+        to mean 0 and variance 1 by ``alpha``: device tensors, one value per
+        row or one for every row (0-dim)."""
         z = self.draw(shape, generator, device, concentration=k) * theta
         return (z - k * theta) / torch.sqrt(1.0 - alpha)
+
+    def _step_noise(self, shape, x, generator, device) -> torch.Tensor:
+        """A sampler step's noise, the step's ``k_cum``, ``theta_t`` and
+        ``alphas_t`` (0-dim CPU tensors) made 0-dim device tensors: the
+        values and the draw of :meth:`_noise_like` at that step."""
+        if not self.cfg.gamma:
+            return self.draw(shape, generator, device)
+        k, theta, alpha = (torch.zeros((), device=device) + x[n] for n in ("k_cum", "theta_t", "alphas_t"))
+        return self._gamma_noise(shape, k, theta, alpha, generator, device)
 
     def _net(self, params: Params, x, t: Union[float, torch.Tensor], condition, generator=None) -> torch.Tensor:
         t_in = t.float() if isinstance(t, torch.Tensor) else torch.full((x.shape[0],), float(t), device=x.device)
@@ -217,49 +234,72 @@ class McvdEngine:
             return z - k0 * th0
         return self.draw(shape, generator, condition.device)
 
+    def _x0(self, params: Params, xv: torch.Tensor, x, condition) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(score, x_0 estimate) at one DDPM/DDIM step, its values ``x``
+        (``t``, ``sqrt_1m_a``, ``sqrt_a``) 0-dim CPU tensors or floats."""
+        grad = self._net(params, xv, torch.zeros((xv.shape[0],), device=xv.device) + x["t"], condition)
+        x0 = (xv - x["sqrt_1m_a"] * grad) / x["sqrt_a"]
+        return grad, torch.clamp(x0, -1.0, 1.0) if self.cfg.clip_before else x0
+
+    def _denoise(self, params: Params, xv: torch.Tensor, alphas: np.ndarray, n: int, condition) -> torch.Tensor:
+        """The final denoise, conditioned on the step count n - 1."""
+        if not self.cfg.sampling_denoise:
+            return xv
+        return xv - float(np.sqrt(f32(1.0) - alphas[-1])) * self._net(params, xv, float(n - 1), condition)
+
     def ddpm_sample(self, params: Params, generator: Optional[torch.Generator], condition: torch.Tensor) -> torch.Tensor:
-        """The ancestral MCVD sampler, then the final denoise."""
+        """The ancestral MCVD sampler, then the final denoise: the steps
+        that add noise as one :func:`utils.loop.loop` (one loop op in an
+        exported sampler), the noise-free last step peeled after it."""
         cfg = self.cfg
-        B = condition.shape[0]
         steps, alphas, alphas_prev, betas = self.subsampled_schedule()
         n = len(steps)
         one = f32(1.0)
+        xs = {
+            "t": steps.astype(np.float32),
+            "sqrt_1m_a": np.sqrt(one - alphas),
+            "sqrt_a": np.sqrt(alphas),
+            "c0": np.sqrt(alphas_prev) * betas / (one - alphas),
+            "c1": np.sqrt(one - betas) * (one - alphas_prev) / (one - alphas),
+            "sigma": np.sqrt(betas) if cfg.just_beta else np.sqrt((one - alphas_prev) / (one - alphas) * betas),
+        }
+        if cfg.gamma:  # the noise's coefficients at the step's index into the full schedule
+            h = self.buffers.host
+            xs.update(k_cum=h["k_cum"][steps], theta_t=h["theta_t"][steps], alphas_t=h["alphas"][steps])
+        xs = {k: torch.from_numpy(np.ascontiguousarray(v, np.float32)) for k, v in xs.items()}
+
+        def mean(params, xv, x, condition):
+            _, x0 = self._x0(params, xv, x, condition)
+            return x["c0"] * x0 + x["c1"] * xv
+
+        def step(carry, x, consts):
+            (xv,), (params, condition) = carry, consts
+            new = mean(params, xv, x, condition)
+            return (new + x["sigma"] * self._step_noise(xv.shape, x, generator, xv.device),)
+
         x = self._init_sample(generator, condition)
-        for i in range(n):
-            step, a, a_prev, beta = f32(steps[i]), alphas[i], alphas_prev[i], betas[i]
-            grad = self._net(params, x, float(step), condition)
-            x0 = (x - float(np.sqrt(one - a)) * grad) / float(np.sqrt(a))
-            if cfg.clip_before:
-                x0 = torch.clamp(x0, -1.0, 1.0)
-            c0 = np.sqrt(a_prev) * beta / (one - a)
-            c1 = np.sqrt(one - beta) * (one - a_prev) / (one - a)
-            x_new = float(c0) * x0 + float(c1) * x
-            if i + 1 < n:  # no noise at the last step
-                t_b = torch.full((B,), int(step), dtype=torch.long, device=x.device)
-                noise = self._noise_like(x.shape, t_b, generator, x.device)
-                sigma = np.sqrt(beta) if cfg.just_beta else np.sqrt((one - a_prev) / (one - a) * beta)
-                x_new = x_new + float(sigma) * noise
-            x = x_new
-        if cfg.sampling_denoise:
-            x = x - float(np.sqrt(one - alphas[-1])) * self._net(params, x, float(n - 1), condition)
-        return x
+        (x,) = loop(step, (x,), {k: v[:-1] for k, v in xs.items()}, (params, condition), (self.scorenet,))
+        x = mean(params, x, {k: v[-1] for k, v in xs.items()}, condition)  # no noise at the last step
+        return self._denoise(params, x, alphas, n, condition)
 
     def ddim_sample(self, params: Params, generator: Optional[torch.Generator], condition: torch.Tensor) -> torch.Tensor:
-        """The MCVD DDIM sampler, then the final denoise (conditioned on
-        the step count - 1, as in :meth:`ddpm_sample`)."""
-        cfg = self.cfg
+        """The MCVD DDIM sampler, its steps one :func:`utils.loop.loop`,
+        then the final denoise (conditioned on the step count - 1, as in
+        :meth:`ddpm_sample`)."""
         steps, alphas, alphas_prev, _ = self.subsampled_schedule()
         one = f32(1.0)
+        xs = {"t": steps.astype(np.float32), "sqrt_1m_a": np.sqrt(one - alphas), "sqrt_a": np.sqrt(alphas),
+              "sqrt_a_prev": np.sqrt(alphas_prev), "sqrt_1m_a_prev": np.sqrt(one - alphas_prev)}
+
+        def step(carry, x, consts):
+            (xv,), (params, condition) = carry, consts
+            grad, x0 = self._x0(params, xv, x, condition)
+            return (x["sqrt_a_prev"] * x0 + x["sqrt_1m_a_prev"] * grad,)
+
         x = self._init_sample(generator, condition)
-        for step, a, a_prev in zip(steps, alphas, alphas_prev):
-            grad = self._net(params, x, float(f32(step)), condition)
-            x0 = (x - float(np.sqrt(one - a)) * grad) / float(np.sqrt(a))
-            if cfg.clip_before:
-                x0 = torch.clamp(x0, -1.0, 1.0)
-            x = float(np.sqrt(a_prev)) * x0 + float(np.sqrt(one - a_prev)) * grad
-        if cfg.sampling_denoise:
-            x = x - float(np.sqrt(one - alphas[-1])) * self._net(params, x, float(len(steps) - 1), condition)
-        return x
+        xs = {k: torch.from_numpy(np.ascontiguousarray(v, np.float32)) for k, v in xs.items()}
+        (x,) = loop(step, (x,), xs, (params, condition), (self.scorenet,))
+        return self._denoise(params, x, alphas, len(steps), condition)
 
     def fpndm_steps(self) -> List[Tuple[float, float]]:
         """F-PNDM's (t, t_next) pairs."""
@@ -270,44 +310,63 @@ class McvdEngine:
 
     def fpndm_sample(self, params: Params, generator: Optional[torch.Generator], condition: torch.Tensor) -> torch.Tensor:
         """F-PNDM: Runge-Kutta for the first three steps, then 4th-order
-        Adams-Bashforth on the noise history."""
+        Adams-Bashforth on the noise history. The two kinds of step are two
+        :func:`utils.loop.loop` s (each one loop op in an exported sampler,
+        as the JAX scan's ``lax.cond`` has both branches), both carrying the
+        sample and the last three noise estimates (zeros before the first)."""
         cfg = self.cfg
         # alphas indexed by t + 1 over the small-to-big order
         alphas_old = np.ascontiguousarray(self.buffers.host["alphas"][::-1])
         one = f32(1.0)
-
-        def model(xv, t):
-            return self._net(params, xv, float(t), condition)
-
         last = len(alphas_old) - 1
 
-        def transfer(xv, t, t_next, et):
+        def coefs(t, t_next):
             # t truncates toward zero BEFORE the + 1 (a midpoint t = -0.5 reads
             # index 1); t = T-1 reads past the end, which JAX's gather clamps
             at, at_next = alphas_old[min(int(t) + 1, last)], alphas_old[min(int(t_next) + 1, last)]
             sa, sn = np.sqrt(at), np.sqrt(at_next)
             cx = one / (sa * (sa + sn))
             ce = one / (sa * (np.sqrt((one - at_next) * at) + np.sqrt((one - at) * at_next)))
-            out = xv + float(at_next - at) * (float(cx) * xv - float(ce) * et)
+            return at_next - at, cx, ce
+
+        def transfer(xv, x, to, et):
+            out = xv + x["d_" + to] * (x["cx_" + to] * xv - x["ce_" + to] * et)
             return torch.clamp(out, -1.0, 1.0) if cfg.clip_before else out
 
-        x = self._init_sample(generator, condition)
-        ets: List[Optional[torch.Tensor]] = [None] * 4  # the last four noise estimates
-        for count, (step, step_next) in enumerate(self.fpndm_steps()):
-            t, t_next = f32(step), f32(step_next)
-            if count > 2:
-                e_new = model(x, t)
-                et = (55 * e_new - 59 * ets[3] + 37 * ets[2] - 9 * ets[1]) / 24.0
-            else:
+        def values(pairs, mid: bool):
+            rows = []
+            for t, t_next in pairs:
                 t_mid = (t + t_next) / f32(2.0)
-                e1 = model(x, t)
-                e2 = model(transfer(x, t, t_mid, e1), t_mid)
-                e3 = model(transfer(x, t, t_mid, e2), t_mid)
-                e4 = model(transfer(x, t, t_next, e3), t_next)
-                et, e_new = (e1 + 2 * e2 + 2 * e3 + e4) / 6.0, e1
-            ets = ets[1:] + [e_new]
-            x = transfer(x, t, t_next, et)
-        return x
+                rows.append([t, t_mid, t_next, *coefs(t, t_next), *(coefs(t, t_mid) if mid else ())])
+            keys = ["t", "t_mid", "t_next", "d_next", "cx_next", "ce_next"] + (["d_mid", "cx_mid", "ce_mid"] if mid else [])
+            table = np.asarray(rows, np.float32).reshape(len(rows), len(keys))
+            return {k: torch.from_numpy(np.ascontiguousarray(table[:, i])) for i, k in enumerate(keys)}
+
+        def net(params, xv, t, condition):
+            return self._net(params, xv, torch.zeros((xv.shape[0],), device=xv.device) + t, condition)
+
+        def runge_kutta(carry, x, consts):
+            (xv, _, e2, e3), (params, condition) = carry, consts
+            e1 = net(params, xv, x["t"], condition)
+            k2 = net(params, transfer(xv, x, "mid", e1), x["t_mid"], condition)
+            k3 = net(params, transfer(xv, x, "mid", k2), x["t_mid"], condition)
+            k4 = net(params, transfer(xv, x, "next", k3), x["t_next"], condition)
+            return transfer(xv, x, "next", (e1 + 2 * k2 + 2 * k3 + k4) / 6.0), e2, e3, e1
+
+        def adams_bashforth(carry, x, consts):
+            (xv, e1, e2, e3), (params, condition) = carry, consts
+            e_new = net(params, xv, x["t"], condition)
+            et = (55 * e_new - 59 * e3 + 37 * e2 - 9 * e1) / 24.0
+            return transfer(xv, x, "next", et), e2, e3, e_new
+
+        pairs = [(f32(t), f32(t_next)) for t, t_next in self.fpndm_steps()]
+        x = self._init_sample(generator, condition)
+        zero = torch.zeros_like(x)
+        carry, consts = (x, zero, zero, zero), (params, condition)
+        carry = loop(runge_kutta, carry, values(pairs[:3], True), consts, (self.scorenet,))
+        if len(pairs) > 3:
+            carry = loop(adams_bashforth, carry, values(pairs[3:], False), consts, (self.scorenet,))
+        return carry[0]
 
     def sample(self, params: Params, generator: Optional[torch.Generator], condition: torch.Tensor) -> torch.Tensor:
         """The configured sampler: (B, C, H, W)."""

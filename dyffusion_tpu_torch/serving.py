@@ -20,18 +20,25 @@ boundary conditions.
 :func:`export_run` writes the same sampler as one ``torch.export`` program
 (``sampler.pt2``, the eval weights embedded, cast to the eval dtype once)
 with a ``manifest.json`` of its input/output contract; by default its
-batch is symbolic, so one artifact serves any batch of at least 1.
-:func:`load_exported` serves it with no model code: it imports ``torch``
-and :mod:`dyffusion_tpu_torch.ops` (the kernels' ops) and nothing else of
-the package. :func:`export_experiment` is the in-memory counterpart over
-an experiment. ``python -m dyffusion_tpu_torch.serving`` is the CLI.
+batch is symbolic, so one artifact serves any batch of at least 1. Each
+sampler's loop over its steps is one loop op in the program
+(``utils/loop.py``), so a 1000-step DDPM exports as its loop body. It may
+be data-parallel (``devices=N``: N replicas of one program, each on its
+rows of the batch) and serve several platforms (``platforms=("cuda",
+"cpu")``). :func:`load_exported` serves it with no model code: it imports
+``torch`` and :mod:`dyffusion_tpu_torch.ops` (the kernels' ops) and
+nothing else of the package. :func:`export_experiment` and
+:func:`save_exported` are the in-memory counterparts over an experiment.
+``python -m dyffusion_tpu_torch.serving`` is the CLI.
 
 The seed contract: the same seed gives the same answer. Eagerly, ``predict``
 seeds one fresh ``torch.Generator`` on the device and draws from it in a
 fixed order; the artifact draws the same sequence from the device's default
 generator, which its ``predict`` seeds per request (restoring the caller's
 RNG state afterwards). On one device, eager and artifact answers to one
-seed are the same.
+seed are the same. Each replica of a data-parallel artifact seeds its
+device's generator alike and keeps its rows of every draw made at the
+whole batch, so N replicas answer as one device does.
 """
 from __future__ import annotations
 
@@ -232,8 +239,10 @@ class _SamplerProgram(nn.Module):
     neither changed nor part of this module's state, so the program stores
     each weight once, in the dtype it computes in."""
 
-    def __init__(self, body: Callable, networks: Sequence[nn.Module], params, dtype: torch.dtype):
+    def __init__(self, body: Callable, networks: Sequence[nn.Module], params, dtype: torch.dtype,
+                 replicas: Optional[Tuple[int, int]] = None):
         super().__init__()
+        self.replicas = replicas  # (request batch, replica batch) of a data-parallel program, else None
         copies = []
         for i, net in enumerate(networks):
             c = copy.deepcopy(net)
@@ -243,9 +252,19 @@ class _SamplerProgram(nn.Module):
         self.networks = nn.ModuleList(copies)
         self._runner = (_Runner(body, networks),)  # in a tuple: not a submodule, its weights are not our state
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def forward(self, batch: Dict[str, torch.Tensor], replica: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``replica``: a data-parallel program's replica index (a 0-dim
+        int64 tensor on the device), whose rows of the request it serves;
+        every draw is the request's, cut to those rows."""
         weights = {**dict(self.networks.named_parameters("networks")), **dict(self.networks.named_buffers("networks"))}
-        return torch.func.functional_call(self._runner[0], weights, (batch,))
+        if self.replicas is None:
+            return torch.func.functional_call(self._runner[0], weights, (batch,))
+        from dyffusion_tpu_torch.utils.rng import replica_rows
+
+        total, b = self.replicas
+        rows = torch.arange(b, device=replica.device) + replica * b
+        with replica_rows(total, rows):
+            return torch.func.functional_call(self._runner[0], weights, (batch,))
 
 
 def _dims(shape) -> list:
@@ -257,19 +276,41 @@ def _drop_no_op_nodes(exported: torch.export.ExportedProgram) -> None:
     """Drop what the trace records and the run does not need: the
     ``_assert_tensor_metadata`` checks, ``to`` casts to the dtype a tensor
     already has (eager ``Tensor.to`` returns the tensor itself) and unused
-    ``promote_types`` calls: a quarter to a third of an unrolled sampler's
-    nodes, and saving and loading take time per node."""
+    ``promote_types`` calls, in the program's graph and in its loop
+    bodies: a quarter to a third of a network forward's nodes, and saving
+    and loading take time per node."""
     aten = torch.ops.aten
-    graph = exported.graph
-    for n in list(graph.nodes):
-        if n.op != "call_function":
-            continue
-        if n.target is aten._assert_tensor_metadata.default or (n.target is aten.promote_types.default and not n.users):
-            graph.erase_node(n)
-        elif n.target is aten.to.dtype and len(n.args) == 2 and not n.kwargs and n.args[0].meta["val"].dtype == n.args[1]:
-            n.replace_all_uses_with(n.args[0])
-            graph.erase_node(n)
-    exported.graph_module.recompile()
+    for gm in _graph_modules(exported):
+        for n in list(gm.graph.nodes):
+            if n.op != "call_function":
+                continue
+            if n.target is aten._assert_tensor_metadata.default or (
+                    n.target is aten.promote_types.default and not n.users):
+                gm.graph.erase_node(n)
+            elif (n.target is aten.to.dtype and len(n.args) == 2 and not n.kwargs
+                  and getattr(n.args[0].meta.get("val"), "dtype", None) == n.args[1]):
+                n.replace_all_uses_with(n.args[0])
+                gm.graph.erase_node(n)
+        gm.recompile()
+
+
+def _graph_modules(exported: torch.export.ExportedProgram) -> List[torch.fx.GraphModule]:
+    """The program's graph and the graphs of its loop ops' conditions and
+    bodies."""
+    return [m for m in exported.graph_module.modules() if isinstance(m, torch.fx.GraphModule)]
+
+
+def _graph_stats(exported: torch.export.ExportedProgram) -> Dict[str, int]:
+    """``nodes``: the nodes of every graph (a loop body counted once),
+    ``loops``: the loop ops, ``b1_nodes``: the B1 nodes of every graph."""
+    stats = {"nodes": 0, "loops": 0, "b1_nodes": 0}
+    for gm in _graph_modules(exported):
+        for n in gm.graph.nodes:
+            stats["nodes"] += 1
+            if n.op == "call_function":
+                stats["b1_nodes"] += str(n.target).startswith(_B1_OP)
+                stats["loops"] += n.target is torch.ops.higher_order.while_loop
+    return stats
 
 
 def export_experiment(
@@ -281,6 +322,8 @@ def export_experiment(
     batch_size: Optional[int] = None,
     polymorphic_batch: bool = True,
     reduce: Optional[str] = None,
+    devices: int = 1,
+    platforms: Optional[Sequence[str]] = None,
 ) -> Tuple[torch.export.ExportedProgram, Dict[str, Any]]:
     """Export ``experiment``'s ``split`` sampler as a ``torch.export``
     program on the experiment's device; ``(program, manifest)``. The
@@ -290,66 +333,106 @@ def export_experiment(
 
     ``polymorphic_batch=True`` traces a symbolic batch ``Dim("b", min=1)``
     at an example batch of ``max(batch_size, 2)``; ``False`` pins the batch
-    to ``batch_size`` (default: the datamodule's eval batch size). The
-    sampler's Python loop is unrolled: the graph holds every forward of one
-    request."""
+    to ``batch_size`` (default: the datamodule's eval batch size). Each
+    sampler's loop over its steps is one loop op (``utils.loop``): the graph
+    holds the loop body once, and the steps peeled out of it. ``devices=D``
+    (pinned batch only) traces one replica at ``batch_size / D`` rows with
+    its replica index as a second input (see :func:`export_run`).
+    ``platforms``: the platforms the manifest lists (default: the
+    experiment's device's)."""
     _check_reduce(reduce)
     specs, info = _serving_contract(experiment, datamodule, split, batch_size, reduce)
+    _check_devices(devices, polymorphic_batch, info["batch_size"])
     # the eval function without its @torch.no_grad: the export runs under
     # no_grad, and the decorator's grad-mode switches would be traced as
     # regions that export then splits the whole graph at
     eval_fn = inspect.unwrap(eval_fns[split])
-    program = _SamplerProgram(_predict_body(eval_fn, reduce), _networks(experiment), params, experiment.eval_dtype())
-    trace_batch = max(info["batch_size"], 2) if polymorphic_batch else info["batch_size"]
+    B = info["batch_size"]
+    replicas = (B, B // devices) if devices > 1 else None
+    program = _SamplerProgram(_predict_body(eval_fn, reduce), _networks(experiment), params, experiment.eval_dtype(),
+                              replicas)
+    trace_batch = max(B, 2) if polymorphic_batch else B // devices
     example = {
         k: torch.zeros((trace_batch,) + s.shape[1:], dtype=torch.from_numpy(np.zeros((), s.dtype)).dtype,
                        device=experiment.device)
         for k, s in specs.items()
     }
+    args = (example,) if replicas is None else (example, torch.zeros((), dtype=torch.int64, device=experiment.device))
     dynamic = None
     if polymorphic_batch:
         b = torch.export.Dim("b", min=1)
         dynamic = ({k: {0: b} for k in specs},)
     # no stack trace per node: recording them takes about a third of the
-    # trace's host time, and the unrolled sampler has ~1,000 nodes per
-    # network forward
+    # trace's host time
     stack_traces = getattr(torch.fx.config, "do_not_emit_stack_traces", False)
     torch.fx.config.do_not_emit_stack_traces = True
     t = time.perf_counter()
     try:
         with torch.no_grad():
-            exported = torch.export.export(program, (example,), dynamic_shapes=dynamic)
+            exported = torch.export.export(program, args, dynamic_shapes=dynamic)
     finally:
         torch.fx.config.do_not_emit_stack_traces = stack_traces
     _drop_no_op_nodes(exported)
     seconds = time.perf_counter() - t
-    nodes = list(exported.graph.nodes)
-    n_b1 = sum(str(n.target).startswith(_B1_OP) for n in nodes if n.op == "call_function")
+    stats = _graph_stats(exported)
     device = experiment.device
     if device.type == "cuda":
         device = torch.device("cuda", device.index if device.index is not None else torch.cuda.current_device())
-    out = [n for n in nodes if n.op == "output"][0].args[0][0].meta["val"]
+    out = [n for n in exported.graph.nodes if n.op == "output"][0].args[0][0].meta["val"]
+    out_shape = _dims(out.shape)
+    if replicas is not None:
+        out_shape[1] = B  # the request's batch: the replicas' rows together
     manifest = {
         **info,
         "device": str(device),
-        "devices": 1,
-        "platforms": [device.type],
+        "devices": int(devices),
+        "replica_batch_size": B // devices,
+        "platforms": _platforms(platforms, device),
         "polymorphic_batch": bool(polymorphic_batch),
-        "attention_kernel": None if not n_b1 else ("cuda" if device.type == "cuda" else "plain"),
+        "attention_kernel": None if not stats["b1_nodes"] else ("cuda" if device.type == "cuda" else "plain"),
         "inputs": {
             k: {"shape": ["b" if polymorphic_batch else s.shape[0], *s.shape[1:]], "dtype": str(np.dtype(s.dtype))}
             for k, s in specs.items()
         },
         "seed": {"shape": [], "dtype": "int64"},
         "output": {
-            "shape": _dims(out.shape),
+            "shape": out_shape,
             "dtype": str(out.dtype).replace("torch.", ""),
             "axes": (["stat(mean,std)"] if reduce == "mean_std" else ["member"]) + ["batch", "time", "..."],
         },
-        "graph": {"nodes": len(nodes), "b1_nodes": n_b1, "export_seconds": seconds},
+        "graph": {**stats, "export_seconds": seconds},
         "torch": torch.__version__,
     }
     return exported, manifest
+
+
+_PLATFORMS = ("cuda", "cpu")
+
+
+def _platforms(platforms: Optional[Sequence[str]], device: torch.device) -> List[str]:
+    """The manifest's platforms: ``platforms`` in order, once each (the
+    export device's own by default), each one torch serves the program on."""
+    out = list(dict.fromkeys(platforms or [device.type]))
+    unknown = [p for p in out if p not in _PLATFORMS]
+    if unknown:
+        raise ValueError(f"unknown platform(s) {unknown}: an artifact serves on {list(_PLATFORMS)}")
+    if device.type not in out:
+        raise ValueError(f"platforms={out} does not name the export device {device}")
+    return out
+
+
+def _check_devices(devices: int, polymorphic_batch: bool, batch_size: Optional[int]) -> None:
+    """The data-parallel artifact's rules (the JAX package's): a pinned
+    batch, divisible by ``devices``."""
+    if devices < 1:
+        raise ValueError(f"devices must be >= 1, got {devices}")
+    if devices == 1:
+        return
+    if polymorphic_batch:
+        raise ValueError("devices>1 requires polymorphic_batch=False: the batch must be pinned to split it "
+                         "over the replicas")
+    if batch_size is not None and batch_size % devices:
+        raise ValueError(f"batch_size={batch_size} is not divisible by devices={devices}")
 
 
 def export_run(
@@ -370,88 +453,183 @@ def export_run(
     ``torch.export`` program (``sampler.pt2``, the eval weights embedded) and
     a ``manifest.json``; returns the artifact's path.
 
-    The run is reloaded as :func:`build_predict_fn` reloads it (after
-    ``reduce`` is checked) and traced on ``device`` by
+    The run is reloaded as :func:`build_predict_fn` reloads it (after the
+    arguments are checked) and traced on ``device`` by
     :func:`export_experiment`: its B1 kernel is in the graph as the op
     ``dyffusion_tpu_torch::linear_attention_qkv`` (the manifest's
-    ``attention_kernel``: ``"cuda"``, or ``"plain"`` on the CPU).
-    ``platforms``, when given, names the one platform of ``device``.
+    ``attention_kernel``: ``"cuda"``, or ``"plain"`` on the CPU), and each
+    sampler's loop over its steps is one loop op, so the graph's size does
+    not grow with the number of steps (the manifest's ``graph``).
     ``polymorphic_batch=True`` (default) gives a symbolic batch; ``False``
     pins it to ``batch_size`` (default: the run's eval batch size).
     ``reduce='mean_std'`` ships the on-device ensemble reduction instead of
-    the raw members. Not ported: ``devices > 1`` (the data-parallel
-    artifact, ROADMAP A) and a multi-platform artifact."""
-    _check_reduce(reduce)  # before the reload
-    if devices > 1:
-        raise NotImplementedError(
-            "devices > 1 (the data-parallel artifact) is not ported (ROADMAP A: the data-parallel artifact); "
-            "export with devices=1"
-        )
+    the raw members.
+
+    ``platforms`` (e.g. ``("cuda", "cpu")``): the platforms the artifact
+    serves on, the trace device's among them (default: that one alone).
+    The program is traced once; :func:`load_exported` moves it to the
+    device it is asked for, where the kernels' ops run their CUDA kernels
+    or, on the CPU, their plain versions.
+
+    ``devices=D`` exports a data-parallel artifact: a pinned batch
+    (``polymorphic_batch=False``, or ``ValueError``) divisible by D
+    (``ValueError``), served by D replicas of one program, each on B/D
+    rows; :func:`load_exported` places replica i on ``cuda:i``. One
+    replica is traced, at B/D rows, with its replica index as an input, so
+    the weights are stored once, and each of its draws is the draw of the
+    whole B-row batch cut to its rows: D replicas answer as one device
+    does on the B rows. The export itself needs one device, not D (the
+    JAX package checks for D at export, because it lowers onto a D-device
+    mesh); the serving host's devices are checked when the artifact
+    loads."""
+    _check_reduce(reduce)  # the arguments, before the reload
+    _check_devices(devices, polymorphic_batch, batch_size)
     device = torch.device(device)
-    if platforms is not None:
-        if len(set(platforms)) > 1:
-            raise NotImplementedError(f"a multi-platform artifact is not ported: platforms={list(platforms)}")
-        if set(platforms) != {device.type}:
-            raise ValueError(f"platforms={list(platforms)} does not name the export device {device}")
+    _platforms(platforms, device)
     from dyffusion_tpu_torch.interface import reload_trainer
 
     trainer = reload_trainer(registry_dir, run_id, [*ONE_DEVICE, *(overrides or [])], slot=slot, device=device)
     exported, manifest = export_experiment(
         trainer.experiment, trainer.eval_fns, trainer.datamodule, trainer.state.eval_params(), split=split,
-        batch_size=batch_size, polymorphic_batch=polymorphic_batch, reduce=reduce,
+        batch_size=batch_size, polymorphic_batch=polymorphic_batch, reduce=reduce, devices=devices,
+        platforms=platforms,
     )
+    return save_exported(exported, {"run_id": run_id, "slot": slot, **manifest}, out_dir)
+
+
+def save_exported(exported: torch.export.ExportedProgram, manifest: Mapping[str, Any], out_dir: str) -> str:
+    """Write ``exported`` and its manifest to ``out_dir`` as
+    :func:`export_run` does (``sampler.pt2``, ``manifest.json``), for
+    :func:`load_exported`; returns the artifact's path."""
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, _ARTIFACT)
     torch.export.save(exported, path)
     with open(os.path.join(out_dir, _MANIFEST), "w") as f:
-        json.dump({"run_id": run_id, "slot": slot, **manifest}, f, indent=2)
+        json.dump(dict(manifest), f, indent=2)
     return path
 
 
+def _on_device(exported: torch.export.ExportedProgram, traced: torch.device, device: torch.device) -> nn.Module:
+    """The program as a module on ``device``: its own where it was traced,
+    else a copy moved there (weights, constants, and the devices written
+    into its graphs, the loop bodies' included). Only what lies on the
+    trace device moves: a CUDA program's per-step values and loop counter
+    stay on the CPU, where the loop reads them without waiting for the
+    card."""
+    if device == traced:
+        return exported.module()
+    from torch.export.passes import move_to_device_pass
+
+    moves = {str(traced): str(device), traced.type: str(device)}  # the trace may name "cuda" for "cuda:0"
+    return move_to_device_pass(copy.deepcopy(exported), moves).module()
+
+
 def serve_exported(
-    exported: torch.export.ExportedProgram, manifest: Mapping[str, Any], device: torch.device | str | None = None
+    exported: torch.export.ExportedProgram, manifest: Mapping[str, Any], device=None
 ) -> Callable:
     """``predict(batch, seed)`` over an exported sampler: converts the NHWC
-    numpy or tensor ``batch`` to tensors of the manifest's dtypes on the
-    artifact's device, seeds that device's default generator with ``seed``
-    and runs the program, inside ``torch.random.fork_rng`` (the caller's RNG
-    state is left as it was). Returns the (N, B, T, H, W, C) forecast, or
-    (2, B, ...) when reduced; ``predict.exported`` is the program.
-    ``device``: the artifact's own (default); a CUDA artifact needs a GPU,
-    with no fallback to the CPU."""
-    device = _artifact_device(manifest, device)
-    module = exported.module()
+    numpy or tensor ``batch`` to tensors of the manifest's dtypes, seeds
+    the default generator of each device it runs on with ``seed`` and runs
+    the program, inside ``torch.random.fork_rng`` (the caller's RNG state
+    is left as it was). Returns the (N, B, T, H, W, C) forecast, or (2, B,
+    ...) when reduced, on the (first) device; ``predict.exported`` is the
+    program.
+
+    ``device``: the artifact's own (default), or a device of one of the
+    manifest's ``platforms`` (the program is moved there); a CUDA device
+    needs a GPU, with no fallback to the CPU. A data-parallel artifact
+    (``devices`` = D > 1) runs D replicas, replica i on rows [i B/D, (i+1)
+    B/D) of the batch: by default on ``cuda:0 .. cuda:D-1`` (on the CPU
+    for a CPU artifact), or on the list of D devices ``device`` gives,
+    repeats allowed; one host thread per distinct device, each device's
+    replicas one after another."""
+    placements = _placements(manifest, device)
+    traced = torch.device(manifest["device"])
+    modules = {d: _on_device(exported, traced, d) for d in dict.fromkeys(placements)}
     inputs = manifest["inputs"]
     dtypes = {k: torch.from_numpy(np.zeros((), spec["dtype"])).dtype for k, spec in inputs.items()}
-    cuda = device.type == "cuda"
+    n = len(placements)
+    groups: Dict[torch.device, List[int]] = {}
+    for i, d in enumerate(placements):
+        groups.setdefault(d, []).append(i)
+    cuda = sorted({d.index for d in placements if d.type == "cuda"})
+
+    def run(d: torch.device, replicas: List[int], args: Dict[str, torch.Tensor], seed: int) -> Dict[int, torch.Tensor]:
+        out = {}
+        with torch.cuda.device(d) if d.type == "cuda" else contextlib.nullcontext():
+            for i in replicas:
+                (torch.cuda.default_generators[d.index] if d.type == "cuda" else torch.default_generator).manual_seed(
+                    int(seed))
+                if n == 1:
+                    out[i] = modules[d](args)
+                else:
+                    b = next(iter(args.values())).shape[0] // n
+                    rows = {k: v[i * b:(i + 1) * b].to(d) for k, v in args.items()}
+                    out[i] = modules[d](rows, torch.full((), i, dtype=torch.int64, device=d))
+        return out
 
     def predict(batch: Mapping[str, Any], seed: int) -> torch.Tensor:
         args = {}
         for k, spec in inputs.items():
-            x = torch.as_tensor(batch[k], dtype=dtypes[k], device=device)
+            x = torch.as_tensor(batch[k], dtype=dtypes[k], device=placements[0])
             want = spec["shape"]
-            if x.dim() != len(want) or any(w != "b" and w != n for w, n in zip(want, x.shape)) or x.shape[0] < 1:
+            if x.dim() != len(want) or any(w != "b" and w != m for w, m in zip(want, x.shape)) or x.shape[0] < 1:
                 raise ValueError(f"input '{k}' has shape {tuple(x.shape)}; the artifact takes {want}")
             args[k] = x
-        with torch.random.fork_rng(devices=[device.index] if cuda else []), torch.no_grad():
-            (torch.cuda.default_generators[device.index] if cuda else torch.default_generator).manual_seed(int(seed))
-            return module(args)
+        outs: Dict[int, torch.Tensor] = {}
+        with torch.random.fork_rng(devices=cuda), torch.no_grad():
+            if len(groups) == 1:
+                outs.update(run(placements[0], list(range(n)), args, seed))
+            else:
+                from concurrent.futures import ThreadPoolExecutor
+
+                with ThreadPoolExecutor(len(groups)) as pool:
+                    for f in [pool.submit(run, d, r, args, seed) for d, r in groups.items()]:
+                        outs.update(f.result())
+        if n == 1:
+            return outs[0]
+        return torch.cat([outs[i].to(placements[0]) for i in range(n)], dim=1)
 
     predict.exported = exported
     return predict
 
 
-def _artifact_device(manifest: Mapping[str, Any], device) -> torch.device:
-    want = torch.device(manifest["device"])
-    device = want if device is None else torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device() if torch.cuda.is_available() else 0)
-    if device != want:
-        raise ValueError(f"the artifact was exported on {want} and runs there, not on {device}")
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"the artifact was exported on {want}, but torch.cuda.is_available() is False: "
-                           "a CUDA artifact has no CPU fallback")
-    return device
+def _placements(manifest: Mapping[str, Any], device) -> List[torch.device]:
+    """The device of each replica (one for a one-device artifact), each of
+    a platform the manifest lists; a CUDA one needs a GPU."""
+    traced = torch.device(manifest["device"])
+    platforms = manifest.get("platforms", [traced.type])
+    n = int(manifest.get("devices", 1))
+    if device is None:
+        if n > 1 and traced.type == "cuda":
+            have = torch.cuda.device_count()
+            if have < n:
+                raise RuntimeError(
+                    f"the artifact was exported data-parallel over {n} devices but this host has {have} CUDA "
+                    f"devices: re-export with devices={max(have, 1)} (or 1) for this host, or pass the "
+                    f"{n} devices to place the replicas on"
+                )
+            devices = [torch.device("cuda", i) for i in range(n)]
+        else:
+            devices = [traced] * n
+    elif isinstance(device, (list, tuple)):
+        devices = [torch.device(d) for d in device]
+        if len(devices) != n:
+            raise ValueError(f"the artifact runs {n} replica(s): give {n} devices, not {len(devices)}")
+    else:
+        devices = [torch.device(device)] * n
+    out = []
+    for d in devices:
+        if d.type == "cuda" and d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device() if torch.cuda.is_available() else 0)
+        if d.type not in platforms:
+            raise ValueError(f"the artifact was exported on {traced} for the platforms {platforms}, "
+                             f"and runs there, not on {d}")
+        if d.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"the artifact is asked to run on {d}, but torch.cuda.is_available() is False: "
+                               "a CUDA request has no CPU fallback")
+        out.append(d)
+    return out
 
 
 @contextlib.contextmanager
@@ -479,35 +657,41 @@ def _cached_type_hints():
         typing.get_type_hints = original
 
 
-def load_exported(out_dir: str, device: torch.device | str | None = None):
+def load_exported(out_dir: str, device=None):
     """Load an :func:`export_run` artifact; returns ``(predict, manifest)``,
-    ``predict(batch, seed)`` as :func:`serve_exported` gives it. Needs no
+    ``predict(batch, seed)`` as :func:`serve_exported` gives it on
+    ``device`` (see there: the artifact's own device by default, any device
+    of a platform it lists, or, for a data-parallel artifact, ``cuda:0 ..
+    cuda:D-1`` or a list of D devices; too few GPUs for the default
+    placement raise a ``RuntimeError`` that says to re-export). Needs no
     model code or checkpoint: it imports ``torch`` and
     :mod:`dyffusion_tpu_torch.ops`, whose import registers the ops the
     program calls, and on CUDA builds their kernels (nvcc, cached under
     ``build/kernels/``) before the first request. The JAX package's
     ``compilation_cache`` option has no counterpart: an
-    ``ExportedProgram`` runs eagerly, op by op, with nothing to compile."""
+    ``ExportedProgram`` runs eagerly, op by op, its loop ops a Python loop
+    over their bodies, with nothing to compile."""
     import dyffusion_tpu_torch.ops  # noqa: F401 (registers the ops the program calls)
 
     with open(os.path.join(out_dir, _MANIFEST)) as f:
         manifest = json.load(f)
-    device = _artifact_device(manifest, device)
+    placements = _placements(manifest, device)  # before the load: a wrong host fails fast
     with _cached_type_hints():
         exported = torch.export.load(os.path.join(out_dir, _ARTIFACT))
-    if device.type == "cuda":  # build the kernels before the first request
+    if any(d.type == "cuda" for d in placements):  # build the kernels before the first request
         from dyffusion_tpu_torch.ops._build import CSRC, load_libraries
 
         load_libraries(sorted(p.stem for p in CSRC.glob("*.cu")))
-    return serve_exported(exported, manifest, device), manifest
+    return serve_exported(exported, manifest, placements), manifest
 
 
 def _main(argv: Optional[Sequence[str]] = None) -> str:
     """CLI: ``python -m dyffusion_tpu_torch.serving run_id=<id> out=<dir>
-    [registry_dir=runs] [slot=best] [split=predict] [platforms=cuda]
-    [batch_size=N] [polymorphic_batch=false] [devices=1] [reduce=mean_std]
+    [registry_dir=runs] [slot=best] [split=predict] [platforms=cuda,cpu]
+    [batch_size=N] [polymorphic_batch=false] [devices=N] [reduce=mean_std]
     [device=cuda] [key.subkey=value ...]`` — export a trained run's sampler
-    artifact."""
+    artifact (``devices=N`` needs ``polymorphic_batch=false`` and a batch
+    divisible by N)."""
     import sys
 
     def usage(msg: str) -> "SystemExit":

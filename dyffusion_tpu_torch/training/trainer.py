@@ -265,13 +265,20 @@ class Trainer:
 
     def _load_state_tree(self, tree: Dict[str, Any]) -> None:
         """Load a checkpoint; each rank takes its own step generator where
-        the checkpoint has one per rank of this world."""
+        the checkpoint has one per rank of this world, and where it was saved
+        on a device of this type."""
         world = distributed.world_size()
         per_rank = tree.get("rank_generators")
         if world > 1 and per_rank is not None and len(per_rank) == world:
             tree = {**tree, "generator": per_rank[distributed.rank()]}
         elif world > 1:  # saved by another world: keep this rank's freshly seeded stream
             tree = {**tree, "generator": self.state.generator.get_state()}
+        fresh = self.state.generator.get_state()
+        if tree["generator"].numel() != fresh.numel():
+            # saved on another device type (a CUDA run reloaded on the CPU to
+            # serve it): a CPU generator cannot continue a CUDA stream, so
+            # this one keeps its freshly seeded stream, as for another world
+            tree = {**tree, "generator": fresh}
         self.state.load_state_dict(tree)
         if world > 1 and tree.get("row_generator") is not None:
             self.state.row_generator.set_state(tree["row_generator"])

@@ -36,6 +36,10 @@ times the draws, and a temporary of the global size per draw.
 :func:`spatial_shard` holds the slab of the top-level grid, which the draws
 over the network's inputs take (:func:`grid_randn`); the network passes the
 slab of each of its levels itself.
+
+A replica of a data-parallel artifact (``serving.export_run(devices=D)``)
+keeps its rows of the draws at the request's batch in the same way
+(:func:`replica_rows`).
 """
 from __future__ import annotations
 
@@ -74,16 +78,28 @@ def _kw(generator: Generator) -> dict:
 
 def _sliced(draw, shape: Sequence[int], slab: Optional[Slab], **kw) -> torch.Tensor:
     """``draw(shape)``, or with ``slab`` the slab's rows of ``draw`` at the
-    global shape (``shape[slab.dim]`` being the rank's rows)."""
+    global shape (``shape[slab.dim]`` being the rank's rows); inside
+    :func:`replica_rows` the replica's rows of the draw at the request's
+    batch."""
     shape = tuple(shape)
-    if slab is None:
-        return draw(shape, **kw)
-    n = shape[slab.dim]
-    if slab.start + n > slab.total:
-        raise ValueError(f"a slab of {n} rows from row {slab.start} exceeds the global extent {slab.total}")
     full = list(shape)
-    full[slab.dim] = slab.total
-    return draw(tuple(full), **kw).narrow(slab.dim, slab.start, n)
+    if slab is not None:
+        n = shape[slab.dim]
+        if slab.start + n > slab.total:
+            raise ValueError(f"a slab of {n} rows from row {slab.start} exceeds the global extent {slab.total}")
+        full[slab.dim] = slab.total
+    replica = _REPLICA_ROWS.get()
+    if replica is None:
+        out = draw(tuple(full), **kw)
+    else:
+        total, rows = replica
+        b = rows.shape[0]
+        if shape[0] % b:
+            raise ValueError(f"a draw of {shape[0]} rows is not a fold of the replica's {b} batch rows")
+        k = shape[0] // b  # the draw's rows: k groups (members, calls) of the batch's rows
+        out = draw((k * total, *full[1:]), **kw)
+        out = out.reshape((k, total, *full[1:])).index_select(1, rows).reshape(full)
+    return out if slab is None else out.narrow(slab.dim, slab.start, n)
 
 
 def rand(shape: Sequence[int], generator: Generator, device, dtype: Optional[torch.dtype] = None,
@@ -126,6 +142,35 @@ def grid_randn(shape: Sequence[int], generator: Generator, device, dtype: Option
     global draw under :func:`spatial_shard`, else :func:`randn`."""
     kw = {} if grid_slab() is None else {"slab": grid_slab()}
     return randn(shape, generator, device, dtype, **kw)
+
+
+# a data-parallel artifact's replica: (the request's batch rows, this replica's row indices), or None
+_REPLICA_ROWS: contextvars.ContextVar = contextvars.ContextVar("replica_rows", default=None)
+
+
+@contextlib.contextmanager
+def replica_rows(total: int, rows: torch.Tensor) -> Iterator[None]:
+    """Within this context every draw of the eval path (:func:`rand`,
+    :func:`randn`, :func:`grid_randn`, :func:`row_randn` outside a train
+    step, :func:`row_gamma`) is made at the request's batch of ``total``
+    rows and cut to this replica's rows ``rows`` (a vector of indices on the
+    draw's device): the replica of a data-parallel artifact keeps its rows
+    of the one draw a single device would make, so that D replicas answer
+    as one program over the whole batch. A draw's first axis is read as k
+    groups of the batch's rows, group-major: the N members of the folded
+    ensemble, or the two calls a cold step folds into one (2N). A
+    row-scaled Gamma concentration would need the other replicas' rows:
+    only a scalar one is taken here."""
+    token = _REPLICA_ROWS.set((int(total), rows))
+    try:
+        yield
+    finally:
+        _REPLICA_ROWS.reset(token)
+
+
+def replica_state() -> Optional[tuple]:
+    """``(total, rows)`` of :func:`replica_rows`, or None outside it."""
+    return _REPLICA_ROWS.get()
 
 
 def randint(low: int, high: int, shape: Sequence[int], generator: Generator, device) -> torch.Tensor:
@@ -207,7 +252,7 @@ def row_randn(shape: Sequence[int], generator: Generator, device, dtype: Optiona
     :func:`row_shard`); with ``grid``, an NCHW grid tensor (see
     :func:`spatial_shard`)."""
     kw = {"slab": grid_slab()} if grid and grid_slab() is not None else {}
-    shard = _rows(int(shape[0]))
+    shard = _rows(shape[0])
     if shard is None:
         return randn(shape, generator, device, dtype, **kw)
     g, total, first = shard
@@ -225,7 +270,7 @@ def row_gamma(concentration: torch.Tensor, shape: Sequence[int], generator: Gene
     depend on the concentrations of those before it) and, with ``grid`` under
     :func:`spatial_shard`, at the global grid, then sliced to this rank's
     rows and slab."""
-    shape = tuple(int(s) for s in shape)
+    shape = tuple(shape)
     n = shape[0]
     slab = grid_slab() if grid else None
     shard = _rows(n)
@@ -236,6 +281,9 @@ def row_gamma(concentration: torch.Tensor, shape: Sequence[int], generator: Gene
         g, total, first = shard
         conc = conc if conc.dim() == 0 else gather_rows(conc, total, first)
         conc, shape = conc.to(g.device), (total,) + shape[1:]
+
+    if _REPLICA_ROWS.get() is not None and conc.dim() != 0:
+        raise ValueError("a data-parallel replica draws Gamma noise only of a scalar concentration")
 
     def draw(full):
         return torch._standard_gamma(conc.expand(full).contiguous(), **_kw(g))

@@ -209,7 +209,14 @@ def runs(tmp_path_factory):
         spring_w = spring + [f"datamodule.batch_size={4 // world}", f"trainer.devices={world}"]
         mcvd = MCVD + [f"datamodule.batch_size={4 // world}", f"trainer.devices={world}", f"registry_dir={reg}"]
         if world == 1:
-            ranks = [workers.train_rank(0, 1, common, common, spring_w, reg, mcvd)]
+            # one thread, as each spawned rank runs: CPU sums split by thread,
+            # and the val metrics and predictions are held at 1e-5
+            threads = torch.get_num_threads()
+            torch.set_num_threads(1)
+            try:
+                ranks = [workers.train_rank(0, 1, common, common, spring_w, reg, mcvd)]
+            finally:
+                torch.set_num_threads(threads)
         else:
             fault = mcvd[:-1] + [f"registry_dir={root / 'own_gamma'}"]
             ranks = workers.run_ranks(workers.train_rank, world, common, common, spring_w, reg, mcvd, fault)

@@ -5,7 +5,8 @@ The artifact of a stage-2 run (two autoregressive windows, the EMA on)
 answers as the eager ``build_predict_fn`` does, bit for bit, for any batch
 from one symbolic export; a pinned export rejects another batch; the
 ``mean_std`` artifact is the host reduction of the members; the graph holds
-one B1 node per ``LinearAttention`` call of the unrolled sampler; the
+one B1 node per ``LinearAttention`` call of a request, those of the
+sampler's steps once in its loop op's body; the
 artifact directory, moved away, serves in a process that imports nothing of
 the package but ``ops`` and ``serving``; the spring mesh's boundary
 conditions live inside its artifact; the CLI rejects malformed arguments;
@@ -136,15 +137,26 @@ def test_stage2_artifact_serves_the_eval_weights(stage2, trainer2):
 
 
 def test_graph_holds_b1_per_linear_attention_call(stage2, trainer2):
-    """One B1 node per LinearAttention call: per window, n_attn per forward,
-    2 * len(s) + 1 forwards; two windows."""
+    """One B1 node per LinearAttention call of a request: per window,
+    n_attn per forward, 2 * len(s) + 1 forwards, of which the loop op's
+    body holds the 2 * len(s) of its len(s) trips once and the graph the
+    peeled last step; two windows, so two loop ops."""
     _, served, manifest, _, _, _ = stage2
     exp = trainer2.experiment
     n_attn = sum(isinstance(m, LinearAttention) for m in exp.model.modules())
-    want = 2 * n_attn * (2 * len(exp.engine._steps.s) + 1)
-    nodes = served.exported.graph.nodes
-    got = sum(str(n.target).startswith("dyffusion_tpu_torch.linear_attention_qkv") for n in nodes)
-    assert n_attn > 0 and got == want == manifest["graph"]["b1_nodes"]
+    trips = len(exp.engine._steps.s)
+    want = 2 * n_attn * (2 * trips + 1)
+    gm = served.exported.graph_module
+
+    def b1(graph):
+        return sum(str(n.target).startswith("dyffusion_tpu_torch.linear_attention_qkv") for n in graph.nodes)
+
+    loops = [n for n in gm.graph.nodes if n.target is torch.ops.higher_order.while_loop]
+    bodies = [getattr(gm, n.args[1].target) for n in loops]
+    got = b1(gm.graph) + sum(trips * b1(body.graph) for body in bodies)
+    assert n_attn > 0 and len(loops) == 2 and all(b1(body.graph) == 2 * n_attn for body in bodies)
+    assert got == want and manifest["graph"]["b1_nodes"] == b1(gm.graph) + sum(b1(body.graph) for body in bodies)
+    assert manifest["graph"]["loops"] == 2
 
 
 # the CPU's reductions split by thread: the served process takes this one's
@@ -226,14 +238,17 @@ def test_cli_rejects_malformed_arguments(argv, error):
         serving._main(argv)
 
 
-@pytest.mark.parametrize("argv,error", [
-    (["devices=2"], NotImplementedError),
-    (["platforms=cpu,cuda"], NotImplementedError),
-    (["platforms=cuda"], ValueError),
-    (["reduce=median"], ValueError),
+@pytest.mark.parametrize("argv,error,match", [
+    (["devices=2"], ValueError, "polymorphic_batch"),
+    (["platforms=cpu,tpu"], ValueError, "unknown platform"),
+    (["platforms=cuda"], ValueError, "does not name the export device"),
+    (["reduce=median"], ValueError, "unknown reduce"),
+    (["devices=2", "polymorphic_batch=false", "batch_size=3"], ValueError, "divisible"),
+    (["devices=0"], ValueError, "devices must be"),
 ])
-def test_cli_refuses_what_is_not_ported_before_the_reload(tmp_path, argv, error):
-    with pytest.raises(error):
+def test_cli_refuses_what_is_not_ported_before_the_reload(tmp_path, argv, error, match):
+    """Each refusal comes from the arguments alone: there is no run to reload."""
+    with pytest.raises(error, match=match):
         serving._main(["run_id=none", f"out={tmp_path}", f"registry_dir={tmp_path}", "device=cpu", *argv])
 
 
