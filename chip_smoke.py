@@ -232,10 +232,24 @@ non-zero:
    rank drawing its noise at its slab's shape beyond it), B1 6 split calls
    a forward (60 a request) on each rank, one train step's loss within
    1e-5 relative; each rank's peak memory printed against the witness's.
+21. spatial-thin (started with phase 20's processes, checked after them):
+   four gloo ranks sharing cuda:0 split the H axis of a 12x60 grid under
+   the SST ``Unet`` at full width, whose 3-row level leaves rank 3 no row,
+   beside a one-rank witness: the f32 forward within 1e-3 of max|one
+   rank| (every halo zeroed beyond it), bf16 within 5e-2 (zeroed halos
+   beyond it), the gradients at 4 rows within 1e-3 of their scale, the
+   'qk' linear attention at the SST widths of the 12x60 and 3x15 levels
+   forward and backward, NS's 221x42 -> 256x256 -> 221x42 resample by
+   five ``jax.image.resize`` methods on four ranks (W) against the
+   witness and on the card against the CPU within 1e-5; B1 6 split calls
+   a forward on each rank, rank 3's partial and output passes 4 (none at
+   the 3x15 level); then the split B1 kernel against plain at the ranks'
+   shapes, the rank of no tokens launching neither pass, with times.
 
 Each path (slice, train, fit, each cli command, ns, spring, each baseline
 command and request, ncsnpp, each export request, each oisst command, the
-unfolded members, ddp, spatial, its baselines' DDPM request) sets the
+unfolded members, ddp, spatial, its baselines' DDPM request, spatial-thin's
+forward) sets the
 launch counts to 0 before it runs and reads them after. The line before
 the last is the kernel summary as JSON
 (B1's top-level launches and times are the train path's; ``by_path`` has
@@ -291,6 +305,10 @@ runs phases 1 and 2, then only the split B1 check and the diffusion
 baselines of phase 20 (MCVD over NCSN++ and the DDPM over the SST ``Unet``
 on H, in its three processes, with their checks) and stops, with no ``ok``
 line.
+
+    python3 chip_smoke.py --spatial-thin
+
+runs phases 1, 2 and 21 and stops, with no ``ok`` line.
 
     python3 chip_smoke.py --kernels
 
@@ -4582,15 +4600,16 @@ def _metrics_rel(got, want):
     return max(abs(got[k] - want[k]) for k in keys) / scale
 
 
-def _spatial_start(work, flag):
-    """The two gloo ranks sharing cuda:0 (the launcher's environment) and
-    the one-rank witness (``WORLD_SIZE=1``) of ``[spatial]``, each
-    ``chip_smoke.py flag work``: name -> :func:`_ddp_start`'s."""
+def _spatial_start(work, flag, world=2):
+    """The ``world`` gloo ranks sharing cuda:0 (the launcher's environment)
+    and the one-rank witness (``WORLD_SIZE=1``) of ``[spatial]`` (or of
+    ``[spatial-thin]``), each ``chip_smoke.py flag work``: name ->
+    :func:`_ddp_start`'s."""
     port = _free_port()
     procs = {}
-    for rank in range(2):
-        env = {**os.environ, "RANK": str(rank), "LOCAL_RANK": str(rank), "WORLD_SIZE": "2",
-               "LOCAL_WORLD_SIZE": "2", "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+    for rank in range(world):
+        env = {**os.environ, "RANK": str(rank), "LOCAL_RANK": str(rank), "WORLD_SIZE": str(world),
+               "LOCAL_WORLD_SIZE": str(world), "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
         procs[f"rank{rank}"] = _ddp_start(work, f"rank{rank}", [os.path.abspath(__file__), flag, work], env)
     env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
     procs["witness"] = _ddp_start(work, "witness", [os.path.abspath(__file__), flag, work], env)
@@ -4618,7 +4637,7 @@ def phase_spatial_part(card, part):
     return checks
 
 
-def phase_spatial(card, reg=None, ids=None):
+def phase_spatial(card, reg=None, ids=None, also_start=None):
     """Spatial sharding on the card, eval and training. 1. The split B1
     kernel against its plain version at the per-rank SST shapes
     (:func:`_spatial_b1_check`). 2. The SST stages trained on one rank
@@ -4654,7 +4673,9 @@ def phase_spatial(card, reg=None, ids=None):
     :func:`_spatial_baselines_checks`); the CLI's ``mode=test`` starts once
     the physical systems are done. Returns the two ranks' B1 launches, the
     per-request count, the split kernel's times and the baselines' B1
-    launches and per-request count."""
+    launches and per-request count. ``also_start``: called right after
+    its processes start (the full run starts ``[spatial-thin]``'s there, so
+    that their startup overlaps)."""
     import gc
 
     import numpy as np
@@ -4679,6 +4700,8 @@ def phase_spatial(card, reg=None, ids=None):
         torch.cuda.empty_cache()  # this process's cached blocks, for the processes below
         t = time.perf_counter()
         procs = _spatial_start(work, "--spatial-rank")
+        if also_start is not None:
+            also_start()
         # the CLI's mode=test on W once the physical systems' B32 steps have left the card
         _wait_for([os.path.join(work, f"done physical {w} {r}") for w, r in ((2, 0), (2, 1), (1, 0))],
                   stop=lambda: any(p.poll() not in (None, 0) for p, _, _ in procs.values()))
@@ -4854,6 +4877,308 @@ def phase_spatial(card, reg=None, ids=None):
     return launches, per_request, times, baselines
 
 
+# ---------------------------------------------------------------------------
+# [spatial-thin]: the layouts a shard once refused, on the card. Four gloo
+# ranks sharing cuda:0 (chip_smoke.py --spatial-thin-rank) split the H axis
+# of a 12 x 60 grid under the SST Unet at full width (dim 64, mults
+# (1, 2, 4), 4 heads x 32): its levels of 12, 6 and 3 rows split 3/3/3/3,
+# 2/2/1/1 and 1/1/1/0, so rank 3 holds no row of the deepest level; beside
+# a one-rank witness. f32 with TF32 off and dropout off.
+THIN_WORLD = 4
+THIN_GRID = (12, 60)
+THIN_ROWS = 16  # the forwards' rows
+THIN_GRAD_ROWS = 4
+THIN_TOL = 1e-3  # relative to max|one rank| (gradients: to their scale, as _grads_within)
+# bf16 against one rank: bf16 rounds each layer's output, and the two layouts'
+# convs and norms sum in other orders (the card read 1.2e-2 where the CPU read
+# 9.0e-3): [spatial]'s limit, with a zeroed-halo control in bf16 beyond it
+THIN_BF16_TOL = SPATIAL_BF16_TOL
+THIN_RESIZE_TOL = 1e-5  # f32 resamples, TF32 off: the contractions sum in another order
+# the split B1's tokens on each of the four ranks, (12 x 60, 6 x 30, 3 x 15) levels
+THIN_B1 = ((180, 180, 180, 180), (60, 60, 30, 30), (15, 15, 15, 0))
+# the 'qk' linear attention at the SST widths of the top and deepest levels: (channels, grid)
+THIN_QK = ((64, (12, 60)), (256, (3, 15)))
+# NS's outer resample, 221 x 42 -> 256 x 256 -> 221 x 42, sharded on W as NS is
+THIN_NS = ((221, 42), (256, 256))
+THIN_METHODS = ("nearest", "bilinear", "bicubic", "lanczos3", "lanczos5")
+
+
+def _thin_unet():
+    import torch
+
+    from dyffusion_tpu_torch.models import Unet
+
+    torch.manual_seed(SEED)
+    return Unet(dim=64, num_input_channels=1, num_output_channels=1, num_conditional_channels=1,
+                dim_mults=(1, 2, 4), with_time_emb=True, attn_heads=4, attn_dim_head=32).cuda()
+
+
+def spatial_thin_rank_main(work):
+    """One process of ``[spatial-thin]`` (a rank of the four-rank group, or
+    the witness with WORLD_SIZE=1): on seeded inputs at the global grid,
+    this rank's slab of the ``Unet``'s forward in f32 (with its B1 split
+    calls and their partial and output passes, counted from 0), the same
+    with every halo zeroed, bf16, the gradients of sum(output * cot) at
+    :data:`THIN_GRAD_ROWS` rows, the 'qk' attention forward and backward
+    (:data:`THIN_QK`) and NS's resample there and back by each of
+    :data:`THIN_METHODS` (sharding W); the witness also each resample on
+    the CPU. Results in ``work``."""
+    import numpy as np
+    import torch
+
+    from dyffusion_tpu_torch.experiments.base import cast_params
+    from dyffusion_tpu_torch.models.base import apply_model
+    from dyffusion_tpu_torch.models.modules import LinearAttention
+    from dyffusion_tpu_torch.ops import linear_attention as la
+    from dyffusion_tpu_torch.parallel import distributed, spatial
+    from dyffusion_tpu_torch.utils import resize as resize_ops
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    rank = int(os.environ.get("RANK", "0"))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    if world > 1:
+        distributed.init_distributed("cuda")
+        distributed.set_model_axis(world)
+    t0 = time.perf_counter()
+    H, W = THIN_GRID
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x, cond = (torch.randn((THIN_ROWS, 1, H, W), generator=gen, device="cuda") for _ in range(2))
+    cot = torch.randn((THIN_GRAD_ROWS, 1, H, W), generator=gen, device="cuda")
+    t = torch.rand((THIN_ROWS,), generator=gen, device="cuda") * 4
+    a, b = spatial.blocks(H, world)[rank]
+
+    def slab(v, dim=2):
+        lo, hi = spatial.blocks(v.shape[dim], world)[rank]
+        return v.narrow(dim, lo, hi - lo)
+
+    context = (lambda grid: spatial.sharded("h", grid)) if world > 1 else (lambda grid: contextlib.nullcontext())
+    net = _thin_unet()
+    out, info = {}, {"world": world, "rank": rank, "rows": [a, b]}
+
+    def forward(dtype, rows=THIN_ROWS):
+        with context((H, W)):
+            return apply_model(net, cast_params(net, dtype), slab(x[:rows]).to(dtype), t[:rows],
+                               slab(cond[:rows]).to(dtype))
+
+    with torch.no_grad():
+        forward(torch.float32)  # warm-up
+        _sync()
+        la.reset_launches()
+        t1 = time.perf_counter()
+        out["f32"] = forward(torch.float32).cpu()
+        _sync()
+        info["forward_ms"] = (time.perf_counter() - t1) * 1e3
+        info["b1"] = {"calls": la.launches, "split_calls": la.split_launches,
+                      "partial_passes": la.split_partial_launches, "output_passes": la.split_output_launches}
+        out["bf16"] = forward(torch.bfloat16).float().cpu()
+        if world > 1:
+            halo = spatial._halo_all_reduce
+            spatial._halo_all_reduce = lambda buf: buf
+            try:
+                out["f32, halos zeroed"] = forward(torch.float32).cpu()
+                out["bf16, halos zeroed"] = forward(torch.bfloat16).float().cpu()
+            finally:
+                spatial._halo_all_reduce = halo
+
+    def group_grads(module):
+        return {k: distributed.model_sum(torch.zeros_like(p) if p.grad is None else p.grad.clone()).cpu()
+                for k, p in module.named_parameters()}
+
+    xg = slab(x[:THIN_GRAD_ROWS]).clone().requires_grad_(True)
+    t1 = time.perf_counter()
+    with context((H, W)):
+        y = net(xg, t[:THIN_GRAD_ROWS], slab(cond[:THIN_GRAD_ROWS]))
+    (y * slab(cot)).sum().backward()
+    _sync()
+    info["backward_ms"] = (time.perf_counter() - t1) * 1e3
+    out["grads"] = {"x": xg.grad.cpu(), **group_grads(net)}
+    del net, xg, y
+    for dim, grid in THIN_QK:
+        torch.manual_seed(SEED + dim)
+        attn = LinearAttention(dim, 4, 32, rescale="qk").cuda()
+        xq = torch.randn((THIN_GRAD_ROWS, dim, *grid), generator=gen, device="cuda")
+        cq = torch.randn((THIN_GRAD_ROWS, dim, *grid), generator=gen, device="cuda")
+        xq = slab(xq).clone().requires_grad_(True)
+        with context(grid):
+            yq = attn(xq, None, spatial.current().top()) if world > 1 else attn(xq)
+        (yq * slab(cq)).sum().backward()
+        out[f"qk {grid}"] = {"out": yq.detach().cpu(), "grads": {"x": xq.grad.cpu(), **group_grads(attn)}}
+    src, size = THIN_NS
+    xs = torch.randn((2, 3, *src), generator=gen, device="cuda")
+    errs = {}
+    for method in THIN_METHODS:
+        mode = resize_ops.mode(method)
+        if world > 1:  # on W, as NS shards
+            level = spatial.Level(-1, src[1], src[0], distributed.model_rank(), world)
+            up, up_level = spatial.resize(slab(xs, 3), level, size, mode)
+            back, _ = spatial.resize(up, up_level, src, mode)
+        else:
+            up = resize_ops.resize(xs, size, method)
+            back = resize_ops.resize(up, src, method)
+            cpu_up = resize_ops.resize(xs.cpu(), size, method)
+            cpu_back = resize_ops.resize(cpu_up, src, method)
+            errs[method] = [float((up.cpu() - cpu_up).abs().max() / cpu_up.abs().max()),
+                            float((back.cpu() - cpu_back).abs().max() / cpu_back.abs().max())]
+        out[f"resize {method}"] = {"up": up.cpu(), "back": back.cpu()}
+    info["card_vs_cpu"] = errs
+    info["seconds"] = time.perf_counter() - t0
+    torch.save(out, os.path.join(work, f"thin{world}_rank{rank}.pt"))
+    with open(os.path.join(work, f"thin{world}_rank{rank}.json"), "w") as f:
+        json.dump(info, f)
+    if world > 1:
+        distributed.barrier()
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def spatial_thin_start(work):
+    """The four ranks and the witness of ``[spatial-thin]``, started: its
+    processes (:func:`_spatial_start`'s) and their start time."""
+    return _spatial_start(work, "--spatial-thin-rank", world=THIN_WORLD), time.perf_counter()
+
+
+def _thin_b1_check():
+    """The split B1 kernel against B1's plain version over all the tokens at
+    the four ranks' shapes of ``[spatial-thin]`` (:data:`THIN_B1`, at
+    :data:`THIN_ROWS` rows, f32 and bf16), the ranks emulated in one
+    process; the rank of no tokens launches no partial and no output pass.
+    Times each rank's three steps (no collectives; the rank of no tokens:
+    its two merges) against its plain split and its bound: its qkv read
+    and output written, and the partial and maxima its merges write."""
+    import numpy as np
+    import torch
+
+    from dyffusion_tpu_torch.ops import linear_attention as la
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows, bh = THIN_ROWS, THIN_ROWS * 4
+    times, empty = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype)[6:]
+        for tokens in THIN_B1:
+            full = _qkv(rows, sum(tokens), dtype, True, gen)
+            bounds = np.cumsum((0,) + tokens)
+            parts = [full[:, i:j] for i, j in zip(bounds[:-1], bounds[1:])]
+            la.reset_launches()
+            got = _b1_split_emulated(parts)
+            _sync()
+            passes = (la.split_partial_launches, la.split_output_launches)
+            assert passes == (sum(1 for n in tokens if n),) * 2, (tokens, passes)
+            want = la.linear_attention_qkv_plain(full, 4, 32, 32**-0.5)
+            _check_vs_plain(f"[spatial-thin] split B1 B={rows} N={'+'.join(map(str, tokens))} {dt}",
+                            torch.cat(got, dim=1), want, REL_TOL[dt], negative_controls=tokens[0] == 180)
+            for r, (q, n) in enumerate(zip(parts, tokens)):
+                if n == 0:
+                    la.reset_launches()
+                    ws, S, m = la.split_partial(q, 4, 32)
+                    y = la.split_output(q, la.split_merge(q, ws, S, m), 4, 32, 32**-0.5, sum(tokens))
+                    _sync()
+                    empty[f"{tokens} {dt}"] = {"partial_passes": la.split_partial_launches,
+                                               "output_passes": la.split_output_launches,
+                                               "output_shape": list(y.shape), "maxima_all_-inf": bool(
+                                                   torch.isinf(m).all())}
+                    assert empty[f"{tokens} {dt}"]["partial_passes"] == 0 == empty[f"{tokens} {dt}"]["output_passes"]
+                key = f"({rows}, {n}, 384) {dt}"
+                if key in times:
+                    continue
+
+                def kernel(q=q, n_total=sum(tokens)):
+                    ws, S, m = la.split_partial(q, 4, 32)
+                    return la.split_output(q, la.split_merge(q, ws, S, m), 4, 32, 32**-0.5, n_total)
+
+                ms, plain_ms = _time_pair(kernel, lambda q=q, n_total=sum(tokens): la.linear_attention_qkv_split_plain(
+                    q, 4, 32, 32**-0.5, n_total))
+                bound, by = _bound(rows * n * 512 * full.element_size() + bh * (la.PARTIAL_FLOATS + 32) * 4,
+                                   0)
+                times[key] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "share": bound / ms}
+                print(f"[spatial-thin] split B1, one rank of four, {key}: {ms:.4f} ms (three steps, no collectives), "
+                      f"plain {plain_ms:.4f} ms, bound {bound:.5f} ms ({by}), share {bound / ms:.3f}")
+    print(f"[spatial-thin] the rank of no tokens, launches of its B1 passes (partial, output): {json.dumps(empty)}")
+    return times
+
+
+def spatial_thin_finish(card, work, procs, t):
+    """Wait for ``[spatial-thin]``'s processes, then check them against the
+    witness and print: the f32 forward within :data:`THIN_TOL` of
+    max|one rank| and the zeroed-halo forward beyond it; bf16 within
+    :data:`THIN_BF16_TOL`; the gradients at 4 rows within THIN_TOL of their
+    scale; the 'qk' attention's outputs and gradients likewise; each
+    resample method on four ranks within :data:`THIN_RESIZE_TOL` of the
+    witness and the witness's card within it of the CPU; B1's split calls,
+    6 a forward on each rank, and the empty rank's partial and output
+    passes (4 each: none at the 3 x 15 level). Then the split B1 kernel at
+    the ranks' shapes (:func:`_thin_b1_check`). Returns the ranks' B1
+    launches and the kernel's times."""
+    import torch
+
+    seconds = _ddp_finish(work, procs, t)
+    ranks = [torch.load(os.path.join(work, f"thin{THIN_WORLD}_rank{r}.pt"), weights_only=True)
+             for r in range(THIN_WORLD)]
+    infos = [json.load(open(os.path.join(work, f"thin{THIN_WORLD}_rank{r}.json"))) for r in range(THIN_WORLD)]
+    one = torch.load(os.path.join(work, "thin1_rank0.pt"), weights_only=True)
+    one_info = json.load(open(os.path.join(work, "thin1_rank0.json")))
+    joined = lambda get, dim=2: torch.cat([get(r) for r in ranks], dim=dim)  # noqa: E731
+
+    def rel(got, want):
+        return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+    f32, zeroed, bf16, bf16_zeroed = (rel(joined(lambda r: r[k]), one[k.split(",")[0]])
+                                      for k in ("f32", "f32, halos zeroed", "bf16", "bf16, halos zeroed"))
+    grads = dict(ranks[0]["grads"])
+    grads["x"] = joined(lambda r: r["grads"]["x"])
+    ok, worst = _grads_within(grads, one["grads"], THIN_TOL)
+    print(f"[spatial-thin] SST Unet (dim 64, mults (1,2,4), 4 heads x 32) on a 12x60 grid split on H over four ranks "
+          f"(levels 12/6/3 rows: 3/3/3/3, 2/2/1/1, 1/1/1/0) vs one rank, rel. to max|one rank|: f32 forward "
+          f"({THIN_ROWS} rows) {f32:.2e} (limit {THIN_TOL}), halos zeroed {zeroed:.2e} (must exceed it); bf16 "
+          f"{bf16:.2e} (limit {THIN_BF16_TOL}), halos zeroed {bf16_zeroed:.2e} (must exceed it); gradients at "
+          f"{THIN_GRAD_ROWS} rows, worst {worst:.3g} of the limit")
+    assert f32 <= THIN_TOL, f"[spatial-thin] the f32 forward on four ranks is {f32:.2e} of max off one rank's"
+    assert zeroed > THIN_TOL, f"[spatial-thin] the check accepts the forward with its halos zeroed ({zeroed:.2e})"
+    assert bf16 <= THIN_BF16_TOL, f"[spatial-thin] the bf16 forward on four ranks is {bf16:.2e} of max off"
+    assert bf16_zeroed > THIN_BF16_TOL, f"[spatial-thin] the bf16 check accepts zeroed halos ({bf16_zeroed:.2e})"
+    assert ok, f"[spatial-thin] the gradients on four ranks are {worst:.2f} of their limit off one rank's"
+    qk = {}
+    for _, grid in THIN_QK:
+        key = f"qk {grid}"
+        g = dict(ranks[0][key]["grads"])
+        g["x"] = joined(lambda r: r[key]["grads"]["x"])
+        qk[key] = [rel(joined(lambda r: r[key]["out"]), one[key]["out"]),
+                   _grads_within(g, one[key]["grads"], THIN_TOL)[1]]
+    resize = {method: [rel(joined(lambda r: r[f"resize {method}"][w], 3), one[f"resize {method}"][w])
+                       for w in ("up", "back")] for method in THIN_METHODS}
+    b1 = [info["b1"] for info in infos]
+    print(f"[spatial-thin] 'qk' attention (forward rel., gradients' worst share of the limit): {json.dumps(qk)}")
+    print(f"[spatial-thin] NS resample 221x42 -> 256x256 -> 221x42 on W, four ranks vs one (up, back): "
+          f"{json.dumps(resize)}; one card vs the CPU: {json.dumps(one_info['card_vs_cpu'])}")
+    print(f"[spatial-thin] B1 per f32 forward, each rank (calls, split calls, partial passes, output passes): "
+          f"{[[c['calls'], c['split_calls'], c['partial_passes'], c['output_passes']] for c in b1]}")
+    print(f"[spatial-thin] f32 forward / backward wall ms, ranks {[round(i['forward_ms'], 1) for i in infos]} / "
+          f"{[round(i['backward_ms'], 1) for i in infos]}, one rank {one_info['forward_ms']:.1f} / "
+          f"{one_info['backward_ms']:.1f} (four ranks share the card: no scaling measured); processes "
+          f"{json.dumps({k: round(v, 1) for k, v in seconds.items()})} s")
+    for key, (err, grad_share) in qk.items():
+        assert err <= THIN_TOL and grad_share <= 1.0, f"[spatial-thin] {key}: {qk[key]}"
+    for method in THIN_METHODS:
+        assert max(resize[method]) <= THIN_RESIZE_TOL, f"[spatial-thin] {method} on four ranks: {resize[method]}"
+        assert max(one_info["card_vs_cpu"][method]) <= THIN_RESIZE_TOL, (method, one_info["card_vs_cpu"][method])
+    assert all(c["split_calls"] == 6 == c["calls"] for c in b1), b1
+    assert [c["partial_passes"] for c in b1] == [6, 6, 6, 4] == [c["output_passes"] for c in b1], b1
+    times = _thin_b1_check()
+    print(f"[spatial-thin] on {card}")
+    return sum(c["calls"] for c in b1), times
+
+
+def phase_spatial_thin(card):
+    """``[spatial-thin]`` alone: its processes, then their checks."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spatial_thin_") as work:
+        out = spatial_thin_finish(card, work, *spatial_thin_start(work))
+    print(f"[spatial-thin] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -4873,12 +5198,15 @@ def main(argv) -> int:
         return spatial_rank_main(argv[1])
     if len(argv) == 2 and argv[0] in ("--spatial-physical-rank", "--spatial-baselines-rank"):  # one part alone
         return spatial_rank_main(argv[1], only=argv[0].split("-")[3])
+    if len(argv) == 2 and argv[0] == "--spatial-thin-rank":  # a rank (or the witness) of [spatial-thin]
+        return spatial_thin_rank_main(argv[1])
     modes = ([], ["--profile"], ["--kernels"], ["--physical"], ["--baselines"], ["--ncsnpp"], ["--export"], ["--oisst"],
-             ["--members"], ["--ddp"], ["--spatial"], ["--spatial-physical"], ["--spatial-baselines"])
+             ["--members"], ["--ddp"], ["--spatial"], ["--spatial-physical"], ["--spatial-baselines"],
+             ["--spatial-thin"])
     if argv not in modes:
         raise SystemExit(
             "usage: python3 chip_smoke.py [--profile | --kernels | --physical | --baselines | --ncsnpp | --export "
-            "| --oisst | --members | --ddp | --spatial | --spatial-physical | --spatial-baselines]")
+            "| --oisst | --members | --ddp | --spatial | --spatial-physical | --spatial-baselines | --spatial-thin]")
     name, smi = phase_device()
     if argv == ["--spatial-physical"]:  # no kernel runs on these paths
         phase_spatial_part(smi, "physical")
@@ -4890,6 +5218,9 @@ def main(argv) -> int:
         return 0
     if argv == ["--spatial"]:
         phase_spatial(smi)
+        return 0
+    if argv == ["--spatial-thin"]:
+        phase_spatial_thin(smi)
         return 0
     if argv == ["--members"]:
         phase_members(smi)
@@ -4963,10 +5294,21 @@ def main(argv) -> int:
                 p.stop()
     oisst, oisst_per_request = phase_oisst(smi)
     members, members_per_request = phase_members(smi)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_") as work:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_") as work, \
+            tempfile.TemporaryDirectory(prefix="chip_smoke_spatial_thin_") as thin_work:
         ddp = phase_ddp(smi, work)  # [spatial] tests [ddp]'s one-rank stage-2 run
-        spatial, spatial_per_request, spatial_times, (spatial_baselines, baselines_per_request) = phase_spatial(
-            smi, os.path.join(work, "registry1"), _ddp_commands(os.path.join(work, "registry1"), 1)[1:])
+        thin = []  # [spatial-thin]'s processes start beside [spatial]'s and are checked after them
+        try:
+            spatial, spatial_per_request, spatial_times, (spatial_baselines, baselines_per_request) = phase_spatial(
+                smi, os.path.join(work, "registry1"), _ddp_commands(os.path.join(work, "registry1"), 1)[1:],
+                also_start=lambda: thin.append(spatial_thin_start(thin_work)))
+        finally:  # they end here if [spatial] failed
+            if thin and sys.exc_info()[0] is not None:
+                for p, log, _ in thin[0][0].values():
+                    p.kill()
+                    p.wait()
+                    log.close()
+        thin_launches, thin_times = spatial_thin_finish(smi, thin_work, *thin[0])
     print(f"[run] the full run took {time.perf_counter() - t_run:.1f} s of this script's 1150 s budget")
     # B1's top-level numbers are the [train] path's (this slice's main path);
     # by_path keeps each path's own count, read after setting it to 0.
@@ -4988,7 +5330,8 @@ def main(argv) -> int:
                      "ddp": {"launches": ddp},
                      "spatial": {"launches": spatial, "per_request": spatial_per_request,
                                  "split_per_rank": spatial_times},
-                     "spatial_baselines": {"launches": spatial_baselines, "per_request": baselines_per_request}}},
+                     "spatial_baselines": {"launches": spatial_baselines, "per_request": baselines_per_request},
+                     "spatial_thin": {"launches": thin_launches, "split_per_rank": thin_times}}},
         {"name": "fused_leaky_relu", "route": "cuda", "source": fa.SOURCE, "replaces": fa.REPLACES,
          "launches": op_launches["fused_leaky_relu"], **b2, "library_ms": None,
          "by_path": {p: {"launches": c["fused_leaky_relu"]} for p, c in {**physical, "ncsnpp": ncsnpp}.items()}},

@@ -640,9 +640,10 @@ linear_attention_qkv_merge_kernel(const float* __restrict__ ws, int S, const flo
 // ws: BH*S partials of the partial pass. M == nullptr: write each (b, h,
 // d)'s maximum over the chunks to maxima (BH*D floats). Else: write to
 // merged (BH*(D*D + 2*D) floats) one partial per (b, h) at the maxima M.
+// S = 0 (a rank of no tokens, ws unread): maxima of -inf, a partial of zeros.
 extern "C" int linear_attention_qkv_merge(const void* ws, int BH, int S, const void* M, void* maxima, void* merged,
                                           void* stream) {
-  if (BH <= 0 || S <= 0 || (M == nullptr ? maxima == nullptr : merged == nullptr)) return (int)cudaErrorInvalidValue;
+  if (BH <= 0 || S < 0 || (M == nullptr ? maxima == nullptr : merged == nullptr)) return (int)cudaErrorInvalidValue;
   linear_attention_qkv_merge_kernel<<<BH, MERGE_THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)ws, S, (const float*)M, (float*)maxima, (float*)merged);
   return (int)cudaGetLastError();

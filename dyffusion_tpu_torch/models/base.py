@@ -35,6 +35,21 @@ from dyffusion_tpu_torch.parallel import distributed
 MODEL_STATE_UPDATES = "_model_state_updates"
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that also takes a rank's slab of no rows under spatial
+    sharding (a level of fewer rows than ranks), which torch's conv
+    refuses: its output slab of no rows is a view of the input, so that the
+    rank's backward still reaches the collectives that made the input. Its
+    parameters and state dict are ``nn.Conv2d``'s."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[-2] and x.shape[-1]:
+            return super().forward(x)
+        size = [0 if n == 0 else (n + 2 * p - d * (k - 1) - 1) // s + 1 for n, p, d, k, s in
+                zip(x.shape[-2:], self.padding, self.dilation, self.kernel_size, self.stride)]
+        return x.reshape(x.shape[0], self.out_channels, *size)
+
+
 @dataclass(frozen=True)
 class BackboneSpec:
     """Channel/shape metadata a backbone is built with."""

@@ -15,7 +15,8 @@ deterministic, as ``dropout_rng=None`` does in the JAX package.
 Under spatial sharding (``parallel/spatial.py``) the ``Unet``'s blocks take
 the ``level`` of their input, this rank's slab of one resolution of the
 grid: dropout draws the global mask and keeps the slab's rows, the linear
-attention runs B1 split across the ranks, the mid-block attention takes
+attention runs B1 split across the ranks ('qk': ``spatial
+.linear_attention_qk``, a plain composition), the mid-block attention takes
 this rank's queries against every rank's keys and values. ``level=None``
 is the one-device path, unchanged.
 """
@@ -28,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dyffusion_tpu_torch.models.base import BatchNorm2d
+from dyffusion_tpu_torch.models.base import BatchNorm2d, Conv2d
 from dyffusion_tpu_torch.ops.linear_attention import linear_attention_qkv
 from dyffusion_tpu_torch.parallel import spatial
 from dyffusion_tpu_torch.utils import rng
@@ -174,8 +175,8 @@ class LinearAttention(nn.Module):
         assert rescale in ("qk", "qkv"), rescale
         self.heads, self.dim_head, self.rescale = heads, dim_head, rescale
         hidden = heads * dim_head
-        self.to_qkv = nn.ModuleList([Dropout(dropout), nn.Conv2d(dim, hidden * 3, 1, bias=False)])
-        self.to_out = nn.Conv2d(hidden, dim, 1)
+        self.to_qkv = nn.ModuleList([Dropout(dropout), Conv2d(dim, hidden * 3, 1, bias=False)])
+        self.to_out = Conv2d(hidden, dim, 1)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                 level: Optional[spatial.Level] = None) -> torch.Tensor:
@@ -186,9 +187,9 @@ class LinearAttention(nn.Module):
         x = dropout(x, self.to_qkv[0].p, generator, None if level is None else level.slab)
         qkv = self.to_qkv[1](x)  # (B, 3*hidden, H, W)
         if level is not None:
-            if self.rescale != "qkv":
-                raise NotImplementedError("the 'qk' linear attention under spatial sharding is not ported "
-                                          f"(ROADMAP {spatial.BACKBONES})")
+            if self.rescale == "qk":
+                out = spatial.linear_attention_qk(qkv.flatten(2), self.heads, self.dim_head, scale, level)
+                return self.to_out(out.reshape(B, hidden, H, W))
             out = spatial.linear_attention(qkv.flatten(2).transpose(1, 2), self.heads, self.dim_head, scale, level)
             return self.to_out(out.transpose(1, 2).reshape(B, hidden, H, W))
         if self.rescale == "qkv":
@@ -211,8 +212,8 @@ class Attention(nn.Module):
         super().__init__()
         self.heads, self.dim_head, self.p = heads, dim_head, float(dropout)
         hidden = heads * dim_head
-        self.to_qkv = nn.Conv2d(dim, hidden * 3, 1, bias=False)
-        self.to_out = nn.Conv2d(hidden, dim, 1)
+        self.to_qkv = Conv2d(dim, hidden * 3, 1, bias=False)
+        self.to_out = Conv2d(hidden, dim, 1)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                 level: Optional[spatial.Level] = None) -> torch.Tensor:
@@ -224,7 +225,7 @@ class Attention(nn.Module):
             k, v = spatial.gather(qkv[:, 1:], level).flatten(-2).unbind(1)
             sim = torch.einsum("bhdi,bhdj->bhij", q * scale, k)
             # the mask of this rank's query rows: the slab of the global (B, h, H, W, N) draw
-            attn = torch.softmax(sim, dim=-1).reshape(B, self.heads, H, W, -1)
+            attn = torch.softmax(sim, dim=-1).reshape(B, self.heads, H, W, k.shape[-1])
             attn = dropout(attn, self.p, generator, level.slab._replace(dim=level.dim - 1)).flatten(2, 3)
             out = torch.einsum("bhij,bhdj->bhdi", attn, v)
             return self.to_out(out.reshape(B, self.heads * self.dim_head, H, W))

@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dyffusion_tpu_torch.models.base import Conv2d
 from dyffusion_tpu_torch.models.modules import PromotingLinear, dropout
 from dyffusion_tpu_torch.models.unet import remat_call
 from dyffusion_tpu_torch.parallel import spatial
@@ -57,7 +58,7 @@ def _init(w: torch.Tensor, scale: float, fan_in: int, fan_out: int) -> None:
 
 def ddpm_conv(c_in: int, c_out: int, kernel: int, init_scale: float = 1.0) -> nn.Conv2d:
     """A 'same' 3x3 or 1x1 conv with the DDPM init and zero bias."""
-    conv = nn.Conv2d(c_in, c_out, kernel, padding=kernel // 2)
+    conv = Conv2d(c_in, c_out, kernel, padding=kernel // 2)
     _init(conv.weight, init_scale, c_in * kernel * kernel, c_out * kernel * kernel)
     nn.init.zeros_(conv.bias)
     return conv
@@ -142,6 +143,8 @@ class NIN(nn.Module):
         _init(self.W, init_scale, c_in, c_out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (x.shape[-2] and x.shape[-1]):  # a slab of no rows under a shard (see ``base.Conv2d``)
+            return x.reshape(x.shape[0], self.W.shape[1], *x.shape[-2:])
         return F.conv2d(x, self.W.t()[:, :, None, None], self.b)
 
 

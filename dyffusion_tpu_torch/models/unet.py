@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
-from dyffusion_tpu_torch.models.base import concat_condition
+from dyffusion_tpu_torch.models.base import Conv2d, concat_condition
 from dyffusion_tpu_torch.parallel import spatial
 from dyffusion_tpu_torch.models.modules import (
     Attention,
@@ -81,7 +81,7 @@ class ResnetBlock(nn.Module):
         self.mlp = nn.Sequential(nn.SiLU(), PromotingLinear(time_emb_dim, dim_out * 2)) if time_emb_dim else None
         self.block1 = Block(dim_in, dim_out, groups)
         self.block2 = Block(dim_out, dim_out, groups) if double_conv_layer else None
-        self.residual_conv = nn.Conv2d(dim_in, dim_out, 1) if dim_in != dim_out else nn.Identity()
+        self.residual_conv = Conv2d(dim_in, dim_out, 1) if dim_in != dim_out else nn.Identity()
         self.dropout1, self.dropout2 = float(dropout1), float(dropout2)
 
     def forward(
@@ -229,7 +229,7 @@ class Unet(nn.Module):
             )
 
         self.final_res_block = res(init_dim * 2, dim)
-        self.final_conv = nn.Conv2d(dim, num_output_channels, 1)
+        self.final_conv = Conv2d(dim, num_output_channels, 1)
 
     def _resize(self, x: torch.Tensor, size, level: Optional[spatial.Level]):
         """The outer resample to ``size`` (H, W) and its level (None on one

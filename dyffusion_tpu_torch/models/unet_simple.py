@@ -8,7 +8,11 @@ and a k4 s2 transposed-conv readout. Encoder block: conv -> BatchNorm (the
 last: GroupNorm(8)) -> FiLM -> LeakyReLU(0.2) -> dropout; decoder block:
 bilinear x2 -> conv -> BatchNorm -> FiLM -> ReLU -> dropout. Resizes use
 half-pixel centres and no antialias (torch's ``F.interpolate`` with
-``align_corners=False``, as ``jax.image.resize(antialias=False)``).
+``align_corners=False``, as ``jax.image.resize(antialias=False)``); the
+outer resample takes any method of ``jax.image.resize`` as
+``outer_sample_mode`` (``utils.resize``: 'bilinear', the default, and
+'nearest' through ``F.interpolate``, the cubic and Lanczos kernels as two
+contractions with their weight matrices).
 
 The JAX package computes each decoder's bilinear x2 + conv as one fused
 dilated conv (``ops/upfirdn2d.py::bilinear_upsample_conv_2d``), exact to the
@@ -39,10 +43,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dyffusion_tpu_torch.models.base import BatchNorm2d, norm_call
+from dyffusion_tpu_torch.models.base import BatchNorm2d, Conv2d, norm_call
 from dyffusion_tpu_torch.models.modules import PromotingLinear, TimeEmbedder, dropout
 from dyffusion_tpu_torch.models.unet import remat_call
 from dyffusion_tpu_torch.parallel import spatial
+from dyffusion_tpu_torch.utils import resize as resize_ops
 
 RELU_LEAK = 0.2
 
@@ -139,7 +144,7 @@ class UNetSimple(nn.Module):
         self.upsample_dims = tuple(upsample_dims) if upsample_dims is not None else None
         self.input_dropout = float(input_dropout)
         self.remat = bool(remat)
-        self.init_conv = nn.Conv2d(num_input_channels + num_conditional_channels, dim, 1)
+        self.init_conv = Conv2d(num_input_channels + num_conditional_channels, dim, 1)
         self.time_emb_mlp = TimeEmbedder(dim * 2, dim) if with_time_emb else None
         t_dim = dim * 2 if with_time_emb else None
         d = dim
@@ -176,11 +181,12 @@ class UNetSimple(nn.Module):
                 m.bias.zero_()
 
     def _resize(self, x: torch.Tensor, size, level: Optional[spatial.Level]):
-        """The outer resample to ``size`` (H, W), and its level (None on one device)."""
+        """The outer resample to ``size`` (H, W) by ``outer_sample_mode``,
+        ``jax.image.resize``'s method (``utils.resize``), and its level
+        (None on one device)."""
         if level is not None:
-            return spatial.resize(x, level, size, self.outer_sample_mode)
-        return F.interpolate(x, size=tuple(size), mode=self.outer_sample_mode, align_corners=False,
-                             antialias=False), None
+            return spatial.resize(x, level, size, resize_ops.mode(self.outer_sample_mode))
+        return resize_ops.resize(x, size, self.outer_sample_mode), None
 
     def _block(self, block, x, t, batch_stats, generator, level: Optional[spatial.Level]):
         """A block on the level of its input, checkpointed under remat when

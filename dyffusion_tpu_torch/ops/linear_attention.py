@@ -41,6 +41,10 @@ rank's tokens at the forward's global maximum (a shift that the softmax
 cancels: it gets no gradient) with differentiable sums, whose backward sums
 the context's and the normaliser's gradients over the group: the split
 counterpart of ``_pallas_qkv_bwd``. Every rank of the group runs it.
+A rank of no tokens (a level of fewer rows than ranks) launches neither
+pass: the merge, launched with no chunk, writes its maxima as -inf and its
+partial as zeros, which the all_reduces take as they are, and its output
+is (B, 0, heads*dim_head); its plain version does the same.
 """
 from __future__ import annotations
 
@@ -80,16 +84,20 @@ MAX_STEPS_PER_BLOCK = 8
 # show that it went through the kernel.
 launches = 0
 core_launches = 0
-# of them, B1 calls split across ranks (each also counts in ``launches``)
+# of them, B1 calls split across ranks (each also counts in ``launches``),
+# and the partial and output passes those calls launched (none on a rank of
+# no tokens)
 split_launches = 0
+split_partial_launches = 0
+split_output_launches = 0
 
 _qkv_fn = None
 _split_fns = None
 
 
 def reset_launches() -> None:
-    global launches, core_launches, split_launches
-    launches = core_launches = split_launches = 0
+    global launches, core_launches, split_launches, split_partial_launches, split_output_launches
+    launches = core_launches = split_launches = split_partial_launches = split_output_launches = 0
 
 
 def linear_attention_qkv_plain(qkv: torch.Tensor, heads: int, dim_head: int, scale: float) -> torch.Tensor:
@@ -117,28 +125,25 @@ def linear_attention_core_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     return torch.einsum("bde,bdn->ben", context, qf).to(q.dtype)
 
 
-def _all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
-    import torch.distributed as dist
-
-    if group is not None:
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
-    return t
-
-
 def _split_plain(qkv: torch.Tensor, heads: int, dim_head: int, scale: float, n_total: int, group,
                  maximum: Optional[torch.Tensor] = None) -> tuple:
     """:func:`linear_attention_qkv_split_plain` and k's per-channel maximum
     over the group, (B, heads, dim_head) f32; ``maximum`` given: taken as
-    it is, detached (no collective)."""
+    it is, detached (no collective). A rank of no tokens adds a maximum of
+    -inf and sums of zeros."""
+    from dyffusion_tpu_torch.parallel.distributed import group_max, group_sum
+
     B, N, _ = qkv.shape
     x = qkv.float().reshape(B, N, 3, heads, dim_head)
     q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]  # (B, N, h, d)
-    m = _all_reduce_max(k.detach().amax(dim=1), group) if maximum is None else maximum.detach()
+    if maximum is None:
+        m = k.detach().amax(dim=1) if N else k.new_full((B, heads, dim_head), -torch.inf)
+        m = group_max(m, group)
+    else:
+        m = maximum.detach()
     p = torch.exp(k - m[:, None])
     sums = torch.cat([torch.einsum("bnhd,bnhe->bhde", p, v).flatten(2), p.sum(dim=1)], dim=-1)  # (B, h, d*d + d)
     if group is not None:  # differentiable: the backward sums the gradients over the group
-        from dyffusion_tpu_torch.parallel.distributed import group_sum
-
         sums = group_sum(sums, group)
     context = sums[..., : dim_head * dim_head].reshape(B, heads, dim_head, dim_head)
     context = context * (scale / (sums[..., dim_head * dim_head:, None] * n_total))
@@ -156,12 +161,13 @@ def linear_attention_qkv_split_plain(qkv: torch.Tensor, heads: int, dim_head: in
     return _split_plain(qkv, heads, dim_head, scale, n_total, group)[0]
 
 
-def _check(qkv: torch.Tensor, heads: int, dim_head: int) -> None:
+def _check(qkv: torch.Tensor, heads: int, dim_head: int, split: bool = False) -> None:
+    """``split``: a rank's tokens of the split B1, which may be none."""
     if qkv.dim() != 3 or qkv.shape[-1] != 3 * heads * dim_head:
         raise ValueError(
             f"qkv must be (B, N, 3*heads*dim_head) = (B, N, {3 * heads * dim_head}), got {tuple(qkv.shape)}"
         )
-    if qkv.shape[0] == 0 or qkv.shape[1] == 0:
+    if qkv.shape[0] == 0 or (qkv.shape[1] == 0 and not split):
         raise ValueError(f"qkv must have a non-empty batch and token axis, got {tuple(qkv.shape)}")
 
 
@@ -283,18 +289,22 @@ def _split_call(qkv: torch.Tensor, fn, *args) -> None:
 def split_partial(qkv: torch.Tensor, heads: int, dim_head: int) -> tuple:
     """The split B1's first step on this rank's tokens (CUDA): the partial
     pass over its S chunks per (batch, head), then each (b, h, d)'s maximum
-    over them. Returns (workspace, S, maxima (B*heads, dim_head))."""
+    over them. Returns (workspace, S, maxima (B*heads, dim_head)). No
+    token: S = 0, no partial pass, and the merge writes maxima of -inf."""
+    global split_partial_launches
     B, N, _ = qkv.shape
     _check_kernel_args(qkv.dtype, dim_head, qkv.stride())
     partials, merge, _ = _split_library()
     bh = B * heads
-    S = split_counts(bh, N)[0]
-    vec, tokens_fast = load_width(qkv)
+    S = split_counts(bh, N)[0] if N else 0
     ws = torch.empty(bh * S * PARTIAL_FLOATS, dtype=torch.float32, device=qkv.device)
     maxima = torch.empty((bh, dim_head), dtype=torch.float32, device=qkv.device)
-    third = heads * dim_head * qkv.stride(2) * qkv.element_size()
-    _split_call(qkv, partials, qkv.data_ptr() + third, qkv.data_ptr() + 2 * third, ws.data_ptr(),
-                int(qkv.dtype == torch.bfloat16), vec, int(tokens_fast), B, N, heads, dim_head, *qkv.stride(), S)
+    if N:
+        vec, tokens_fast = load_width(qkv)
+        third = heads * dim_head * qkv.stride(2) * qkv.element_size()
+        _split_call(qkv, partials, qkv.data_ptr() + third, qkv.data_ptr() + 2 * third, ws.data_ptr(),
+                    int(qkv.dtype == torch.bfloat16), vec, int(tokens_fast), B, N, heads, dim_head, *qkv.stride(), S)
+        split_partial_launches += 1
     _split_call(qkv, merge, ws.data_ptr(), bh, S, None, maxima.data_ptr(), None)
     return ws, S, maxima
 
@@ -302,7 +312,7 @@ def split_partial(qkv: torch.Tensor, heads: int, dim_head: int) -> tuple:
 def split_merge(qkv: torch.Tensor, ws: torch.Tensor, S: int, maxima: torch.Tensor) -> torch.Tensor:
     """The split B1's second step (CUDA): one partial per (batch, head) of
     this rank's tokens at the global ``maxima``; summed over the ranks it is
-    the partial of all tokens."""
+    the partial of all tokens. S = 0 (no token): zeros."""
     merged = torch.empty((maxima.shape[0], PARTIAL_FLOATS), dtype=torch.float32, device=qkv.device)
     _split_call(qkv, _split_library()[1], ws.data_ptr(), maxima.shape[0], S, maxima.data_ptr(), None,
                 merged.data_ptr())
@@ -312,13 +322,18 @@ def split_merge(qkv: torch.Tensor, ws: torch.Tensor, S: int, maxima: torch.Tenso
 def split_output(qkv: torch.Tensor, merged: torch.Tensor, heads: int, dim_head: int, scale: float,
                  n_total: int) -> torch.Tensor:
     """The split B1's last step (CUDA): the output pass over this rank's
-    tokens from the partial of all tokens, v / ``n_total``."""
+    tokens from the partial of all tokens, v / ``n_total``. No token: no
+    launch, an empty output."""
+    global split_output_launches
     B, N, _ = qkv.shape
     out = _qkv_out(qkv, heads * dim_head)
+    if not N:
+        return out
     vec, tokens_fast = load_width(qkv)
     _split_call(qkv, _split_library()[2], qkv.data_ptr(), out.data_ptr(), merged.data_ptr(),
                 int(qkv.dtype == torch.bfloat16), vec, int(tokens_fast), B, N, heads, dim_head, *qkv.stride(),
                 *out.stride(), 1, split_counts(B * heads, N)[1], int(n_total), float(scale))
+    split_output_launches += 1
     return out
 
 
@@ -328,9 +343,11 @@ def _launch_split(qkv: torch.Tensor, heads: int, dim_head: int, scale: float, n_
     global maximum, (B, heads, dim_head)."""
     import torch.distributed as dist
 
+    from dyffusion_tpu_torch.parallel.distributed import group_max
+
     global launches, split_launches
     ws, S, maxima = split_partial(qkv, heads, dim_head)
-    maxima = _all_reduce_max(maxima, group)
+    maxima = group_max(maxima, group)
     merged = split_merge(qkv, ws, S, maxima)
     if group is not None:
         dist.all_reduce(merged, group=group)
@@ -367,14 +384,14 @@ def linear_attention_qkv_split(qkv: torch.Tensor, heads: int, dim_head: int, sca
                                group=None) -> torch.Tensor:
     """B1 over ``n_total`` tokens split across the ranks of ``group``
     (None: this rank's are all of them), this rank holding ``qkv`` (B,
-    N_local, 3*heads*dim_head): the softmax of k over all tokens, the
+    N_local, 3*heads*dim_head), N_local >= 0: the softmax of k over all tokens, the
     context summed over all, v / ``n_total``; the output of this rank's
     tokens. CUDA tensor: the B1 kernels (partial pass, merge, output pass)
     with two all_reduces between them, or an error. CPU tensor: the plain
     version (:func:`linear_attention_qkv_split_plain`). Differentiable: the
     backward replays the plain version with one all_reduce. Every rank of
     the group must call it, and its backward."""
-    _check(qkv, heads, dim_head)
+    _check(qkv, heads, dim_head, split=True)
     if qkv.device.type not in ("cpu", "cuda"):
         raise ValueError(f"linear_attention_qkv_split takes CPU or CUDA tensors, got device {qkv.device}")
     return _SplitQKV.apply(qkv, heads, dim_head, float(scale), int(n_total), group)

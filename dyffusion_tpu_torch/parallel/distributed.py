@@ -172,6 +172,14 @@ def model_all_reduce(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def group_max(t: torch.Tensor, group) -> torch.Tensor:
+    """``t``'s elementwise maximum over the ranks of ``group`` in place,
+    outside autograd; ``t`` for ``group=None``."""
+    if group is not None:
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return t
+
+
 class _GroupSum(torch.autograd.Function):
     """An all_reduce sum whose backward is the all_reduce sum of the
     gradients (``torch.distributed.nn.functional.all_reduce``, which torch

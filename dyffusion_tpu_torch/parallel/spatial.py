@@ -7,10 +7,11 @@ slab of every grid tensor: contiguous rows of its H or W axis
 of the ``Unet`` is a :class:`Level`: the global extent of the sharded axis,
 split into K balanced contiguous blocks (the first ``total % K`` ranks one
 row longer: SST's 60 -> 30 -> 15 rows at K = 2 are 30/30, 15/15, 8/7; a
-level of fewer rows than K raises). A
-level's blocks follow from its extent alone, so a skip connection finds its
-level's partition again on the way up. Activations stay at about 1/K per
-rank; what crosses ranks:
+level of fewer rows than K leaves the last ranks a block of no rows, as
+GSPMD pads an empty shard: 3 rows at K = 4 are 1/1/1/0). A level's blocks
+follow from its extent alone, so a skip connection finds its level's
+partition again on the way up. Activations stay at about 1/K per rank;
+what crosses ranks:
 
 - :func:`rows` (the halo): the global rows [lo, hi) a rank needs, taken
   from whichever ranks own them, zeros outside the grid (a conv's zero
@@ -22,12 +23,14 @@ rank; what crosses ranks:
 - :func:`resize` and :func:`conv_transpose2d` (the physical-systems
   backbones): the outer resample to the working grid and back, and the
   ``UNetSimple``'s k4 s2 p1 readout. A resample's taps come from the GLOBAL
-  coordinates of the output block (half-pixel centres, the source index
-  clamped at the grid's edges 0 and total - 1, as torch's and the JAX
-  package's resizes do; torch's floor ``nearest`` for NCSN++'s SPADE
-  maps): the source rows they read, from whichever ranks
-  own them, are a halo like any other; so are the input rows a transposed
-  conv's output block reads (:func:`transposed_rows`).
+  coordinates of the output block: half-pixel centres, the source index
+  clamped at the grid's edges 0 and total - 1 ('bilinear',
+  'nearest-exact', as torch's and the JAX package's resizes do); torch's
+  floor ``nearest`` for NCSN++'s SPADE maps; or a row of the kernel's
+  weight matrix (``utils.resize``: 'cubic', 'lanczos3', 'lanczos5', up to
+  4, 6 or 10 taps). The source rows of non-zero weight, from whichever
+  ranks own them, are a halo like any other; so are the input rows a
+  transposed conv's output block reads (:func:`transposed_rows`).
 - :func:`upfirdn2d` (NCSN++'s FIR resampling, and on it the x2 resamplers
   :func:`fir_upsample`, :func:`fir_downsample`, :func:`upsample_conv_fir`,
   :func:`conv_downsample_fir`): output rows [a, b) read the zero-stuffed
@@ -39,7 +42,13 @@ rank; what crosses ranks:
 - :func:`gather`: a small tensor whole (the mid-block attention's keys and
   values, 15 x 15 tokens at SST; NCSN++'s at 32 x 32 and below).
 - :func:`linear_attention`: B1 split across ranks (``ops.linear_attention
-  .linear_attention_qkv_split``).
+  .linear_attention_qkv_split``); :func:`linear_attention_qk`: the 'qk'
+  linear attention, k's softmax and the context summed over the group.
+
+A rank whose block of a level is empty asks for no rows and gets a slab of
+no rows of the right shape (:func:`_empty`, kept on the autograd graph of
+its input), and still joins every transfer and its backward: it adds
+zeros, a count of 0, a maximum of -inf.
 
 Every transfer is an ``all_reduce`` over the model group of a zero-filled
 buffer that each rank fills with the rows it owns (gloo takes only
@@ -79,12 +88,11 @@ import torch
 import torch.nn.functional as F
 
 from dyffusion_tpu_torch.parallel import distributed
+from dyffusion_tpu_torch.utils import resize as resize_ops
 from dyffusion_tpu_torch.utils import rng
 
 # the sharded axis of an NCHW tensor for trainer.spatial_axis
 AXES = {"h": -2, "w": -1}
-# the ROADMAP item of what is not ported under a shard
-BACKBONES = "A2: the 'qk' linear attention and levels of fewer rows than ranks under a shard"
 
 
 def blocks(total: int, k: int) -> List[Tuple[int, int]]:
@@ -110,12 +118,6 @@ class Level:
     other: int
     rank: int
     size: int
-
-    def __post_init__(self):
-        if self.total < self.size:
-            raise NotImplementedError(
-                f"a level of {self.total} rows over {self.size} ranks leaves a rank without rows: a slab of no rows "
-                f"is not ported (ROADMAP {BACKBONES}); shard fewer ranks or the other axis")
 
     @property
     def blocks(self) -> List[Tuple[int, int]]:
@@ -146,6 +148,20 @@ class Level:
 
     def doubled(self) -> "Level":
         return dataclasses.replace(self, total=2 * self.total, other=2 * self.other)
+
+    def need(self, span) -> List[Tuple[int, int]]:
+        """Every rank's ``span(a, b)``, the input rows [lo, hi) its block
+        [a, b) of this level reads; (0, 0), no row, for an empty block."""
+        return [span(a, b) if a < b else (0, 0) for a, b in self.blocks]
+
+    def empty(self) -> bool:
+        return self.stop == self.start
+
+    def shape(self, batch: int, channels: int) -> Tuple[int, int, int, int]:
+        """The NCHW shape of this rank's slab of ``channels``."""
+        shape = [batch, channels, self.other, self.other]
+        shape[self.dim] = self.stop - self.start
+        return tuple(shape)
 
     def check(self, x: torch.Tensor) -> None:
         if x.shape[self.dim] != self.stop - self.start or x.shape[self.other_dim] != self.other:
@@ -292,6 +308,14 @@ def rows(x: torch.Tensor, level: Level, need: Sequence[Tuple[int, int]]) -> torc
     return _Rows.apply(x, level, tuple(need))
 
 
+def _empty(x: torch.Tensor, out: Level, channels: int) -> torch.Tensor:
+    """The slab of no rows of ``out`` (``channels``) from ``x``, an empty
+    tensor of this rank (a halo of no rows): a view of ``x``, so that the
+    rank's backward reaches the transfers that made ``x`` and runs their
+    collectives as the other ranks do."""
+    return x.reshape(out.shape(x.shape[0], channels))
+
+
 def gather(x: torch.Tensor, level: Level) -> torch.Tensor:
     """The whole of a level's tensor on every rank of the group (for small
     tensors): each rank's slab placed in a zero-filled buffer, summed (the
@@ -316,8 +340,9 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], 
     level.check(x)
     k = int(weight.shape[level.dim])
     out = level.conv(k, stride, padding)
-    need = [(a * stride - padding, (b - 1) * stride + k - padding) for a, b in out.blocks]
-    halo = rows(x, level, need)
+    halo = rows(x, level, out.need(lambda a, b: (a * stride - padding, (b - 1) * stride + k - padding)))
+    if out.empty():
+        return _empty(halo, out, weight.shape[0]), out
     return F.conv2d(halo, weight, bias, stride=stride, padding=_padding(level, padding)), out
 
 
@@ -329,7 +354,8 @@ def _taps(lo: int, hi: int, n_in: int, n_out: int, mode: str,
     for a tensor of that type (float32 for float32, bfloat16 and float16;
     ``align_corners=False``: the source index clamped at 0, i1 at n_in - 1;
     ``nearest-exact``: one tap; torch's ``nearest``: one tap at
-    floor(i n_in / n_out), no half-pixel centres)."""
+    floor(i n_in / n_out), no half-pixel centres). The kernel modes take
+    :func:`_weights`."""
     i = np.arange(lo, hi, dtype=dtype)
     scale, half = dtype(n_in) / dtype(n_out), dtype(0.5)
     if mode == "nearest":
@@ -342,7 +368,20 @@ def _taps(lo: int, hi: int, n_in: int, n_out: int, mode: str,
     if mode == "nearest-exact":
         i0 = np.minimum(np.floor((i + half) * scale).astype(np.int64), n_in - 1)
         return i0, i0, np.zeros_like(i)
-    raise ValueError(f"a resample of mode {mode!r} under spatial sharding is not ported (ROADMAP {BACKBONES})")
+    raise ValueError(f"unknown resample mode {mode!r}: 'nearest', 'nearest-exact', 'bilinear' or one of "
+                     f"{sorted(resize_ops.RADIUS)}")
+
+
+def _weights(lo: int, hi: int, n_in: int, n_out: int, mode: str, dtype=np.float32) -> Tuple[int, np.ndarray]:
+    """The source rows of output rows [lo, hi) of a resample by the kernel
+    ``mode`` ('cubic', 'lanczos3', 'lanczos5'; ``utils.resize.weights``):
+    the first source row of non-zero weight, and the rows' weights from it
+    to the last, (hi - lo, span). No row: (0, an empty matrix)."""
+    w = resize_ops.weights(n_in, n_out, mode, dtype)[lo:hi]
+    cols = np.flatnonzero(np.any(w != 0, axis=0))
+    if not len(cols):
+        return 0, w[:, :0]
+    return int(cols[0]), w[:, cols[0]:cols[-1] + 1]
 
 
 def _resample(x: torch.Tensor, level: Level, out: Level, need: Sequence[Tuple[int, int]], mode: str) -> torch.Tensor:
@@ -350,28 +389,42 @@ def _resample(x: torch.Tensor, level: Level, out: Level, need: Sequence[Tuple[in
     of this rank's slab ``x`` of ``level`` to the grid of ``out``, zeros
     outside [0, out.total) (a conv's padding after it): the source rows
     the taps read (:func:`rows`), resampled on the sharded axis by their
-    global coordinates, then on the whole other axis."""
+    global coordinates, then on the whole other axis. No row: a slab of
+    no rows."""
     level.check(x)
     # in float64 for a float64 tensor, else in float32 (as torch's resize computes a bf16 one)
-    dtype = np.float64 if x.dtype == torch.float64 else np.float32
+    dtype = resize_ops.np_dtype(x.dtype)
     clipped = [(max(lo, 0), min(hi, out.total)) for lo, hi in need]
-    taps = [_taps(a, b, level.total, out.total, mode, dtype) for a, b in clipped]
-    src_need = [(int(i0[0]), int(i1[-1]) + 1) for i0, i1, _ in taps]
+    if mode in resize_ops.RADIUS:
+        taps = [_weights(a, b, level.total, out.total, mode, dtype) for a, b in clipped]
+        src_need = [(first, first + w.shape[1]) for first, w in taps]
+    else:
+        taps = [_taps(a, b, level.total, out.total, mode, dtype) for a, b in clipped]
+        src_need = [(int(i0[0]), int(i1[-1]) + 1) if len(i0) else (0, 0) for i0, i1, _ in taps]
     src = rows(x, level, src_need)
-    i0, i1, w = taps[level.rank]
-    first, dim = src_need[level.rank][0], level.dim
-    as_index = lambda i: torch.as_tensor(i - first, device=x.device)  # noqa: E731
-    y = src.index_select(dim, as_index(i0))
-    if mode == "bilinear":
-        shape = [1] * x.dim()
-        shape[dim] = len(w)
-        weight = torch.as_tensor(w, device=x.device).reshape(shape)
-        y = torch.lerp(y.to(weight.dtype), src.index_select(dim, as_index(i1)).to(weight.dtype), weight).to(x.dtype)
     (lo, hi), (a, b) = need[level.rank], clipped[level.rank]
+    if hi <= lo:  # an empty block of out
+        return _empty(src, out, x.shape[1])
+    first, dim = src_need[level.rank][0], level.dim
+    if mode in resize_ops.RADIUS:
+        y = resize_ops.contract(src, dim, taps[level.rank][1])
+    else:
+        i0, i1, w = taps[level.rank]
+        as_index = lambda i: torch.as_tensor(i - first, device=x.device)  # noqa: E731
+        y = src.index_select(dim, as_index(i0))
+        if mode == "bilinear":
+            shape = [1] * x.dim()
+            shape[dim] = len(w)
+            weight = torch.as_tensor(w, device=x.device).reshape(shape)
+            y = torch.lerp(y.to(weight.dtype), src.index_select(dim, as_index(i1)).to(weight.dtype),
+                           weight).to(x.dtype)
     if a - lo or hi - b:  # the conv's zero padding beyond the grid's edges
         pad = [0, 0, a - lo, hi - b] if dim == -2 else [a - lo, hi - b]
         y = F.pad(y, pad)
-    if out.other != level.other:  # the other axis is whole on every rank
+    other = -1 if dim == -2 else -2
+    if mode in resize_ops.RADIUS:  # the other axis is whole on every rank
+        y = resize_ops.resize_axis(y, other, out.other, mode)
+    elif out.other != level.other:
         size = (y.shape[-2], out.other) if dim == -2 else (out.other, y.shape[-1])
         kw = {"align_corners": False} if mode == "bilinear" else {}
         y = F.interpolate(y, size=size, mode=mode, **kw)
@@ -379,10 +432,11 @@ def _resample(x: torch.Tensor, level: Level, out: Level, need: Sequence[Tuple[in
 
 
 def resize(x: torch.Tensor, level: Level, size: Sequence[int], mode: str = "bilinear") -> Tuple[torch.Tensor, Level]:
-    """This rank's slab of ``F.interpolate(x, size, mode)`` of the whole
-    grid (no antialias; ``mode`` 'bilinear' or 'nearest-exact', with
-    half-pixel centres, or torch's 'nearest'), and the level of the
-    ``size`` = (H, W) grid."""
+    """This rank's slab of the resample of the whole grid to ``size`` =
+    (H, W), no antialias, and the output's level: ``mode`` 'bilinear' or
+    'nearest-exact' (``F.interpolate``'s, with half-pixel centres),
+    torch's 'nearest', or a kernel mode of ``utils.resize`` ('cubic',
+    'lanczos3', 'lanczos5': ``jax.image.resize``'s)."""
     total, other = (size if level.dim == -2 else tuple(size)[::-1])
     out = dataclasses.replace(level, total=int(total), other=int(other))
     return _resample(x, level, out, out.blocks, mode), out
@@ -399,8 +453,9 @@ def upsample_conv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Te
     beyond the grid), then the conv without padding on the sharded axis. A
     1 x 1 conv (``padding`` 0) still needs the bilinear's source rows."""
     out = level.doubled()
-    need = [(a - padding, b + padding) for a, b in out.blocks]
-    up = _resample(x, level, out, need, mode)
+    up = _resample(x, level, out, out.need(lambda a, b: (a - padding, b + padding)), mode)
+    if out.empty():
+        return _empty(up, out, weight.shape[0]), out
     return F.conv2d(up, weight, bias, padding=_padding(level, padding)), out
 
 
@@ -423,8 +478,10 @@ def conv_transpose2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch
     k, s, p = int(weight.shape[level.dim]), int(stride), int(padding)
     grow = lambda n: (n - 1) * s - 2 * p + k  # noqa: E731
     out = dataclasses.replace(level, total=grow(level.total), other=grow(level.other))
-    need = [transposed_rows(a, b, k, s, p) for a, b in out.blocks]
+    need = out.need(lambda a, b: transposed_rows(a, b, k, s, p))
     halo = rows(x, level, need)
+    if out.empty():
+        return _empty(halo, out, weight.shape[1]), out
     y = F.conv_transpose2d(halo, weight, bias, stride=s, padding=_padding(level, p))
     return y.narrow(level.dim, out.start - need[level.rank][0] * s + p, out.stop - out.start), out
 
@@ -451,9 +508,11 @@ def upfirdn2d(x: torch.Tensor, kernel: np.ndarray, level: Level, up: int = 1, do
     kernel = np.asarray(kernel, np.float32)
     k, (p0, p1) = int(kernel.shape[0]), pad
     out = upfirdn_level(level, k, up, down, pad)
-    span = [(a * down - p0, (b - 1) * down + k - p0) for a, b in out.blocks]
-    need = [(-(-s0 // up), (s1 - 1) // up + 1) for s0, s1 in span]
+    span = out.need(lambda a, b: (a * down - p0, (b - 1) * down + k - p0))
+    need = [(-(-s0 // up), (s1 - 1) // up + 1) if s0 < s1 else (0, 0) for s0, s1 in span]
     z = rows(x, level, need)
+    if out.empty():
+        return _empty(z, out, x.shape[1]), out
     (lo, hi), (s0, s1) = need[level.rank], span[level.rank]
     B, C, H, W = z.shape
     if up > 1:
@@ -519,7 +578,8 @@ def group_norm(x: torch.Tensor, num_groups: int, weight: Optional[torch.Tensor],
     affine."""
     level.check(x)
     B = x.shape[0]
-    centred, _, var = distributed.mean_var(x.reshape(B, num_groups, -1), (-1,), distributed.model_group())
+    per_group = x[:1].numel() // num_groups  # 0 on an empty slab, where -1 would not resolve
+    centred, _, var = distributed.mean_var(x.reshape(B, num_groups, per_group), (-1,), distributed.model_group())
     y = (centred * torch.rsqrt(var + eps)).reshape(x.shape)
     if weight is not None:
         y = y * weight.to(y.dtype)[:, None, None] + bias.to(y.dtype)[:, None, None]
@@ -533,3 +593,26 @@ def linear_attention(qkv: torch.Tensor, heads: int, dim_head: int, scale: float,
     from dyffusion_tpu_torch.ops.linear_attention import linear_attention_qkv_split
 
     return linear_attention_qkv_split(qkv, heads, dim_head, scale, level.tokens, distributed.model_group())
+
+
+def linear_attention_qk(qkv: torch.Tensor, heads: int, dim_head: int, scale: float, level: Level) -> torch.Tensor:
+    """The 'qk' linear attention over the level's global tokens, this rank
+    holding ``qkv`` (B, 3 * heads * dim_head, N_local), the 1 x 1
+    projection of its slab flattened: q * scale on its tokens, k's softmax
+    over all of the level's tokens and the context summed over them (the
+    JAX package's plain ``jnp`` composition; it has no kernel). k's
+    maximum over the group (detached: the softmax cancels it; -inf from a
+    rank of no tokens), then the sums of e^{k - M} and of e^{k - M} v over
+    the group (``distributed.model_sum``, differentiable), in f32 (f64 for
+    an f64 ``qkv``). Returns (B, heads * dim_head, N_local) in qkv's
+    dtype."""
+    B = qkv.shape[0]
+    x = qkv.to(torch.promote_types(qkv.dtype, torch.float32)).reshape(B, 3, heads, dim_head, qkv.shape[-1])
+    q, k, v = x.unbind(1)  # (B, h, d, N_local)
+    m = k.detach().amax(-1) if k.shape[-1] else k.new_full(k.shape[:-1], -torch.inf)
+    p = torch.exp(k - distributed.group_max(m, distributed.model_group())[..., None])
+    sums = distributed.model_sum(torch.cat([torch.einsum("bhdn,bhen->bhde", p, v).flatten(2), p.sum(-1)], -1))
+    dd = dim_head * dim_head
+    context = sums[..., :dd].reshape(B, heads, dim_head, dim_head) / sums[..., dd:, None]
+    out = torch.einsum("bhde,bhdn->bhen", context, q * scale)
+    return out.reshape(qkv.shape[0], heads * dim_head, qkv.shape[-1]).to(qkv.dtype)

@@ -70,39 +70,47 @@ def unet_rank(rank: int, world: int, case: Dict[str, Any], faults: List[Any]) ->
     return out
 
 
-def a2_raise(world: int) -> str:
-    """The errors of the layouts still refused under a shard (ROADMAP A2):
-    the 'qk' linear attention and, on a world of more than one rank, a
-    ``Unet`` level of fewer rows than ranks (8 rows, mults (1, 2, 4, 8):
-    the deepest level has one); "no error" if one of them runs."""
+def thin_layouts(rank: int, world: int, shard: bool = True) -> Dict[str, np.ndarray]:
+    """The layouts that a shard once refused, on this rank's rows of an
+    8 x 8 grid split on H over the model group of ``world`` ranks (with
+    ``shard`` False: the whole grid, no shard): the 'qk' linear attention,
+    and a ``Unet`` with mults (1, 2, 4, 8), whose deepest level has one row
+    (at K = 2 a level of fewer rows than ranks). Weights and input from
+    fixed seeds, so that every caller computes the same: the outputs."""
     import torch
 
     from dyffusion_tpu_torch.models import Unet
     from dyffusion_tpu_torch.models.modules import LinearAttention
     from dyffusion_tpu_torch.parallel import spatial
 
-    x = torch.zeros(1, 8, 8 // world, 8)
-    calls = [lambda: LinearAttention(8, 1, 8, rescale="qk")(x, None, spatial.current().top())]
-    if world > 1:
-        net = Unet(8, 8, 1, dim_mults=(1, 2, 4, 8), resnet_block_groups=4, attn_heads=1, attn_dim_head=8)
-        calls.append(lambda: net(x))
-    errors = []
-    for call in calls:
-        try:
-            with torch.no_grad(), spatial.sharded("h", (8, 8)):
-                call()
-        except NotImplementedError as e:
-            errors.append(str(e))
-            continue
-        return "no error"
-    return "; ".join(errors)
+    torch.manual_seed(0)
+    attn = LinearAttention(8, 1, 8, rescale="qk")
+    net = Unet(8, 8, 1, dim_mults=(1, 2, 4, 8), resnet_block_groups=4, attn_heads=1, attn_dim_head=8)
+    x = torch.as_tensor(_slab(np.random.default_rng(0).normal(size=(2, 8, 8, 8)).astype(np.float32), "h", rank,
+                              world))
+    with torch.no_grad():
+        if not shard:
+            return {"qk": attn(x).numpy(), "unet": net(x).numpy()}
+        with spatial.sharded("h", (8, 8)):
+            return {"qk": attn(x, None, spatial.current().top()).numpy(), "unet": net(x).numpy()}
+
+
+def assert_thin_layouts_match(slabs: List[Dict[str, np.ndarray]], rel: float = 1e-5) -> None:
+    """The ranks' :func:`thin_layouts` slabs joined on H (or one rank's
+    whole grid) against the whole grid without a shard, within ``rel`` of
+    max."""
+    for k, want in thin_layouts(0, 1, shard=False).items():
+        got = np.concatenate([s[k] for s in slabs], axis=2)
+        assert got.shape == want.shape, (k, got.shape, want.shape)
+        err, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+        assert err <= rel * scale, f"{k}: max abs err {err:.3e} > {rel} x {scale:.3e}"
 
 
 def stages_rank(rank: int, world: int, stage1: List[str], stage2: List[str]) -> Dict[str, Any]:
     """Both DYffusion stages' val predictions (``Trainer.predict``, dropout
     on, gathered rows and slabs) on this world's D x K grid, the stage-1
-    test metrics, the best score of stage 2's ``fit`` and the raise of an
-    A2 backbone under the shard."""
+    test metrics, the best score of stage 2's ``fit`` and
+    :func:`thin_layouts` under the shard."""
     from dyffusion_tpu_torch.config import get_config
     from dyffusion_tpu_torch.interface import build_trainer
 
@@ -110,7 +118,7 @@ def stages_rank(rank: int, world: int, stage1: List[str], stage2: List[str]) -> 
     tr2 = build_trainer(get_config("synthetic_dyffusion", stage2), interpolator=tr1.experiment.model, device="cpu")
     out = {"stage 1": tr1.predict("val"), "stage 2": tr2.predict("val"), "test": tr1.evaluate("test")}
     out["fit"] = tr2.fit()
-    out["a2"] = a2_raise(world)
+    out["thin"] = thin_layouts(rank, world)
     return out
 
 
@@ -272,14 +280,14 @@ def train_rank(rank: int, world: int, unet_cases: List[Dict[str, Any]], faults: 
     """One spawn for the module: :func:`unet_grad_rank` per case (the
     faults on the first), :func:`b1_grad_rank`, then each of ``runs``
     (name -> commands, :func:`run_commands`) on this world's grid (the
-    commands set it), and :func:`a2_raise`."""
+    commands set it), and :func:`thin_layouts`."""
     from dyffusion_tpu_torch.parallel import distributed
 
     distributed.set_model_axis(world)
     out = {"unet": [unet_grad_rank(rank, world, c, faults if i == 0 else []) for i, c in enumerate(unet_cases)],
            "b1": b1_grad_rank(rank, world, *b1)}
     out["runs"] = {name: run_commands(commands) for name, commands in runs.items()}
-    out["a2"] = a2_raise(world)
+    out["thin"] = thin_layouts(rank, world)
     return out
 
 
@@ -641,4 +649,155 @@ def fir_rank(rank: int, world: int, x: np.ndarray, w: np.ndarray, taps: List[flo
                 out[f"{axis} {name}"] = getattr(spatial, name)(xs, taps, level)[0].numpy()
             for name in ("upsample_conv_fir", "conv_downsample_fir"):
                 out[f"{axis} {name}"] = getattr(spatial, name)(xs, wt, taps, level)[0].numpy()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# levels of fewer rows than ranks, the 'qk' attention and the resample
+# methods under a shard (tests/test_torch_port_spatial_thin.py)
+
+
+@contextlib.contextmanager
+def thin_fault(name: str):
+    """A planted fault of a layout with an empty block: :func:`fault`'s
+    'halos zeroed', or 'empty rank skips its contribution' (a rank whose
+    block of a transfer's output is empty puts zeros for its rows into the
+    halo's all_reduce: it still calls it, so no rank waits)."""
+    import torch
+
+    from dyffusion_tpu_torch.parallel import spatial
+
+    if name != "empty rank skips its contribution":
+        with fault(name):
+            yield
+        return
+    saved = spatial._take_rows
+
+    def take_rows(x, level, need):
+        lo, hi = need[level.rank]
+        return saved(torch.zeros_like(x) if hi <= lo else x, level, need)
+
+    spatial._take_rows = take_rows
+    try:
+        yield
+    finally:
+        spatial._take_rows = saved
+
+
+def _group_grads(module) -> Dict[str, np.ndarray]:
+    """Each weight's gradient summed over the model group (zeros where this
+    rank's backward did not reach it: a rank of no rows at the deepest
+    levels)."""
+    import torch
+
+    from dyffusion_tpu_torch.parallel import distributed
+
+    return {k: distributed.model_sum(torch.zeros_like(p) if p.grad is None else p.grad.clone()).numpy()
+            for k, p in module.named_parameters()}
+
+
+def thin_backbone(case: Dict[str, Any]) -> Dict[Any, Any]:
+    """A backbone (``case['cls']``: kwargs, state dict, NCHW inputs,
+    cotangent, axis, ``dtype``) on this rank's slab of its model group,
+    dropout off, eval mode: the forward with no fault and under each of
+    ``case['faults']`` and, with ``case['grads']``, the gradients of
+    sum(output * cot): the input's slab and each weight's summed over the
+    group."""
+    import torch
+
+    from dyffusion_tpu_torch import models
+    from dyffusion_tpu_torch.parallel import distributed, spatial
+
+    dtype = getattr(torch, case.get("dtype", "float32"))
+    model = getattr(models, case["cls"])(**case["kwargs"])
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in case["state"].items()}, strict=True)
+    model.to(dtype)
+    rank, world = distributed.model_rank(), distributed.model_size()
+    axis, (H, W) = case["axis"], case["x"].shape[2:]
+    slab = lambda a: torch.as_tensor(_slab(a, axis, rank, world)).to(dtype)  # noqa: E731
+    x, cond, t = slab(case["x"]), slab(case["cond"]), torch.as_tensor(case["t"])
+    out = {}
+    for name in [None] + list(case.get("faults", ())):
+        with thin_fault(name), torch.no_grad(), spatial.sharded(axis, (H, W)):
+            out[name] = model(x, t, cond).numpy()
+    if case.get("grads"):
+        x.requires_grad_(True)
+        with spatial.sharded(axis, (H, W)):
+            y = model(x, t, cond)
+        (y * slab(case["cot"])).sum().backward()
+        out["grads"] = {"x": x.grad.numpy(), **_group_grads(model)}
+    return out
+
+
+def thin_b1(case: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The split B1 (plain, CPU) on this rank's tokens of ``case['qkv']``
+    (B, N, 3*2*8) over its model group, and its tokens' gradient of
+    sum(output * case['cot'])."""
+    import torch
+
+    from dyffusion_tpu_torch.ops.linear_attention import linear_attention_qkv_split
+    from dyffusion_tpu_torch.parallel import distributed, spatial
+
+    qkv, cot = case["qkv"], case["cot"]
+    a, b = spatial.blocks(qkv.shape[1], distributed.model_size())[distributed.model_rank()]
+    x = torch.tensor(qkv[:, a:b], requires_grad=True)
+    y = linear_attention_qkv_split(x, 2, 8, 8**-0.5, qkv.shape[1], distributed.model_group())
+    (y * torch.as_tensor(cot[:, a:b])).sum().backward()
+    return {"out": y.detach().numpy(), "grad": x.grad.numpy()}
+
+
+def thin_qk(case: Dict[str, Any]) -> Dict[str, Any]:
+    """The 'qk' ``LinearAttention`` (``case``: kwargs, state dict, NCHW
+    input and cotangent split on H) on this rank's rows, as the ``Unet``'s
+    blocks call it under a shard: its output slab, its input's gradient
+    slab and the weights' gradients summed over the model group."""
+    import torch
+
+    from dyffusion_tpu_torch.models.modules import LinearAttention
+    from dyffusion_tpu_torch.parallel import distributed, spatial
+
+    attn = LinearAttention(**case["kwargs"])
+    attn.load_state_dict({k: torch.as_tensor(v) for k, v in case["state"].items()}, strict=True)
+    rank, world = distributed.model_rank(), distributed.model_size()
+    x = torch.tensor(_slab(case["x"], "h", rank, world), requires_grad=True)
+    with spatial.sharded("h", case["x"].shape[2:]):
+        y = attn(x, None, spatial.current().top())
+    (y * torch.as_tensor(_slab(case["cot"], "h", rank, world))).sum().backward()
+    return {"out": y.detach().numpy(), "grads": {"x": x.grad.numpy(), **_group_grads(attn)}}
+
+
+def thin_resizes(case: Dict[str, Any]) -> Dict[tuple, np.ndarray]:
+    """``spatial.resize`` of this rank's slab of each input (by its (H, W)
+    in ``case['x']``) to the size paired with it in ``case['sizes']``, on H
+    and on W, by each of ``case['modes']``: (mode, source (H, W), size,
+    axis) -> the slab."""
+    import torch
+
+    from dyffusion_tpu_torch.parallel import distributed, spatial
+
+    rank, world = distributed.model_rank(), distributed.model_size()
+    out = {}
+    for src, size in case["sizes"]:
+        for axis in ("h", "w"):
+            total, other = src if axis == "h" else src[::-1]
+            level = spatial.Level(spatial.AXES[axis], total, other, rank, world)
+            slab = torch.as_tensor(_slab(case["x"][src], axis, rank, world))
+            for mode in case["modes"]:
+                out[(mode, src, size, axis)] = spatial.resize(slab, level, size, mode)[0].numpy()
+    return out
+
+
+def thin_rank(rank: int, world: int, cases: Dict[str, Any]) -> Dict[int, Dict[str, Any]]:
+    """One spawn for the module: on model groups of the whole world (K =
+    ``world``) and then of 2, each K of ``cases['k']`` maps to what the
+    rank computes there: each case of ``cases[str(K)]`` by its kind
+    (``'backbone'``: :func:`thin_backbone`, ``'b1'``, ``'qk'``,
+    ``'resize'``)."""
+    from dyffusion_tpu_torch.parallel import distributed
+
+    run = {"backbone": thin_backbone, "b1": thin_b1, "qk": thin_qk, "resize": thin_resizes}
+    out = {}
+    for k in cases["k"]:
+        distributed.set_model_axis(k)
+        out[k] = {name: run[c["kind"]](c) for name, c in cases[str(k)].items()}
     return out

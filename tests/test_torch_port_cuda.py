@@ -218,6 +218,60 @@ def test_split_kernel_through_a_gloo_group_of_one():
     _assert_close_to_scale(got, la.linear_attention_qkv_plain(x, HEADS, DIM_HEAD, SCALE), REL_TOL[torch.float32])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("tokens", [(1, 1, 1, 0), (60, 60, 60, 0), (450, 0)])
+def test_split_kernel_with_an_empty_rank_matches_plain(tokens, dtype):
+    """B1 split across ranks of which one holds no token (a level of fewer
+    rows than ranks: 3 rows at K = 4, times 1 or 60 columns) against B1's
+    plain version over all the tokens, the ranks emulated as above. The
+    empty rank launches neither the partial pass nor the output pass (its
+    merge writes maxima of -inf and a partial of zeros) and returns a (B,
+    0, heads*dim_head) output; its plain version does the same."""
+    _require_cuda()
+    dt = getattr(torch, dtype)
+    x = _qkv(8, sum(tokens), seed=sum(tokens) + 1).cuda().transpose(1, 2).contiguous().transpose(1, 2).to(dt)
+    bounds = np.cumsum((0,) + tokens)
+    parts = [x[:, a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+    la.reset_launches()
+    outs = _split_emulated(parts)
+    torch.cuda.synchronize()
+    ranks_with_tokens = sum(1 for n in tokens if n)
+    assert (la.split_partial_launches, la.split_output_launches) == (ranks_with_tokens, ranks_with_tokens)
+    assert outs[-1].shape == (8, 0, HEADS * DIM_HEAD)
+    want = la.linear_attention_qkv_plain(x, HEADS, DIM_HEAD, SCALE)
+    _assert_close_to_scale(torch.cat(outs, dim=1), want, REL_TOL[dt])
+    empty = parts[-1].cpu().float()
+    plain, maximum = la._split_plain(empty, HEADS, DIM_HEAD, SCALE, sum(tokens), None)
+    assert plain.shape == (8, 0, HEADS * DIM_HEAD) and bool(torch.isinf(maximum).all())
+
+
+@pytest.mark.cuda
+def test_split_kernel_of_no_tokens_through_a_gloo_group_of_one():
+    """``linear_attention_qkv_split`` on a CUDA tensor of no tokens over a
+    gloo group of one rank (of 900 tokens over the group): one split call,
+    no partial or output pass, an empty output, and a backward of zeros."""
+    _require_cuda()
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    try:
+        x = _qkv(6, 900, seed=4).cuda()[:, :0].clone().requires_grad_(True)
+        la.reset_launches()
+        got = la.linear_attention_qkv_split(x, HEADS, DIM_HEAD, SCALE, 900, dist.group.WORLD)
+        got.sum().backward()
+        torch.cuda.synchronize()
+        assert (la.launches, la.split_launches, la.split_partial_launches, la.split_output_launches) == (1, 1, 0, 0)
+    finally:
+        dist.destroy_process_group()
+    assert got.shape == (6, 0, HEADS * DIM_HEAD) and x.grad.shape == x.shape
+
+
 # the per-rank tokens of the split B1 in a 64-row SST train step on two ranks
 # sharding H (60 -> 30 -> 15 rows, split 30/30, 15/15, 8/7, times 60, 30, 15)
 SPLIT_TRAIN_TOKENS = ((1800, 1800), (450, 450), (120, 105))

@@ -62,7 +62,7 @@ from dyffusion_tpu_torch.models.base import BatchNorm2d
 from dyffusion_tpu_torch.parallel import process_local_rows, shard_batch
 from dyffusion_tpu_torch.utils.naming import get_run_id
 from tests import _torch_ddp_workers as workers
-from tests._torch_spatial_workers import a2_raise
+from tests._torch_spatial_workers import assert_thin_layouts_match, thin_layouts
 from tests._torch_port_helpers import torch_threads_share_of_cores  # noqa: F401 (autouse fixture)
 
 WORLD = 2
@@ -404,7 +404,7 @@ def test_world_must_match_trainer_devices():
     with pytest.raises(ValueError, match="trainer.devices=2"):
         build_trainer(get_config("synthetic_interpolation", TINY + ["trainer.devices=2"]), device="cpu")
     # training under a shard runs: on one process only the world is refused (K must divide it),
-    # and an A2 layout still raises under a shard
+    # and the layouts a shard once refused run under a one-rank shard as without one
     with pytest.raises(ValueError, match="not divisible by trainer.spatial_shards=2"):
         run_experiment(get_config("synthetic_interpolation", TINY + ["trainer.spatial_shards=2"]), device="cpu")
-    assert "ROADMAP A2" in a2_raise(1)
+    assert_thin_layouts_match([thin_layouts(0, 1)], REL)

@@ -37,10 +37,11 @@ process.
   subtracts again: Adam moves them by rounding noise); the test metrics
   of the two-rank run within 1e-5 of the largest of those of the same run
   tested on one process.
-- (e) The raises: NS on H at K = 2 raises the JAX package's wording (221
-  rows); ``navier_stokes_ddpm`` on W with a 64-column working grid (the
-  ``UNetSimple``'s deepest level of one column over two ranks) still
-  raises naming ROADMAP A2, in training and at eval.
+- (e) NS on H at K = 2 raises the JAX package's wording (221 rows);
+  ``navier_stokes_ddpm`` on W with a 64-column working grid (the
+  ``UNetSimple``'s deepest level of one column over two ranks: one rank's
+  block is empty) trains on two ranks as on one process, and
+  ``mode=test`` of that run samples on two ranks as on one.
 
 One spawn of two ranks computes (a)-(e) beside the JAX side and the
 one-process runs, and beside it the CLI's own spawns for NS; each rank
@@ -85,7 +86,7 @@ GRAD_REL = 1e-4
 GRAD_FLOOR = 0.1
 TRAIN_FAULTS = ("halos zeroed", "batch norm per rank", "resize per slab")
 # name -> (port class, data grid (H, W), sharded axis, kwargs, planted faults)
-BACKBONES = {
+BACKBONE_CASES = {
     "unet_simple h": ("UNetSimple", (24, 16), "h", dict(dim=8, upsample_dims=(128, 64)), TRAIN_FAULTS),
     "unet_simple w": ("UNetSimple", (16, 24), "w", dict(dim=8, upsample_dims=(64, 128)), TRAIN_FAULTS),
     "cnn batch_norm": ("SimpleConvNet", (10, 10), "h", dict(dim=32, net_normalization="batch_norm"),
@@ -104,7 +105,7 @@ BACKBONES = {
     "unet bilinear": ("Unet", (11, 10), "h", dict(outer_sample_mode="bilinear"), ("resize per slab",)),
     "unet nearest": ("Unet", (11, 10), "h", dict(outer_sample_mode="nearest"), ("resize per slab",)),
 }
-EVAL_CASES = list(BACKBONES)
+EVAL_CASES = list(BACKBONE_CASES)
 
 
 def _base(name):
@@ -126,6 +127,8 @@ SPRING = ["datamodule.horizon=4", "datamodule.prediction_horizon=8", "datamodule
           "module.num_predictions_test=2", "module.use_ema=true", "trainer.max_steps=3",
           "trainer.log_every_n_steps=1", "trainer.val_every_n_epochs=100"]
 SHARDED = ["trainer.devices=2", "trainer.spatial_shards=2"]
+# the NS DDPM on a 64 x 64 working grid: its deepest level has one column
+NS_DDPM = ["diffusion.timesteps=4", "model.upsample_dims=(64,64)"]
 # the single-stage forecasters on the physical systems: (system, method, sharded axis)
 BASELINES = (("spring_mesh", "time_conditioned", "h"), ("spring_mesh", "simultaneous", "h"),
              ("navier_stokes", "time_conditioned", "w"))
@@ -200,7 +203,7 @@ def _backbone_case(name, seed):
     JAX answers (NCHW, the port's state-dict names): the eval forward and,
     but for the ``Unet``, the train-mode forward, its updated running
     statistics and ``jax.grad`` of sum(output * cot)."""
-    cls, grid, axis, kw, faults = BACKBONES[name]
+    cls, grid, axis, kw, faults = BACKBONE_CASES[name]
     jcls, convert = JAX[cls]
     C, Cc = (3, 2) if cls != "SimpleConvNet" else (4, 1)
     kw = dict(kw, num_input_channels=C, num_output_channels=C, num_conditional_channels=Cc, with_time_emb=True)
@@ -300,7 +303,7 @@ def ranks(tmp_path_factory):
                                              n_time=10)
             for system, name in (("navier_stokes", "navier-stokes"), ("spring_mesh", "spring-mesh"))}
     regs = {name: str(root / name) for name in ("ns_one", "ns_w", "ns_w2", "spring_one", "spring_h", "spring_h2",
-                                                 "baselines", "baselines_one", "raises")}
+                                                 "baselines", "baselines_one", "raises", "ns_ddpm", "ns_ddpm_one")}
     cases = [_backbone_case(name, EVAL_CASES.index(_base(name))) for name in EVAL_CASES]
     boundary = _boundary_case(data["navier_stokes"])
     h = SHARDED + ["trainer.spatial_axis=h"]
@@ -315,9 +318,12 @@ def ranks(tmp_path_factory):
                 for system, reg in (("navier_stokes", "ns_one"), ("spring_mesh", "spring_one"))}
     ids = {system: [get_run_id(get_config(p, o)) for p, o in cmds] for system, cmds in one_cmds.items()}
     ns_tiny = NS + [f"datamodule.data_dir={data['navier_stokes']}", f"registry_dir={regs['raises']}"] + SHARDED
-    raises = {"ns on h": ("navier_stokes_interpolation", ns_tiny + ["trainer.spatial_axis=h"]),
-              "ns ddpm": ("navier_stokes_ddpm", ns_tiny + ["trainer.spatial_axis=w", "diffusion.timesteps=4",
-                                                           "model.upsample_dims=(64,64)"])}
+    raises = {"ns on h": ("navier_stokes_interpolation", ns_tiny + ["trainer.spatial_axis=h"])}
+    ns_ddpm = {reg: ("navier_stokes_ddpm", _overrides("navier_stokes", data["navier_stokes"], regs[reg], layout)
+                     + NS_DDPM) for reg, layout in (("ns_ddpm", SHARDED + ["trainer.spatial_axis=w"]),
+                                                    ("ns_ddpm_one", []))}
+    ns_ddpm_id = get_run_id(get_config(*ns_ddpm["ns_ddpm"]))
+    runs["ns ddpm"] = [ns_ddpm["ns_ddpm"]]
     ready, ready_file, ns_done = threading.Event(), str(root / "stage 1 ready"), str(root / "ns stage 2 done")
     def one_process():
         """The one-process runs: each stage 1, copied beside the two-rank
@@ -335,12 +341,13 @@ def ranks(tmp_path_factory):
         for system in one_cmds:
             spatial_workers.run_commands(one_cmds[system][1:])
         spatial_workers.run_commands([(preset, _overrides(system, data[system], regs["baselines_one"], []))
-                                      for preset, (system, _) in baselines.items()])
+                                      for preset, (system, _) in baselines.items()] + [ns_ddpm["ns_ddpm_one"]])
 
     with ThreadPoolExecutor(3) as pool:
         tests = {"spring_mesh": (regs["spring_h2"], ids["spring_mesh"][1]),
                  **{preset: (regs["baselines"], run_id) for preset, run_id in baseline_ids.items()},
-                 "navier_stokes": (regs["ns_w2"], ids["navier_stokes"][1])}
+                 "navier_stokes": (regs["ns_w2"], ids["navier_stokes"][1]),
+                 "ns ddpm": (regs["ns_ddpm"], ns_ddpm_id)}
         waits = {"after stage 1: stage 2": ready_file, "navier_stokes": ns_done}
         spawn = pool.submit(workers.run_ranks, spatial_workers.physical_rank, WORLD, [c for c, _ in cases], boundary,
                             runs, tests, raises, waits)
@@ -359,6 +366,8 @@ def ranks(tmp_path_factory):
            for system, reg in (("navier_stokes", "ns_w2"), ("spring_mesh", "spring_h2"))}
     one.update({preset: {"ids": [run_id], "test": reload_and_test(regs["baselines"], run_id, one_process, device="cpu")}
                 for preset, run_id in baseline_ids.items()})
+    one["ns ddpm"] = {"ids": [ns_ddpm_id], "test": reload_and_test(regs["ns_ddpm"], ns_ddpm_id, one_process,
+                                                                   device="cpu")}
     return dict(cases=[c for c, _ in cases], answers=answers, out=out, cli=cli_lines, one=one, regs=regs,
                 boundary=boundary, want_boundary=want_boundary, jax_error=_jax_divisibility_error())
 
@@ -407,11 +416,11 @@ def _check(ranks, i, what, fault=None):
         _assert_close(_joined(ranks, i, lambda r: r[fault][what]), want, what=what)
 
 
-TRAIN_CASES = [n for n in BACKBONES if BACKBONES[n][0] != "Unet"]
+TRAIN_CASES = [n for n in BACKBONE_CASES if BACKBONE_CASES[n][0] != "Unet"]
 
 
 def _has_batch_norm(name):
-    return BACKBONES[name][3].get("net_normalization", "batch_norm") == "batch_norm"
+    return BACKBONE_CASES[name][3].get("net_normalization", "batch_norm") == "batch_norm"
 
 
 @pytest.mark.parametrize("name", EVAL_CASES)
@@ -435,7 +444,7 @@ def _fault_cases():
     can reach: BatchNorm per rank only in train mode, the updates only
     where a BatchNorm is."""
     out = []
-    for name, (cls, _, _, _, faults) in BACKBONES.items():
+    for name, (cls, _, _, _, faults) in BACKBONE_CASES.items():
         for fault in faults:
             whats = ["eval"] if cls == "Unet" else ["eval", "train"] + ["updates"] * _has_batch_norm(name) + ["grads"]
             if fault == "batch norm per rank":
@@ -548,7 +557,7 @@ def test_sharded_baselines_train_and_test_as_one_process(ranks, preset):
 
 
 # ---------------------------------------------------------------------------
-# (e) the raises
+# (e) NS on H, and the NS DDPM on a level of fewer columns than ranks
 
 
 def test_ns_on_h_raises_the_jax_wording(ranks):
@@ -558,9 +567,12 @@ def test_ns_on_h_raises_the_jax_wording(ranks):
 
 
 def test_ns_ddpm_under_a_shard_still_raises_a2(ranks):
-    """The DDPM engine runs under a shard; a level of fewer columns than
-    ranks still raises, in training and in the sampler."""
-    for r in ranks["out"]:
-        train, evaluate = r["raises"]["ns ddpm"]
-        for error in (train, evaluate):
-            assert "leaves a rank without rows" in error and "ROADMAP A2" in error, error
+    """The DDPM engine on W with a 64-column working grid, whose deepest
+    level of one column leaves one of the two ranks an empty block: trained
+    on two ranks as on one process at the same seed (losses, weights), and
+    ``mode=test`` of that run (the sampler's samples through the metrics)
+    on two ranks as on one."""
+    run_id = ranks["one"]["ns ddpm"]["ids"][0]
+    assert [r["runs"]["ns ddpm"] for r in ranks["out"]] == [[run_id]] * WORLD
+    assert_trains_as(ranks["regs"]["ns_ddpm"], ranks["regs"]["ns_ddpm_one"], run_id, steps=3)
+    _assert_metrics_close([r["tests"]["ns ddpm"] for r in ranks["out"]], ranks["one"]["ns ddpm"]["test"])

@@ -29,8 +29,8 @@ against one process.
   ranks) with ``trainer.devices=2 trainer.spatial_shards=2
   trainer.spatial_axis=w`` for stage 1, then stage 2 by run id; the run
   ids equal the JAX package's.
-- An A2 layout (the 'qk' attention, a level of fewer rows than ranks)
-  still raises ``NotImplementedError`` naming ROADMAP A2 under a shard.
+- The layouts a shard once refused (the 'qk' attention, a level of fewer
+  rows than ranks) run on the two ranks and equal one process.
 
 One spawn of two ranks for (a)-(c) beside the JAX gradients and the
 one-process runs, then the CLI and the 2 x 2 grid with its witness, each
@@ -230,8 +230,9 @@ def test_split_linear_attention_backward_matches_jax(ranks):
 
 
 def test_a2_backbone_still_raises_under_a_shard(ranks):
-    for r in ranks["out"]:
-        assert "ROADMAP A2" in r["a2"]
+    """The layouts a shard once refused now run: the ranks' slabs equal
+    one process."""
+    spatial_workers.assert_thin_layouts_match([r["thin"] for r in ranks["out"]], REL)
 
 
 # ---------------------------------------------------------------------------
