@@ -31,6 +31,7 @@ from dyffusion_tpu_torch.models.base import MODEL_STATE_UPDATES, apply_model, ap
 from dyffusion_tpu_torch.utils import rng
 from dyffusion_tpu_torch.utils.loop import loop
 from dyffusion_tpu_torch.utils.loss import mse_loss
+from dyffusion_tpu_torch.utils.profiling import span
 
 Params = Optional[Mapping[str, torch.Tensor]]
 
@@ -309,7 +310,8 @@ class DyffusionEngine:
     ) -> torch.Tensor:
         """Forecaster forward F(x_t, t) with conditioning."""
         fcond = self._forecaster_condition(condition, t, static_condition, noise_generator)
-        return apply_model(self.forecaster, fc_params, x_t, self._encode_time(t), fcond, generator)
+        with span("engine.forecaster"):
+            return apply_model(self.forecaster, fc_params, x_t, self._encode_time(t), fcond, generator)
 
     def _forecaster_condition(
         self,
@@ -334,7 +336,8 @@ class DyffusionEngine:
     ) -> torch.Tensor:
         """Stochastic interpolator I(x0, x_h, i), time in interpolation units."""
         inputs = torch.cat([initial_condition, x_last], dim=1)
-        return apply_model(self.interpolator, ip_params, inputs, interpolation_time, static_condition, generator)
+        with span("engine.interpolator"):
+            return apply_model(self.interpolator, ip_params, inputs, interpolation_time, static_condition, generator)
 
     def q_sample(
         self,
@@ -407,9 +410,10 @@ class DyffusionEngine:
         #    forecaster normalizes with the batch statistics and returns its
         #    running-statistics updates (the l2 pass reads the old averages)
         fcond = self._forecaster_condition(condition, t, static_condition, generator)
-        xt_last_pred, updates = apply_model_train(
-            self.forecaster, fc_params, x_t, self._encode_time(t), fcond, generator
-        )
+        with span("engine.forecaster"):
+            xt_last_pred, updates = apply_model_train(
+                self.forecaster, fc_params, x_t, self._encode_time(t), fcond, generator
+            )
         loss_forward = self.criterion(xt_last_pred, xt_last)
         # 3) one-step diffusion-emulation loss (the l2 term)
         if lam2 > 0:

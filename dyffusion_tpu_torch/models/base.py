@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dyffusion_tpu_torch.parallel import distributed
+from dyffusion_tpu_torch.utils.profiling import span
 
 # the loss functions' metrics key under which a train-mode loss hands its
 # BatchNorm running-statistics updates to the train step (the JAX package's
@@ -132,7 +133,8 @@ class BatchNorm2d(nn.BatchNorm2d):
 def norm_call(norm: nn.Module, x: torch.Tensor, batch_stats: Optional[dict]) -> torch.Tensor:
     """Apply a normalization layer; only a :class:`BatchNorm2d` takes the
     ``batch_stats`` switch."""
-    return norm(x, batch_stats) if isinstance(norm, BatchNorm2d) else norm(x)
+    with span("backbone.norm"):
+        return norm(x, batch_stats) if isinstance(norm, BatchNorm2d) else norm(x)
 
 
 def has_batch_norm(module: nn.Module) -> bool:

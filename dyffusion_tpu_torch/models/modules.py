@@ -33,6 +33,7 @@ from dyffusion_tpu_torch.models.base import BatchNorm2d, Conv2d
 from dyffusion_tpu_torch.ops.linear_attention import linear_attention_qkv
 from dyffusion_tpu_torch.parallel import spatial
 from dyffusion_tpu_torch.utils import rng
+from dyffusion_tpu_torch.utils.profiling import span
 
 
 def dropout(
@@ -244,9 +245,11 @@ class _PreNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
                 level: Optional[spatial.Level] = None) -> torch.Tensor:
+        with span("backbone.norm"):
+            x = self.norm(x)
         if level is not None:
-            return self.fn(self.norm(x), generator, level=level)
-        return self.fn(self.norm(x), generator)
+            return self.fn(x, generator, level=level)
+        return self.fn(x, generator)
 
 
 class PreNormResidual(nn.Module):

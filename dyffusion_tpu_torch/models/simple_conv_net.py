@@ -27,6 +27,7 @@ from torch import nn
 from dyffusion_tpu_torch.models.modules import PromotingLinear, TimeEmbedder, dropout
 from dyffusion_tpu_torch.models.base import BatchNorm2d, norm_call
 from dyffusion_tpu_torch.parallel import spatial
+from dyffusion_tpu_torch.utils.profiling import span
 
 
 class ChannelLayerNorm(nn.Module):
@@ -100,7 +101,8 @@ class ConvBlock(nn.Module):
             c, n = self.conv, self.norm
             h, _ = spatial.conv2d(x, c.weight, c.bias, level, c.stride[0], c.padding[0])
             if isinstance(n, nn.GroupNorm):
-                h = spatial.group_norm(h, n.num_groups, n.weight, n.bias, n.eps, level)
+                with span("backbone.norm"):
+                    h = spatial.group_norm(h, n.num_groups, n.weight, n.bias, n.eps, level)
             else:
                 h = norm_call(n, h, batch_stats)
         if self.time_mlp is not None and time_emb is not None:

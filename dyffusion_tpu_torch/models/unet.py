@@ -34,6 +34,7 @@ from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from dyffusion_tpu_torch.models.base import Conv2d, concat_condition
 from dyffusion_tpu_torch.parallel import spatial
+from dyffusion_tpu_torch.utils.profiling import span
 from dyffusion_tpu_torch.models.modules import (
     Attention,
     LinearAttention,
@@ -55,9 +56,12 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, level: Optional[spatial.Level] = None) -> torch.Tensor:
         if level is not None:
-            n = self.norm
-            return spatial.group_norm(self.proj(x, level), n.num_groups, n.weight, n.bias, n.eps, level)
-        return self.norm(self.proj(x))
+            n, x = self.norm, self.proj(x, level)
+            with span("backbone.norm"):
+                return spatial.group_norm(x, n.num_groups, n.weight, n.bias, n.eps, level)
+        x = self.proj(x)
+        with span("backbone.norm"):
+            return self.norm(x)
 
 
 class ResnetBlock(nn.Module):

@@ -48,6 +48,7 @@ from dyffusion_tpu_torch.models.modules import PromotingLinear, TimeEmbedder, dr
 from dyffusion_tpu_torch.models.unet import remat_call
 from dyffusion_tpu_torch.parallel import spatial
 from dyffusion_tpu_torch.utils import resize as resize_ops
+from dyffusion_tpu_torch.utils.profiling import span
 
 RELU_LEAK = 0.2
 
@@ -98,8 +99,10 @@ class UNetBlock(nn.Module):
     ) -> torch.Tensor:
         conv, norm = self.ops[-2], self.ops[-1]
         if level is None:
-            for op in self.ops[:-1]:
-                x = op(x)
+            if isinstance(self.ops[0], nn.Upsample):
+                with span("backbone.upsample"):
+                    x = self.ops[0](x)
+            x = conv(x)
             x = norm_call(norm, x, batch_stats)
         else:
             out = self.out_level(level)  # what ``UNetSimple._block`` hands the next block
@@ -109,7 +112,8 @@ class UNetBlock(nn.Module):
                 x, level = spatial.conv2d(x, conv.weight, conv.bias, level, conv.stride[0], conv.padding[0])
             assert level == out, f"the block's output is {level}, its out_level {out}"
             if isinstance(norm, nn.GroupNorm):
-                x = spatial.group_norm(x, norm.num_groups, norm.weight, norm.bias, norm.eps, level)
+                with span("backbone.norm"):
+                    x = spatial.group_norm(x, norm.num_groups, norm.weight, norm.bias, norm.eps, level)
             else:
                 x = norm_call(norm, x, batch_stats)
         if self.time_mlp is not None and time_emb is not None:
@@ -184,9 +188,10 @@ class UNetSimple(nn.Module):
         """The outer resample to ``size`` (H, W) by ``outer_sample_mode``,
         ``jax.image.resize``'s method (``utils.resize``), and its level
         (None on one device)."""
-        if level is not None:
-            return spatial.resize(x, level, size, resize_ops.mode(self.outer_sample_mode))
-        return resize_ops.resize(x, size, self.outer_sample_mode), None
+        with span("backbone.resize"):
+            if level is not None:
+                return spatial.resize(x, level, size, resize_ops.mode(self.outer_sample_mode))
+            return resize_ops.resize(x, size, self.outer_sample_mode), None
 
     def _block(self, block, x, t, batch_stats, generator, level: Optional[spatial.Level]):
         """A block on the level of its input, checkpointed under remat when

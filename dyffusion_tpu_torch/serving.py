@@ -156,14 +156,17 @@ def build_experiment_predict_fn(
     ``None`` is the model's own weights). ``input_specs`` takes its layout
     from the split's own data, dynamics cut to the frames served, leading
     dim ``batch_size`` (default: the datamodule's eval batch size)."""
+    from dyffusion_tpu_torch.utils.profiling import span
+
     _check_reduce(reduce)
     input_specs, info = _serving_contract(experiment, datamodule, split, batch_size, reduce)
     body = _predict_body(eval_fns[split], reduce)
 
     def predict(batch: Dict[str, Any], seed: int) -> torch.Tensor:
-        generator = torch.Generator(device=experiment.device)
-        generator.manual_seed(int(seed))
-        return body(batch, generator, params)
+        with span("serving.request"):
+            generator = torch.Generator(device=experiment.device)
+            generator.manual_seed(int(seed))
+            return body(batch, generator, params)
 
     return predict, input_specs, info
 

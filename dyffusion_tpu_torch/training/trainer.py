@@ -72,6 +72,7 @@ from dyffusion_tpu_torch.training.checkpoint import CheckpointManager
 from dyffusion_tpu_torch.training.state import TrainState
 from dyffusion_tpu_torch.utils import rng
 from dyffusion_tpu_torch.utils.logging import is_rank_zero, save_arrays_as_line_plot
+from dyffusion_tpu_torch.utils.profiling import span
 
 # loss_fn(params, batch, generator) -> (loss, metrics); params replaces the
 # model's weights for the call (None: its own)
@@ -148,25 +149,27 @@ def make_train_step(loss_fn: LossFn, watch_gradients: bool = False,
         if n_data > 1:  # the K ranks of a model group hold the same rows
             n = int(next(iter(batch.values())).shape[0])
             rows = rng.row_shard(state.row_generator, n * n_data, distributed.data_rank() * n)
-        with rows, sharded():
+        with span("trainer.forward"), rows, sharded():
             loss, metrics = loss_fn(None, batch, state.generator)
         metrics = dict(metrics)
         updates = metrics.pop(MODEL_STATE_UPDATES, None)
-        loss.backward()
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        if world > 1:
-            distributed.all_reduce_gradients(state.params.values())
-            metrics = distributed.all_reduce_mean(metrics)
-        with torch.no_grad():
-            grads = [p.grad for p in state.params.values() if p.grad is not None]
-            n_total = sum(p.numel() for p in state.params.values())
-            metrics["grad_norm"] = torch.sqrt(sum(g.float().square().sum() for g in grads))
-            # zero-gradient fraction; a weight the loss does not reach counts as zeros
-            n_unreached = n_total - sum(g.numel() for g in grads)
-            metrics["zero_grad_frac"] = (sum((g == 0).sum() for g in grads) + n_unreached) / n_total
-            if watch_gradients:
-                metrics.update(gradient_watch_metrics(state.params))
-        state.apply_gradients(updates)
+        with span("trainer.backward"):
+            loss.backward()
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            if world > 1:
+                distributed.all_reduce_gradients(state.params.values())
+                metrics = distributed.all_reduce_mean(metrics)
+        with span("trainer.update"):
+            with torch.no_grad():
+                grads = [p.grad for p in state.params.values() if p.grad is not None]
+                n_total = sum(p.numel() for p in state.params.values())
+                metrics["grad_norm"] = torch.sqrt(sum(g.float().square().sum() for g in grads))
+                # zero-gradient fraction; a weight the loss does not reach counts as zeros
+                n_unreached = n_total - sum(g.numel() for g in grads)
+                metrics["zero_grad_frac"] = (sum((g == 0).sum() for g in grads) + n_unreached) / n_total
+                if watch_gradients:
+                    metrics.update(gradient_watch_metrics(state.params))
+            state.apply_gradients(updates)
         return metrics
 
     return train_step

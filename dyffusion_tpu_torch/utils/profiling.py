@@ -1,5 +1,18 @@
-"""Tracing and profiling: wall-clock scopes, ``torch.profiler`` traces and a
-device-memory report (counterpart of ``dyffusion_tpu/utils/profiling.py``).
+"""Tracing and profiling: spans, wall-clock scopes, ``torch.profiler`` traces
+and a device-memory report (counterpart of ``dyffusion_tpu/utils/profiling.py``).
+
+:func:`span` names a region of the program in a ``torch.profiler`` trace. The
+port opens these, named ``<layer>.<what>``:
+
+- ``serving.request``: the body of ``predict`` (``serving.build_experiment_predict_fn``);
+- ``engine.forecaster``, ``engine.interpolator``: the DYffusion engine's
+  network calls (``diffusion/dyffusion.py``);
+- ``backbone.norm``: every norm of the ``Unet``, ``UNetSimple`` and
+  ``SimpleConvNet``; ``backbone.upsample``: ``UNetSimple``'s decoder x2
+  bilinear; ``backbone.resize``: its outer resample to the working grid and back;
+- ``trainer.forward``, ``trainer.backward``, ``trainer.update``: the loss, the
+  backward with the gradient all-reduce, and the optimizer step of
+  ``training/trainer.py::make_train_step``.
 """
 from __future__ import annotations
 
@@ -9,6 +22,26 @@ import time
 from typing import Iterator, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+_NO_SPAN = contextlib.nullcontext()
+# a host op of the trace (``cpu_op``) on the profiler's clock, which trace
+# readers that keep host ops (``benchmark/trace.py``) see with the aten ops;
+# about a twelfth of the cost of ``torch.profiler.record_function``'s annotation
+_record = torch._C._profiler._RecordFunctionFast
+
+
+def span(name: str):
+    """Context manager that records the region as the host op ``name`` while
+    a ``torch.profiler`` session records, nested in the spans open around
+    it: the kernels it launches are those of the trace's device rows whose
+    launch call falls inside it. Otherwise, and while ``torch.compile`` or
+    ``torch.export`` traces (a span adds no node to a graph), it reads one
+    flag and does nothing. It keeps no state: the profiler holds the events
+    until its trace is exported."""
+    if not _autograd_profiler._is_profiler_enabled or torch.compiler.is_compiling() or torch.compiler.is_exporting():
+        return _NO_SPAN
+    return _record(name)
 
 
 @contextlib.contextmanager
