@@ -1628,13 +1628,16 @@ def phase_physical(card, key):
     hook fails the same check); a seed repeats its answer, another does not.
     Prints each command's wall time and peak memory, and the request time.
     The launch counts are set to 0 before the path and read after it: no
-    kernel of the port lies on these paths. Returns them."""
+    kernel of the port lies on these paths. Returns them. So are
+    ``UNetSimple``'s decoder upsamples: on NS all channels-last (one
+    device, CUDA), on spring none."""
     import numpy as np
     import torch
 
     from dyffusion_tpu_torch import train
     from dyffusion_tpu_torch.config import get_config
     from dyffusion_tpu_torch.interface import reload_trainer
+    from dyffusion_tpu_torch.models import unet_simple as us
     from dyffusion_tpu_torch.ops import fused_act as fa
     from dyffusion_tpu_torch.ops import linear_attention as la
     from dyffusion_tpu_torch.serving import build_predict_fn
@@ -1646,6 +1649,7 @@ def phase_physical(card, key):
     tag = f"[{spec['label']}]"
     la.reset_launches()
     fa.reset_launches()
+    us.reset_upsamples()
     with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{spec['label']}_") as tmp:
         data = _physical_archive(os.path.join(tmp, "data"), key)
         reg = os.path.join(tmp, "runs")
@@ -1712,6 +1716,7 @@ def phase_physical(card, key):
             "serving by run id: test eval + 3 requests + the raw sampler", serve)
     counts = {"linear_attention_qkv": la.launches, "linear_attention_core": la.core_launches,
               "fused_leaky_relu": fa.launches}
+    upsamples = {"channels_last": us.upsample_channels_last, "nchw": us.upsample_nchw}
     n_frames = a.shape[2]
     errs = [_boundary_error(key, a[:, :, i - 1].cpu().numpy(), batch, batch["metadata_t0"] + batch["metadata_dt"] * i)
             for i in range(1, n_frames + 1)]
@@ -1727,7 +1732,7 @@ def phase_physical(card, key):
     print(f"{tag} boundary conditions: worst error over {n_frames} served frames {max(errs):.3e}; the sampler "
           f"without the hook: {raw_err:.3e}; same seed max diff {repeat:.3e}, other seed {apart:.3e}; running "
           f"statistics unchanged by evaluation and serving: {unchanged}; kernel launches on this path {counts}; "
-          f"on {card}")
+          f"UNetSimple decoder upsamples {upsamples}; on {card}")
     if not all(np.isfinite(x) for x in (best1, best2, crps)) or not bool(torch.isfinite(a).all()):
         raise AssertionError(f"{tag} a non-finite score or forecast: {best1}, {best2}, {crps}")
     if max(errs) > 1e-5 or raw_err <= 1e-3:
@@ -1738,6 +1743,8 @@ def phase_physical(card, key):
         raise AssertionError(f"{tag} evaluation or serving changed the running statistics")
     if any(counts.values()):
         raise AssertionError(f"{tag} a kernel launched on a path without linear attention or B2: {counts}")
+    if upsamples["nchw"] or bool(upsamples["channels_last"]) != (key == "navier_stokes"):
+        raise AssertionError(f"{tag} UNetSimple's decoder did not run channels-last throughout: {upsamples}")
     return counts
 
 
@@ -4003,12 +4010,14 @@ def spatial_physical(work, data, world, rank):
     train steps at B32 (seconds, peak memory); then one spring stage-2
     step on H (loss and gradients). Each with its wall time and peak
     memory, and the B1-B3 launches of all of it. Arrays and gradients into
-    ``work``."""
+    ``work``. ``UNetSimple``'s one-device decoder upsamples, channels-last
+    and NCHW, counted over the NS work."""
     import gc
 
     import numpy as np
     import torch
 
+    from dyffusion_tpu_torch.models import unet_simple as us
     from dyffusion_tpu_torch.ops import fused_act as fa
     from dyffusion_tpu_torch.ops import linear_attention as la
     from dyffusion_tpu_torch.parallel import spatial
@@ -4024,6 +4033,7 @@ def spatial_physical(work, data, world, rank):
 
     la.reset_launches()
     fa.reset_launches()
+    us.reset_upsamples()
     out, arrays, grads = {}, {}, {}
     trainer = _spatial_physical_trainers("navier_stokes", data["navier_stokes"], world, SPATIAL_NS)
     progress("NS trainers built")
@@ -4062,6 +4072,7 @@ def spatial_physical(work, data, world, rank):
     progress("NS train steps start")
     out["ns train"] = _spatial_train_steps(trainer, SPATIAL_NS_TRAIN_STEPS)
     progress("NS train steps")
+    out["upsamples"] = {"channels_last": us.upsample_channels_last, "nchw": us.upsample_nchw}
     del trainer, batch, got
     free()
     open(os.path.join(work, f"done ns train {world} {rank}"), "w").close()
@@ -4590,6 +4601,11 @@ def _spatial_physical_checks(work, ranks, one, card):
     launches = [p["launches"] for p in phys] + [one["physical"]["launches"]]
     print(f"[spatial] kernel launches on the NS and spring paths, each process: {launches}")
     assert not any(v for c in launches for v in c.values()), f"a kernel launched on the physical paths: {launches}"
+    upsamples = [p["upsamples"] for p in phys] + [one["physical"]["upsamples"]]
+    print(f"[spatial] UNetSimple's one-device decoder upsamples over the NS work (channels-last input or not), "
+          f"the two ranks, then the witness: {upsamples}")
+    assert not any(v for p in upsamples[:2] for v in p.values()) and upsamples[2]["channels_last"], \
+        f"the ranks ran a one-device upsample, or the witness none channels-last: {upsamples}"
 
 
 def _metrics_rel(got, want):

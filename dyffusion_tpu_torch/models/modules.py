@@ -37,17 +37,23 @@ from dyffusion_tpu_torch.utils.profiling import span
 
 
 def dropout(
-    x: torch.Tensor, p: float, generator: Optional[torch.Generator], slab: Optional[rng.Slab] = None
+    x: torch.Tensor, p: float, generator: Optional[torch.Generator], slab: Optional[rng.Slab] = None,
+    channels_last: bool = False,
 ) -> torch.Tensor:
     """Inverted dropout with an explicit generator: keep each element with
     probability 1-p and scale it by 1/(1-p) (flax ``nn.Dropout``).
     ``generator=None`` or ``p == 0`` returns ``x``. With ``slab`` (spatial
     sharding), ``x`` is a rank's slab and its mask the slab of the global
-    draw."""
+    draw. The mask is drawn by ``x``'s logical shape; ``channels_last``
+    keeps a channels-last ``x``'s layout (``torch.where`` takes the
+    contiguous mask's) with the same values: the mask's complement filled
+    with zeros."""
     if generator is None or p == 0.0:
         return x
-    keep = rng.rand(x.shape, generator, x.device, slab=slab) < 1.0 - p
-    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
+    u = rng.rand(x.shape, generator, x.device, slab=slab)
+    if channels_last:
+        return (x / (1.0 - p)).masked_fill_(u >= 1.0 - p, 0.0)
+    return torch.where(u < 1.0 - p, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Dropout(nn.Module):

@@ -105,10 +105,10 @@ class ResnetBlock(nn.Module):
 
 
 def remat_call(block: nn.Module, generator: Optional[torch.Generator], *args,
-               level: Optional[spatial.Level] = None) -> torch.Tensor:
-    """``block(*args, generator)`` (with ``level``: ``block(*args,
-    generator, level)``) under ``torch.utils.checkpoint``: the backward
-    recomputes the block's activations instead of keeping them.
+               level: Optional[spatial.Level] = None, **kwargs) -> torch.Tensor:
+    """``block(*args, generator, **kwargs)`` (with ``level``: ``block(*args,
+    generator, level, **kwargs)``) under ``torch.utils.checkpoint``: the
+    backward recomputes the block's activations instead of keeping them.
 
     The recompute must see what the forward saw. ``checkpoint`` restores
     only the global RNG states, so the explicit generator's state is taken
@@ -128,12 +128,12 @@ def remat_call(block: nn.Module, generator: Optional[torch.Generator], *args,
     def run(*inputs):
         calls.append(None)
         if len(calls) == 1:  # the forward
-            return block(*inputs, generator, *tail)
+            return block(*inputs, generator, *tail, **kwargs)
         replay = None
         if state is not None:
             replay = torch.Generator(device=generator.device)
             replay.set_state(state)
-        return torch.func.functional_call(block, params, (*inputs, replay, *tail))
+        return torch.func.functional_call(block, params, (*inputs, replay, *tail), kwargs)
 
     with contextlib.nullcontext() if level is None else set_checkpoint_early_stop(False):
         return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)

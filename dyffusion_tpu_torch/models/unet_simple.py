@@ -34,9 +34,29 @@ world's (``models/base.py``), the last encoder block's GroupNorm sums its
 moments over the model group, dropout keeps the slab of the global mask;
 the 1x1 ``init_conv``, FiLM and the activations stay local. Under remat a
 block's collectives replay in the forward's order (``unet.remat_call``).
+
+On one device, on CUDA tensors (:func:`channels_last_interior`) of a
+concrete batch, the interior runs channels-last: the input, once resampled and concatenated
+with the condition, turns ``torch.channels_last`` before ``init_conv``,
+and the readout's output turns back to contiguous NCHW before the
+resample to the original grid; the weights stay NCHW. The convs then run
+natively NHWC in cuDNN, without its per-conv transposes, and each
+decoder's bilinear x2 takes ATen's NHWC kernel (one thread per output
+element, loads along C) instead of the NCHW one, whose one thread per
+output pixel loops over every row and channel. ``forward`` decides the
+layout once and hands it to each block; every op between keeps it
+(dropout told so, GroupNorm repaired where a backend answers NCHW); the
+values are the NCHW computation's up to the convs' order of summation.
+The NHWC kernel refuses an output of 2**31 elements or more: such an
+upsample, and its conv, run in chunks of rows. A symbolic batch
+(``torch.export`` with a polymorphic batch) cannot be cut into a known
+number of chunks, so it keeps the whole forward NCHW.
+``upsample_channels_last`` and ``upsample_nchw`` count the decoder's
+one-device upsamples whose input was channels-last, and the others.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -51,6 +71,31 @@ from dyffusion_tpu_torch.utils import resize as resize_ops
 from dyffusion_tpu_torch.utils.profiling import span
 
 RELU_LEAK = 0.2
+
+# Decoder bilinear x2 upsamples on one device since the last reset: those
+# run channels-last, and the others. The fused upsample + conv of a shard
+# counts in neither.
+upsample_channels_last = 0
+upsample_nchw = 0
+
+
+def reset_upsamples() -> None:
+    global upsample_channels_last, upsample_nchw
+    upsample_channels_last = upsample_nchw = 0
+
+
+# ATen's NHWC bilinear kernel indexes its output with 32-bit ints: it
+# refuses an output of this many elements or more
+NHWC_UPSAMPLE_LIMIT = 2**31 - 1
+
+
+def channels_last_interior(x: torch.Tensor) -> bool:
+    """Whether a one-device forward on ``x`` of a concrete batch runs its
+    interior channels-last: on CUDA tensors. On the CPU oneDNN's channels-last convs sum in another
+    order than its NCHW ones, and over three Adam steps that moves an NS
+    run on one process past its tolerance against the same run on two
+    ranks (``tests/test_torch_port_spatial_physical.py``)."""
+    return x.is_cuda
 
 
 class UNetBlock(nn.Module):
@@ -89,6 +134,22 @@ class UNetBlock(nn.Module):
         conv = self.ops[0]
         return level.conv(conv.kernel_size[0], conv.stride[0], conv.padding[0])
 
+    def _upsample_conv(self, x: torch.Tensor, channels_last: bool) -> torch.Tensor:
+        """The decoder's bilinear x2 and conv on one device. A channels-last
+        input whose upsample would reach :data:`NHWC_UPSAMPLE_LIMIT`
+        elements runs in even chunks of rows below it, each upsampled and
+        convolved, the conv outputs concatenated (they have fewer channels
+        than the upsamples)."""
+        up, conv = self.ops[0], self.ops[1]
+        n, rows = x.shape[0], max(1, (NHWC_UPSAMPLE_LIMIT - 1) // (4 * math.prod(x.shape[1:])))
+        chunked = channels_last and n > rows
+        outs = []
+        for part in x.tensor_split(-(-n // rows)) if chunked else (x,):
+            with span("backbone.upsample"):
+                part = up(part)
+            outs.append(conv(part))
+        return torch.cat(outs) if chunked else outs[0]
+
     def forward(
         self,
         x: torch.Tensor,
@@ -96,14 +157,24 @@ class UNetBlock(nn.Module):
         batch_stats: Optional[dict] = None,
         generator: Optional[torch.Generator] = None,
         level: Optional[spatial.Level] = None,
+        channels_last: bool = False,
     ) -> torch.Tensor:
+        """``channels_last`` (one device only): the interior's layout, as
+        ``UNetSimple.forward`` decided it."""
+        global upsample_channels_last, upsample_nchw
         conv, norm = self.ops[-2], self.ops[-1]
         if level is None:
             if isinstance(self.ops[0], nn.Upsample):
-                with span("backbone.upsample"):
-                    x = self.ops[0](x)
-            x = conv(x)
+                if x.is_contiguous(memory_format=torch.channels_last):
+                    upsample_channels_last += 1
+                else:
+                    upsample_nchw += 1
+                x = self._upsample_conv(x, channels_last)
+            else:
+                x = conv(x)
             x = norm_call(norm, x, batch_stats)
+            if channels_last:  # CUDA's GroupNorm answers contiguous NCHW
+                x = x.contiguous(memory_format=torch.channels_last)
         else:
             out = self.out_level(level)  # what ``UNetSimple._block`` hands the next block
             if isinstance(self.ops[0], nn.Upsample):
@@ -121,7 +192,7 @@ class UNetBlock(nn.Module):
             # keep x's dtype: the f32 time MLP must not upcast the conv path
             x = x * (scale.to(x.dtype) + 1.0) + shift.to(x.dtype)
         x = F.relu(x) if self.relu else F.leaky_relu(x, RELU_LEAK)
-        return dropout(x, self.dropout, generator, None if level is None else level.slab)
+        return dropout(x, self.dropout, generator, None if level is None else level.slab, channels_last)
 
 
 class UNetSimple(nn.Module):
@@ -193,13 +264,13 @@ class UNetSimple(nn.Module):
                 return spatial.resize(x, level, size, resize_ops.mode(self.outer_sample_mode))
             return resize_ops.resize(x, size, self.outer_sample_mode), None
 
-    def _block(self, block, x, t, batch_stats, generator, level: Optional[spatial.Level]):
+    def _block(self, block, x, t, batch_stats, generator, level: Optional[spatial.Level], channels_last: bool):
         """A block on the level of its input, checkpointed under remat when
         gradients are being recorded; its output and the output's level."""
         if self.remat and torch.is_grad_enabled():
-            x = remat_call(block, generator, x, t, batch_stats, level=level)
+            x = remat_call(block, generator, x, t, batch_stats, level=level, channels_last=channels_last)
         else:
-            x = block(x, t, batch_stats, generator, level)
+            x = block(x, t, batch_stats, generator, level, channels_last)
         return x, None if level is None else block.out_level(level)
 
     def forward(
@@ -221,20 +292,26 @@ class UNetSimple(nn.Module):
         orig_shape = tuple(x.shape[-2:]) if shard is None else shard.spatial
         if self.upsample_dims is not None:
             x, lv = self._resize(x, self.upsample_dims, lv)
+        # under export a polymorphic batch is symbolic: no chunks can be counted for it
+        channels_last = lv is None and isinstance(x.shape[0], int) and channels_last_interior(x)
+        if channels_last:
+            x = x.contiguous(memory_format=torch.channels_last)
         # a 1x1 conv: local on a slab
-        x = dropout(self.init_conv(x), self.input_dropout, generator, None if lv is None else lv.slab)
+        x = dropout(self.init_conv(x), self.input_dropout, generator, None if lv is None else lv.slab, channels_last)
         skips = []
         for block in self.input_ops:
-            x, lv = self._block(block, x, t, batch_stats, generator, lv)
+            x, lv = self._block(block, x, t, batch_stats, generator, lv, channels_last)
             skips.append((x, lv))
         x, lv = skips.pop()
         for block in self.output_ops:
-            x, lv = self._block(block, x, t, batch_stats, generator, lv)
+            x, lv = self._block(block, x, t, batch_stats, generator, lv, channels_last)
             if skips:
                 x = torch.cat([x, skips.pop()[0]], dim=1)
         readout = self.readout[0]
         if lv is None:
             x = readout(x)
+            if channels_last:
+                x = x.contiguous()
         else:
             x, lv = spatial.conv_transpose2d(x, readout.weight, readout.bias, lv, readout.stride[0],
                                              readout.padding[0])

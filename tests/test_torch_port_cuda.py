@@ -865,3 +865,102 @@ def test_learned_sinusoidal_unet_on_the_gpu_matches_the_cpu(deterministic_cudnn,
     want = model(x, time=t)
     got = model.cuda()(x.cuda(), time=t.cuda()).cpu()
     _assert_close_to_scale(got, want.detach(), 1e-5)
+
+
+def _unet_simple_cuda(dim, dtype, dropout=0.0):
+    """A ``UNetSimple`` (NS's structure: 3 + 2 channels, time embedding, a
+    256x256 working grid unless narrowed by the caller) on the card in
+    ``dtype``, eval mode, its weights spread to N(0, 1/fan_in) (at the DCGAN
+    init the output is ~0)."""
+    from dyffusion_tpu_torch.models import unet_simple as us
+
+    torch.manual_seed(0)
+    m = us.UNetSimple(dim, 3, 3, 2, with_time_emb=True, upsample_dims=(128, 128) if dim < 64 else (256, 256),
+                      dropout=dropout)
+    with torch.no_grad():
+        for p in m.parameters():
+            if p.dim() > 1:
+                p.normal_(0.0, p[0].numel() ** -0.5)
+    return m.cuda().to(dtype).eval()
+
+
+def _nchw_call(m, *args):
+    """``m(*args)`` with ``UNetSimple``'s interior left NCHW."""
+    from dyffusion_tpu_torch.models import unet_simple as us
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(us, "channels_last_interior", lambda x: False)
+        return m(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("chunked", [False, True], ids=["whole", "chunked"])
+def test_unet_simple_interior_runs_channels_last(dtype, chunked, monkeypatch):
+    """``UNetSimple``'s one-device forward on the card: every block's output
+    channels-last, the decoder's six upsamples counted so, the answer
+    contiguous NCHW and, with the same dropout draws, the forward with the
+    interior left NCHW (TF32 off, so f32 holds to the convs' order of
+    summation). ``chunked`` lowers the NHWC kernel's element limit so that
+    the last decoder block runs in chunks of rows."""
+    _require_cuda()
+    from dyffusion_tpu_torch.models import unet_simple as us
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    dt = getattr(torch, dtype)
+    m = _unet_simple_cuda(16, dt, dropout=0.15)
+    g = torch.Generator().manual_seed(1)
+    x, cond = torch.randn(6, 3, 22, 10, generator=g), torch.randn(6, 2, 22, 10, generator=g)
+    x, cond, t = x.cuda().to(dt), cond.cuda().to(dt), torch.rand(6, generator=g).cuda()
+    if chunked:  # 16 channels x 128 x 128 a row out of the last block: 4 rows a chunk
+        monkeypatch.setattr(us, "NHWC_UPSAMPLE_LIMIT", 4 * 16 * 128 * 128 + 1)
+    layouts = []
+    for b in list(m.input_ops) + list(m.output_ops):
+        b.register_forward_hook(lambda mod, i, o: layouts.append(o.is_contiguous(memory_format=torch.channels_last)))
+    with torch.no_grad():
+        us.reset_upsamples()
+        got = m(x, t, cond, torch.Generator("cuda").manual_seed(3))
+        assert (us.upsample_channels_last, us.upsample_nchw) == (6, 0)
+        assert layouts == [True] * 12 and got.is_contiguous()
+        us.reset_upsamples()
+        want = _nchw_call(m, x, t, cond, torch.Generator("cuda").manual_seed(3))
+        assert (us.upsample_channels_last, us.upsample_nchw) == (0, 6)
+    _assert_close_to_scale(got, want, {torch.float32: 1e-4, torch.bfloat16: 1e-2}[dt])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", ["symbolic", "pinned"])
+def test_unet_simple_export_serves_past_the_nhwc_limit(batch):
+    """NS's ``UNetSimple`` at full width in bf16, exported as the serving
+    artifact exports it (``torch.export``, a polymorphic batch by default)
+    and run at ns-serve's cold pair of 160 rows, whose last decoder upsample
+    holds 160 x 256 x 256 x 256 elements, past the 2**31 that ATen's NHWC
+    kernel takes: under a symbolic batch the program stays NCHW, with a
+    pinned one it runs channels-last in chunks. Each answers as the eager
+    forward in its layout does. (bf16 as served: in f32, eval BatchNorm's
+    choice of cuDNN guards the batch to 65535 rows, and a batch without an
+    upper bound does not export.)"""
+    _require_cuda()
+    from dyffusion_tpu_torch.models import unet_simple as us
+
+    dt = torch.bfloat16
+    m = _unet_simple_cuda(64, dt)
+    g = torch.Generator().manual_seed(1)
+    rows = 160
+    x, cond = torch.randn(rows, 3, 221, 42, generator=g), torch.randn(rows, 2, 221, 42, generator=g)
+    x, cond, t = x.cuda().to(dt), cond.cuda().to(dt), torch.rand(rows, generator=g).cuda()
+    assert rows * 256 * 256 * 256 > us.NHWC_UPSAMPLE_LIMIT
+    trace = (x[:2], t[:2], cond[:2]) if batch == "symbolic" else (x, t, cond)
+    dynamic = None
+    if batch == "symbolic":
+        b = torch.export.Dim("b", min=1)
+        dynamic = ({0: b}, {0: b}, {0: b})
+    us.reset_upsamples()
+    with torch.no_grad():
+        program = torch.export.export(m, trace, dynamic_shapes=dynamic)
+    assert (us.upsample_channels_last, us.upsample_nchw) == ((0, 6) if batch == "symbolic" else (6, 0))
+    with torch.no_grad():
+        got = program.module()(x, t, cond)
+        want = _nchw_call(m, x, t, cond) if batch == "symbolic" else m(x, t, cond)
+    assert got.shape == (rows, 3, 221, 42) and bool(torch.isfinite(got).all())
+    _assert_close_to_scale(got, want, 1e-2)
